@@ -1,0 +1,35 @@
+"""Page geometry helper (port of origami_tpu/core/math.py `Geometry`,
+the part that core.page needs)."""
+
+from __future__ import annotations
+
+import math
+
+
+class Geometry:
+    """Page geometry: converts relative lengths/areas (fractions of the
+    page diagonal / its square) to absolute pixel quantities."""
+
+    def __init__(self, width, height):
+        self._w = float(width)
+        self._h = float(height)
+        self._diameter = math.hypot(self._w, self._h)
+
+    @property
+    def size(self):
+        return self._w, self._h
+
+    @property
+    def area(self):
+        return self._w * self._h
+
+    @property
+    def diameter(self):
+        return self._diameter
+
+    def rel_length(self, length):
+        return length * self._diameter
+
+    def rel_area(self, area):
+        # (a * diameter)^2, as the reference (origami/core/math.py:90-91)
+        return (area * self._diameter) ** 2

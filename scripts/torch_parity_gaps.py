@@ -1,0 +1,134 @@
+"""Measure, on the CPU, the parity gaps between the PyTorch port's plain
+kernels and the JAX functions they are held against (ROADMAP.md, queue
+C): numbers the parity tests only bound.
+
+    JAX_PLATFORMS=cpu python scripts/torch_parity_gaps.py
+
+  1. strip mode (a) vs the JAX banded route (extract_strips_banded) and
+     vs the direct affine sample (extract_line_strips) as lines tilt;
+  2. the port's dewarp vs the JAX dense route on the fixture pages'
+     own grids (page-boundary pixels of the hard edge);
+  3. remap vs remap_pallas(interpret=True) on a map off the 1/64-px
+     lattice.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from pathlib import Path
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from origami_tpu.core.dewarp import Grid as JaxGrid  # noqa: E402
+from origami_tpu.core.dewarp import _jitted_dewarp_fns  # noqa: E402
+from origami_tpu.ops import remap as jax_remap  # noqa: E402
+from origami_tpu.ops.pallas.remap import remap_pallas  # noqa: E402
+from origami_tpu_torch.core import _png  # noqa: E402
+from origami_tpu_torch.core.block import BAND_PAD, Line  # noqa: E402
+from origami_tpu_torch.ops import remap as ops  # noqa: E402
+
+FIXTURE = ROOT / "tests/data/torch_ocr/full"
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def frames(specs, th=48):
+    fr, wd = [], []
+    for x, y, length, height, slope in specs:
+        line = Line(None, p=[x, y], right=[length, length * slope],
+                    up=[height * slope, -height])
+        band_h = height * np.hypot(1, slope) * (1 + sum(BAND_PAD))
+        f, w = line.dewarped_frame(th, xres=th / band_h, pad=BAND_PAD)
+        fr.append(f)
+        wd.append(w)
+    return np.stack(fr).astype(np.float32), np.asarray(wd, np.int32)
+
+
+def strip_drift(crop):
+    print("1. strip mode (a): share of pixels within 1 gray level")
+    print("   slope   vs extract_strips_banded   vs extract_line_strips "
+          "(max |diff|, inside the page)")
+    for slope in (0.0, 5e-4, 1e-3, 2e-3, 3e-3, 5e-3, 1e-2, 2e-2):
+        fr, wd = frames([(20, 60, 100, 14, slope), (40, 120, 90, 18, -slope),
+                         (5, 190, 100, 16, slope), (150, 40, 60, 20, slope)])
+        banded = np.asarray(jax_remap.extract_strips_banded(
+            jnp.asarray(crop), jnp.asarray(fr), jnp.asarray(wd), 48, 256,
+            64, 264, 6, 255.0))
+        direct = np.asarray(jax_remap.extract_line_strips(
+            jnp.asarray(crop.astype(np.float32)), jnp.asarray(fr),
+            jnp.asarray(wd), 48, 256, 255.0))
+        got = ops.strips_dewarped(t(crop), t(fr), t(wd), 48, 256).numpy()
+        d = np.abs(got.astype(int) - banded.astype(int))
+        xs = np.arange(256, dtype=np.float32)[None, None, :]
+        ys = np.arange(48, dtype=np.float32)[None, :, None]
+        px = fr[:, 0, 0, None, None] * xs + fr[:, 0, 1, None, None] * ys \
+            + fr[:, 0, 2, None, None]
+        py = fr[:, 1, 0, None, None] * xs + fr[:, 1, 1, None, None] * ys \
+            + fr[:, 1, 2, None, None]
+        h, w = crop.shape
+        inside = ((px >= 1) & (px <= w - 2) & (py >= 1) & (py <= h - 2)
+                  & (xs < wd[:, None, None]))
+        dd = np.abs(got.astype(np.float32) - direct)[inside]
+        print("   %-7g %.5f (max %3d)               %.3f"
+              % (slope, (d <= 1).mean(), d.max(), dd.max()))
+
+
+def dewarp_edges():
+    print("2. dewarp vs the JAX dense route on the fixture grids")
+    for png in sorted(FIXTURE.glob("*.png")):
+        grid = JaxGrid.open(png.with_suffix(".out") / "dewarp.zip")
+        page = _png.read_gray(png)
+        ref = np.asarray(_jitted_dewarp_fns()[1](
+            jnp.asarray(page), jnp.asarray(grid._hv),
+            jnp.ones(2, jnp.float32), grid.resolution))
+        got = ops.dewarp_u8(t(page), t(grid._hv), grid.resolution).numpy()
+        d = np.abs(got.astype(int) - ref.astype(int))
+        mx, my = (p.numpy() for p in ops._upsample_grid(t(grid._hv),
+                                                         grid.resolution))
+        h, w = page.shape
+        edge = ((np.abs(mx) < 1e-3) | (np.abs(mx - (w - 1)) < 1e-3)
+                | (np.abs(my) < 1e-3) | (np.abs(my - (h - 1)) < 1e-3))
+        big = d > 1
+        print("   %s: %d of %d pixels > 1 off (max %d), %d of them on a "
+              "page-boundary coordinate" % (png.name, big.sum(), d.size,
+                                            d.max(), (big & edge).sum()))
+
+
+def remap_offlattice(crop):
+    print("3. remap vs remap_pallas(interpret=True), map off the lattice")
+    img = crop.astype(np.float32)
+    yy, xx = np.meshgrid(np.arange(64, dtype=np.float32),
+                         np.arange(256, dtype=np.float32), indexing="ij")
+    mx = 20.0 + 0.98 * xx + 0.05 * yy + 1.5 * np.sin(yy / 9.0 + 0.3)
+    my = 60.0 + 1.02 * yy - 0.03 * xx + 1.2 * np.sin(xx / 17.0 + 1.1)
+    m = np.stack([mx, my], -1).astype(np.float32)
+    ref = np.asarray(remap_pallas(jnp.asarray(img), jnp.asarray(m),
+                                  fill=0.0, interpret=True))
+    got = ops.remap(t(img), t(m), 0.0).numpy()
+    q = np.round(m * 64) / 64
+    refq = np.asarray(remap_pallas(jnp.asarray(img), jnp.asarray(q),
+                                   fill=0.0, interpret=True))
+    gotq = ops.remap(t(img), t(q.astype(np.float32)), 0.0).numpy()
+    print("   max |diff| %.2e off the lattice, %.2e on the 1/64 lattice"
+          % (np.abs(got - ref).max(), np.abs(gotq - refq).max()))
+
+
+def main():
+    page = _png.read_gray(FIXTURE / "synth0001.png")
+    crop = np.ascontiguousarray(page[700:900, 250:550])
+    strip_drift(crop)
+    dewarp_edges()
+    remap_offlattice(crop)
+
+
+if __name__ == "__main__":
+    main()
