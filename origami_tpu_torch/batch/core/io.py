@@ -1,6 +1,7 @@
 """Typed artifact I/O: Stage/Artifact registry, Reader/Writer, atomic writes.
 
-Port of the parts of origami_tpu/batch/core/io.py the OCR stage uses.
+Port of the parts of origami_tpu/batch/core/io.py that the segment and
+OCR stages use.
 Per-page `<image>.out/` directories hold the stage artifacts of
 docs/formats.md; a stage declares its I/O as (name, Input/Output) pairs,
 the runtime instantiates Readers/Writers, skips pages whose inputs are
@@ -191,6 +192,12 @@ class Reader:
         return Page(self._page_path, device=self._device)
 
     @cached_property
+    def segmentation(self):
+        from origami_tpu_torch.core.segment import Segmentation
+        return Segmentation.open(
+            self.path(Artifact.SEGMENTATION), open=self._open)
+
+    @cached_property
     def regions(self):
         from origami_tpu_torch.core.block import Block, Regions
         paths = region_paths(self.path(Artifact.CONTOURS), open=self._open)
@@ -249,6 +256,10 @@ class Writer:
 
     def ocr(self):
         return self.write_zip(Artifact.OCR)
+
+    def segmentation(self, segmentation):
+        with self._write(self.path(Artifact.SEGMENTATION), "wb") as f:
+            segmentation.save(f)
 
 
 class Input:

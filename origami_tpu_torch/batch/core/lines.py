@@ -89,8 +89,9 @@ class LineExtractor:
         self._rewriter = LineRewriter(tables)
         if options.get("binarize", "").strip():
             raise NotImplementedError(
-                "--binarize needs core/binarize, which is not ported yet "
-                "(ROADMAP.md, queue A: the segment slice)")
+                "--binarize runs on the host strip path of the OCR stage "
+                "(origami_tpu/batch/detect/ocr.py:536-560), which is not "
+                "ported yet (ROADMAP.md, queue A)")
 
     @staticmethod
     def add_arguments(parser):

@@ -20,6 +20,7 @@ import re
 import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from origami_tpu_torch.batch.core import mutex as _mutex
@@ -217,7 +218,13 @@ class BatchedProcessor(Processor):
     """Device-batched stage: processes ready pages in groups of
     `batch_size`; locking is per batch, failures are captured per page.
     Subclasses implement `process_batch([(page_path, kwargs)])` and
-    return {page_path: info}."""
+    return {page_path: info}. They may override `preload(page_path)`,
+    which runs on a thread pool for the NEXT batch while the device
+    works on the current one; its result arrives as
+    kwargs["_preloaded"] (None where it raised: the page then loads, and
+    fails, inside process_batch, where the failure is recorded)."""
+
+    PRELOAD_THREADS = 4
 
     def __init__(self, options=None, batch_size=8):
         super().__init__(options)
@@ -225,6 +232,10 @@ class BatchedProcessor(Processor):
 
     def process_batch(self, pages):
         raise NotImplementedError
+
+    def preload(self, page_path):
+        """Override: host-side IO for one page (decode)."""
+        return None
 
     def _process_queue(self, queued):
         n = len(queued)
@@ -235,16 +246,32 @@ class BatchedProcessor(Processor):
         done = 0
         t0 = time.time()
         actor = "page" if self._lock_level == "PAGE" else self.processor_name
-        for chunk in _chunks(queued, self._batch_size):
-            self._run_batch_chunk(chunk, actor)
-            done += len(chunk)
-            if self._plain:
-                for _, p, _kw in chunk:
-                    print("[%d/%d] %s" % (done, n, p), flush=True)
-            else:
-                rate = done / max(time.time() - t0, 1e-6)
-                print("\r[%d/%d] %.2f pages/s" % (done, n, rate),
-                      end="" if done < n else "\n", flush=True)
+        chunks = list(_chunks(queued, self._batch_size))
+        with ThreadPoolExecutor(max_workers=self.PRELOAD_THREADS) as pool:
+
+            def prefetch(chunk):
+                return [pool.submit(self.preload, p) for _, p, _kw in chunk]
+
+            futures = prefetch(chunks[0])
+            for ci, chunk in enumerate(chunks):
+                following = prefetch(chunks[ci + 1]) \
+                    if ci + 1 < len(chunks) else []
+                for (_, p, kw), f in zip(chunk, futures):
+                    try:
+                        kw["_preloaded"] = f.result()
+                    except Exception as e:
+                        logging.warning("preload of %s failed: %s", p, e)
+                        kw["_preloaded"] = None
+                futures = following
+                self._run_batch_chunk(chunk, actor)
+                done += len(chunk)
+                if self._plain:
+                    for _, p, _kw in chunk:
+                        print("[%d/%d] %s" % (done, n, p), flush=True)
+                else:
+                    rate = done / max(time.time() - t0, 1e-6)
+                    print("\r[%d/%d] %.2f pages/s" % (done, n, rate),
+                          end="" if done < n else "\n", flush=True)
 
     def _run_batch_chunk(self, chunk, actor):
         with self._mutex.lock(actor,
@@ -255,7 +282,8 @@ class BatchedProcessor(Processor):
                     "(stale locks? see --max-lock-age)", len(chunk))
                 return
             ready = [(p, kw) for _, p, kw in chunk
-                     if all(f.is_ready() for f in kw.values())]
+                     if all(f.is_ready() for f in kw.values()
+                            if hasattr(f, "is_ready"))]
             if not ready:
                 return
             for p, _kw in ready:

@@ -1,10 +1,12 @@
-"""A small PNG reader: zlib + numpy unfiltering.
+"""A small PNG reader and writer: zlib + numpy (un)filtering.
 
 Reads what the corpora of this project hold (PIL-written pages): 8-bit
 grayscale or RGB, non-interlaced. Everything else raises ValueError.
 `read_gray` converts color the way PIL's `convert("L")` does (ITU-R
 601-2 luma in 16-bit fixed point), so pixels match the reference loader
-exactly. Keeps the port free of PIL.
+exactly. `encode_paletted` / `decode_paletted` write and read the
+paletted label maps of segment.zip (colour type 3 with a PLTE chunk).
+Keeps the port free of PIL.
 """
 
 from __future__ import annotations
@@ -77,13 +79,11 @@ def _unfilter(raw, h, stride, bpp):
     return out
 
 
-def read(path):
-    """Decode a PNG into uint8 (H, W) or (H, W, C)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def _parse(data, what="data"):
+    """(IHDR fields, PLTE bytes or None, decompressed scanlines)."""
     if data[:8] != _SIG:
-        raise ValueError("%s is not a PNG file" % path)
-    ihdr = None
+        raise ValueError("%s is not a PNG file" % what)
+    ihdr = plte = None
     idat = []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -91,16 +91,67 @@ def read(path):
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"PLTE":
-            raise ValueError("palette PNGs are not supported")
+            plte = body
     if ihdr is None:
         raise ValueError("PNG without IHDR")
-    w, h, depth, ctype, _comp, _filt, interlace = ihdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError("unsupported PNG (depth %d, color type %d, "
-                         "interlace %d)" % (depth, ctype, interlace))
+    if ihdr[6] != 0:
+        raise ValueError("interlaced PNGs are not supported")
+    return ihdr, plte, zlib.decompress(b"".join(idat))
+
+
+def read(path):
+    """Decode a PNG into uint8 (H, W) or (H, W, C)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    (w, h, depth, ctype, _c, _f, _i), _plte, raw = _parse(data, path)
+    if depth != 8 or ctype not in _CHANNELS:
+        raise ValueError("unsupported PNG (depth %d, color type %d)"
+                         % (depth, ctype))
     ch = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
+    px = _unfilter(raw, h, w * ch, ch)
     return px.reshape(h, w, ch)[..., 0] if ch == 1 else px.reshape(h, w, ch)
+
+
+def decode_paletted(data):
+    """PNG bytes of colour type 3 -> (uint8 (H, W) palette indices,
+    uint8 (n, 3) palette). Bit depths 1, 2, 4 and 8."""
+    (w, h, depth, ctype, _c, _f, _i), plte, raw = _parse(data)
+    if ctype != 3 or depth not in (1, 2, 4, 8) or plte is None:
+        raise ValueError("not a paletted PNG (depth %d, color type %d)"
+                         % (depth, ctype))
+    stride = (w * depth + 7) // 8
+    rows = _unfilter(raw, h, stride, 1)
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        rows = (bits * weights).sum(axis=-1).astype(np.uint8)
+    palette = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+    return np.ascontiguousarray(rows[:, :w]), palette
+
+
+def _chunk(kind, body):
+    return struct.pack(">I", len(body)) + kind + body \
+        + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def encode_paletted(indices, palette, level=1):
+    """uint8 (H, W) palette indices + uint8 (n <= 256, 3) palette -> PNG
+    bytes: colour type 3, 8 bits, every row with filter 0, zlib `level`."""
+    idx = np.ascontiguousarray(indices, np.uint8)
+    if idx.ndim != 2:
+        raise ValueError("indices must be (H, W)")
+    pal = np.ascontiguousarray(palette, np.uint8).reshape(-1, 3)
+    if not 1 <= len(pal) <= 256:
+        raise ValueError("a palette holds 1..256 colours")
+    h, w = idx.shape
+    rows = np.zeros((h, w + 1), np.uint8)
+    rows[:, 1:] = idx
+    return b"".join([
+        _SIG,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0)),
+        _chunk(b"PLTE", pal.tobytes()),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)),
+        _chunk(b"IEND", b"")])
 
 
 def to_gray(px):

@@ -1,9 +1,15 @@
-"""Page geometry helper (port of origami_tpu/core/math.py `Geometry`,
-the part that core.page needs)."""
+"""Page geometry helpers (port of origami_tpu/core/math.py: `Geometry`,
+which core.page needs, and `Orientation`, which core.segment needs)."""
 
 from __future__ import annotations
 
+import enum
 import math
+
+
+class Orientation(enum.Enum):
+    H = 0
+    V = 1
 
 
 class Geometry:

@@ -1,11 +1,12 @@
 """Page: lazy image decode, geometry, device-resident pixels.
 
-Port of origami_tpu/core/page.py (the part the OCR stage needs): pixels
-decode lazily through the port's PNG reader (grayscale, as PIL's
-convert("L")), upload to the page's device once as u8, and dewarp there
-through the dewarp kernel. Process-wide LRUs keyed by (path, mtime) keep
-every stage of a process from decoding, uploading or dewarping a page
-twice (page.py:39-117).
+Port of origami_tpu/core/page.py (the part the segment and OCR stages
+need): pixels decode lazily through the port's PNG reader (grayscale, as
+PIL's convert("L")), upload to the page's device once as u8, dewarp
+there through the dewarp kernel and binarize there through the Sauvola
+kernel. Process-wide LRUs keyed by (path, mtime) keep every stage of a
+process from decoding, uploading, dewarping or binarizing a page twice
+(page.py:39-117).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ _IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".jp2", ".bmp")
 _PIXELS_LRU = collections.OrderedDict()        # decoded host pixels
 _DEVICE_PIXELS_LRU = collections.OrderedDict()  # u8 page on its device
 _DEWARPED_LRU = collections.OrderedDict()      # u8 dewarped page
+_BINARIZED_LRU = collections.OrderedDict()     # bool host masks
 _CAP = 24
 
 
@@ -127,6 +129,32 @@ class Page:
             dev = Dewarper(self.device_pixels, self._grid).dewarped_dev
             _lru_put(_DEWARPED_LRU, key, dev)
         return dev
+
+    def _binarize(self, key, pixels_dev):
+        """Sauvola mask (True = paper) of a u8 page on the device, as a
+        numpy bool array. The kernel packs it to a bit per pixel, so the
+        device writes and the host receives an eighth of the mask."""
+        out = _lru_get(_BINARIZED_LRU, key)
+        if out is None:
+            from origami_tpu_torch.ops.binarize import sauvola_packed
+            packed = sauvola_packed(pixels_dev, 15).cpu().numpy()
+            out = np.unpackbits(packed, axis=1)[
+                :, : pixels_dev.shape[1]].astype(bool)
+            _lru_put(_BINARIZED_LRU, key, out)
+        return out
+
+    @property
+    def binarized(self):
+        """Sauvola-binarized warped page (True = paper) as numpy; flow,
+        layout and lines all consume it."""
+        return self._binarize(self._file_key("warped-bin"),
+                              self.device_pixels)
+
+    @property
+    def dewarped_binarized(self):
+        return self._binarize(
+            self._file_key("dewarped-bin", self._grid_fp()),
+            self.dewarped_dev)
 
     def size(self, dewarped=False):
         """(width, height); dewarped: the upsampled grid extent

@@ -4,13 +4,17 @@ Port of origami_tpu/models/registry.py (read side only):
 
     <model dir>/meta.json        {"kind": "recognizer", "charset", "height",
                                   "conv_features", "lstm_features", "arch",
-                                  "params_dtype"?, "lstm_dtype"?, ...}
+                                  "params_dtype"?, "lstm_dtype"?, ...} or
+                                 {"kind": "unet", "type", "classes",
+                                  "full_size", "tile_size", "tile_beta",
+                                  "width", "s2d", "channels", ...}
     <model dir>/params.msgpack   flax.serialization bytes of the param tree
 
 `load_params` returns the flax tree as numpy (float16 packs restored to
 float32); `params_from_flax` maps a recognizer tree onto the port's
-`LineRecognizer.state_dict()`; `load_model` does both and builds the
-module.
+`LineRecognizer.state_dict()` and `unet_params_from_flax` a U-Net tree
+onto `UNet.state_dict()`; `load_model` dispatches on the meta's "kind",
+builds the module and loads it; `load_ensemble` loads sibling U-Nets.
 """
 
 from __future__ import annotations
@@ -126,16 +130,87 @@ def build_recognizer(meta, conv_dtype=torch.bfloat16):
         dtype=conv_dtype, lstm_dtype=lstm_dtype(meta))
 
 
+def unet_params_from_flax(tree, meta):
+    """Map a flax UNet param tree onto UNet's state_dict. Flax names the
+    submodules in call order (unet.py:56-85): ConvBlock_0..n-1 the
+    encoder, ConvBlock_n the bottleneck, ConvBlock_n+1..2n the decoder,
+    each holding Conv_0/1 and GroupNorm_0/1; Conv_0..n-1 the decoder's
+    3x3 convs and Conv_n the 1x1 logits conv with bias. Conv kernels go
+    HWIO -> OIHW. Returns {name: torch.Tensor}."""
+    n = (sum(k.startswith("ConvBlock_") for k in tree) - 1) // 2
+    sd = {}
+
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    def conv(k):
+        return t(k.transpose(3, 2, 0, 1))
+
+    def block(src, dst):
+        for j in (0, 1):
+            sd["%s.convs.%d.weight" % (dst, j)] = \
+                conv(src["Conv_%d" % j]["kernel"])
+            gn = src["GroupNorm_%d" % j]
+            sd["%s.norms.%d.weight" % (dst, j)] = t(gn["scale"])
+            sd["%s.norms.%d.bias" % (dst, j)] = t(gn["bias"])
+
+    for i in range(n):
+        block(tree["ConvBlock_%d" % i], "enc.%d" % i)
+        block(tree["ConvBlock_%d" % (n + 1 + i)], "dec.%d" % i)
+        sd["up.%d.weight" % i] = conv(tree["Conv_%d" % i]["kernel"])
+    block(tree["ConvBlock_%d" % n], "mid")
+    head = tree["Conv_%d" % n]
+    if head["bias"].shape[0] != len(meta["classes"]):
+        raise ValueError("the checkpoint emits %d classes, its meta lists %d"
+                         % (head["bias"].shape[0], len(meta["classes"])))
+    sd["head.weight"] = conv(head["kernel"])
+    sd["head.bias"] = t(head["bias"])
+    known = {"ConvBlock_%d" % i for i in range(2 * n + 1)} \
+        | {"Conv_%d" % i for i in range(n + 1)}
+    if set(tree) != known:
+        raise ValueError("unexpected U-Net parameter groups: %s"
+                         % sorted(set(tree) ^ known))
+    return sd
+
+
+def build_unet(meta, dtype=torch.bfloat16):
+    from origami_tpu_torch.models.unet import create_unet
+    return create_unet(len(meta["classes"]),
+                       width=meta.get("width", 1.0), dtype=dtype,
+                       s2d=meta.get("s2d", 1),
+                       features=meta.get("features"),
+                       bottleneck=meta.get("bottleneck"),
+                       in_channels=meta.get("channels", 1))
+
+
 def load_model(path, device, conv_dtype=torch.bfloat16):
-    """(LineRecognizer on `device` in eval mode, meta) for a recognizer
-    directory. Convolutions run in `conv_dtype` (bf16: the JAX main
-    path's numeric mode, recognizer.py:140)."""
+    """(module on `device` in eval mode, meta) for a model directory: a
+    LineRecognizer for kind "recognizer", a UNet for kind "unet".
+    Convolutions run in `conv_dtype` (bf16: the JAX main path's numeric
+    mode)."""
     path = Path(path)
     tree, meta = load_params(path)
-    if meta.get("kind") != "recognizer":
-        raise ValueError("%s is not a recognizer (kind %r)"
-                         % (path, meta.get("kind")))
-    check_arch(path, meta)
-    model = build_recognizer(meta, conv_dtype=conv_dtype)
-    model.load_state_dict(params_from_flax(tree), strict=True)
+    kind = meta.get("kind")
+    if kind == "recognizer":
+        check_arch(path, meta)
+        model = build_recognizer(meta, conv_dtype=conv_dtype)
+        state = params_from_flax(tree)
+    elif kind == "unet":
+        model = build_unet(meta, dtype=conv_dtype)
+        state = unet_params_from_flax(tree, meta)
+    else:
+        raise ValueError("%s: unknown model kind %r" % (path, kind))
+    model.load_state_dict(state, strict=True)
     return model.to(device).eval(), meta
+
+
+def load_ensemble(paths, device, conv_dtype=torch.bfloat16):
+    """Load N same-architecture U-Nets for `unet.ensemble_apply` ->
+    (list of modules, the first member's meta)."""
+    loaded = [load_model(p, device, conv_dtype) for p in paths]
+    metas = [m for _, m in loaded]
+    for m in metas[1:]:
+        if m["classes"] != metas[0]["classes"] \
+                or m["kind"] != metas[0]["kind"]:
+            raise ValueError("ensemble members disagree on architecture")
+    return [model for model, _ in loaded], metas[0]

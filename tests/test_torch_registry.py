@@ -157,5 +157,54 @@ print(json.dumps({"modules": names,
                          stderr=subprocess.PIPE, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "origami_tpu_torch.batch.detect.ocr" in result["modules"]
+    for name in ("batch.detect.ocr", "batch.detect.segment", "core.binarize",
+                 "core.predict", "core.segment", "core.utils",
+                 "models.unet", "ops.binarize", "ops.morphology",
+                 "ops.resize", "ops.tiling"):
+        assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
+
+
+@pytest.mark.parametrize("name", ["students/region/00",
+                                  "students/separator/00"])
+def test_students_load_strictly_into_unet(name):
+    params, meta = registry.load_params(MODELS / name)
+    model = registry.build_unet(meta)
+    result = model.load_state_dict(
+        registry.unet_params_from_flax(params, meta), strict=True)
+    assert result.missing_keys == [] and result.unexpected_keys == []
+    assert model.s2d == meta["s2d"]
+    assert model.features == {4: (128, 256, 512), 2: (64, 128, 256)}[
+        meta["s2d"]]
+    assert model.mid.convs[0].out_channels == 512
+    kernel = params["ConvBlock_0"]["Conv_0"]["kernel"]      # HWIO
+    np.testing.assert_array_equal(
+        model.enc[0].convs[0].weight.detach().numpy(),
+        kernel.transpose(3, 2, 0, 1))
+
+
+def test_segment_entry_points_need_cuda_unless_told_cpu(tmp_path):
+    """Without a card, every new entry point raises unless the caller
+    asks for the CPU; nothing falls back quietly."""
+    from origami_tpu_torch.batch.detect.segment import \
+        SegmentationProcessor, parser
+    from origami_tpu_torch.core import binarize as core_binarize
+    from origami_tpu_torch.core.predict import (
+        HeuristicSegmentationPredictor, SegmentationPredictor)
+    assert parser().parse_args(["-m", "heuristic", "x"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    students = MODELS / "students"
+    for make in (
+            lambda: SegmentationProcessor("heuristic", {}),
+            lambda: SegmentationProcessor(str(students), {"device": None}),
+            lambda: HeuristicSegmentationPredictor(),
+            lambda: SegmentationPredictor(students),
+            lambda: core_binarize.from_string("sauvola(window_size=15)"),
+            lambda: core_binarize.otsu()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert SegmentationProcessor(
+        "heuristic", {"device": "cpu"}).device.type == "cpu"
+    assert HeuristicSegmentationPredictor(
+        device="cpu")._device.type == "cpu"
