@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero before the result line):
 
   1. build the CUDA kernels from origami_tpu_torch/csrc with nvcc
-     (sm_90a), print ptxas' register report and the card's name and
-     power limit;
+     (sm_90a) and, beside them, the host geometry library
+     (origami_tpu_torch/geometry/native.cpp, g++); print ptxas' register
+     report and the card's name and power limit;
   2. hold each kernel entry point against its plain PyTorch version on
      the card at the main path's shapes (the fixture pages, 1312x1920,
      their grids and their real line frames) and time kernel, plain
@@ -31,11 +32,25 @@ Phases (any failure exits non-zero before the result line):
      pixels is printed and gated, and the Sauvola kernel must have run
      once per page (students) or twice per page (heuristic);
   6. time the trained segment stage in process, warm, for pages/s, and
-     list the device time by kernel.
+     list the device time by kernel;
+  7. run the flow CLI (`python -m origami_tpu_torch.batch.detect.flow`)
+     and then the dewarp CLI on the card over the fixture's two pages
+     (their PNG and segment.zip, the JAX contours.0.zip of
+     tests/data/torch_flow), and the dewarp CLI once more on the JAX
+     flow.zip, which isolates the grid build; flow.zip, lines.0.zip,
+     dewarp.zip and contours.1.zip are held against the JAX stages'
+     (tests/data/torch_flow) and each kernel's launches per page are
+     checked;
+  8. time the flow and dewarp stages in process, warm, for pages/s, list
+     the device time by kernel, and count the launches of one grid
+     build.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15 and 31) against its plain version at a fixture
-page, a dewarped page and a ragged crop: the two must agree exactly.
+page, a dewarped page and a ragged crop: the two must agree exactly; and
+the gather kernel (lane and sublane) over the sweep of
+scripts/pallas_gather_repro.py and at the grid build's own inputs, which
+must agree exactly with numpy's take_along_axis and the plain version.
 
 The line before the last is the kernel table as JSON (the kernels of the
 driven paths; a kernel entry point that no path runs is printed on a
@@ -58,6 +73,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_ocr" / "full"
 SEG_REF = ROOT / "tests" / "data" / "torch_segment" / "ref"
+FLOW_REF = ROOT / "tests" / "data" / "torch_flow"
 STUDENTS = "models_pretrained/students"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM, float32 outside tensor cores
@@ -99,6 +115,20 @@ SAUVOLA_OPS_PER_PIXEL = 25
 # one gray level is allowed for a value that lands on a .5 rounding tie
 U8_TOL = 1
 F32_TOL = 1e-4
+# flow/dewarp runs vs the JAX stages (ROADMAP.md queue A4): samples and
+# line frames follow the binarized mask, which the port's exact-integer
+# Sauvola and JAX's float32 integral images may set differently on a
+# few pixels; the grid is float32 built in another summation order
+FLOW_PX = 0.5
+FLOW_RAD = 1e-3
+LINES_PX = 0.5
+GRID_PX = 1e-3
+CONTOUR_PX = 0.01
+FLOW_STAGE = "origami_tpu.batch.detect.flow"
+DEWARP_STAGE = "origami_tpu.batch.detect.dewarp"
+# the gather probe's sweep (scripts/pallas_gather_repro.py:97-99)
+GATHER_SHAPES = ((8, 128, 128), (8, 256, 128), (8, 384, 256),
+                 (32, 384, 256), (64, 384, 256), (64, 512, 256))
 
 
 class PhaseError(RuntimeError):
@@ -505,6 +535,196 @@ def check_sauvola(images):
     return rows
 
 
+def gather_probe_case(kind, r, w, c, pattern, seed=0):
+    """The probe's inputs (scripts/pallas_gather_repro.py:32-60) as
+    numpy: source, indices and the numpy truth."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if kind == "lane":
+        arr = np.arange(r * w, dtype=np.float32).reshape(r, w) % 251.0
+        if pattern == "random":
+            idx = rng.integers(0, w, size=(r, c))
+        elif pattern == "affine":
+            idx = np.linspace(0, w - 1, c)[None, :] \
+                + rng.uniform(-3, 3, size=(r, 1))
+        else:
+            idx = np.tile(np.arange(c) % w, (r, 1))
+    else:
+        arr = np.arange(w * c, dtype=np.float32).reshape(w, c) % 251.0
+        if pattern == "random":
+            idx = rng.integers(0, w, size=(r, c))
+        elif pattern == "affine":
+            idx = np.linspace(0, w - 1, r)[:, None] \
+                + rng.uniform(-3, 3, size=(1, c))
+        else:
+            idx = np.tile((np.arange(r) % w)[:, None], (1, c))
+    idx = np.clip(idx, 0, w - 1).astype(np.int32)
+    axis = 1 if kind == "lane" else 0
+    return arr, idx, np.take_along_axis(arr, idx, axis=axis)
+
+
+def site_inputs(device):
+    """The gather kernel's inputs on the main path: every (t_sel, best)
+    pair the V pass of one fixture page's grid build hands it (the JAX
+    flow.zip of the first page), recorded from a build on the card."""
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    from origami_tpu_torch.core import dewarp
+    from origami_tpu_torch.ops import gather
+    png = sorted(FIXTURE.glob("*.png"))[0]
+    corpus = Path(tempfile.mkdtemp(prefix="chip_smoke_site_"))
+    try:
+        flow_corpus(corpus, [png], with_flow=True)
+        reader = Input(Artifact.CONTOURS, Artifact.FLOW,
+                       stage=Stage.WARPED).instantiate(
+            corpus / png.name, _Proc(device))
+        recorded = []
+        kernel = gather.take_along_axis
+
+        def record(src, idx, axis):
+            recorded.append((src.clone(), idx.clone(), axis))
+            return kernel(src, idx, axis)
+
+        gather.take_along_axis = record
+        try:
+            dewarp.Grid.create(reader.page.size(), reader.flow["h"],
+                               reader.flow["v"], device=device)
+        finally:
+            gather.take_along_axis = kernel
+    finally:
+        shutil.rmtree(corpus, ignore_errors=True)
+    return recorded
+
+
+def check_gather(device):
+    """Phase 2, the gather kernel: lane and sublane over the probe's
+    sweep and at the grid build's inputs, each against numpy's
+    take_along_axis and the plain version (max |diff| must be 0); times
+    at the probe's largest shape and per page at the site. Returns the
+    lane (main path) and sublane (no stage calls it) rows."""
+    import numpy as np
+    import torch
+    from origami_tpu_torch.ops import gather
+    failures = []
+    rows = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                       library_ms=0.0, bound_by="bytes")
+            for name in ("take_along_axis_lane", "take_along_axis_sublane")}
+
+    def gather_bytes(src, idx, axis):
+        # indices and outputs once, plus the distinct source elements
+        # the indices name (4 bytes each)
+        n = src.shape[axis]
+        k = idx.long().clamp(0, n - 1)
+        other = torch.arange(idx.shape[1 - axis], device=idx.device)
+        other = other[:, None] if axis == 1 else other[None, :]
+        flat = other * n + k
+        return (idx.numel() * 8
+                + int(torch.unique(flat).numel()) * 4)
+
+    def compare(name, src, idx, axis, truth=None):
+        got = gather.take_along_axis(src, idx, axis)
+        want = gather.take_along_axis_plain(src, idx, axis)
+        torch.cuda.synchronize()
+        errs = [float((got - want).abs().nan_to_num(0.0).max())
+                if got.numel() else 0.0]
+        same_inf = bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+        if truth is not None:
+            errs.append(float(np.abs(got.cpu().numpy() - truth).max()))
+        err = max(errs)
+        rows[name]["err"] = max(rows[name]["err"], err)
+        if err != 0 or not same_inf:
+            failures.append("%s %s -> %s" % (name, tuple(src.shape),
+                                             tuple(idx.shape)))
+        return err
+
+    for kind in ("lane", "sublane"):
+        name = "take_along_axis_" + kind
+        axis = 1 if kind == "lane" else 0
+        for pattern in ("identity", "affine", "random"):
+            for r, w, c in GATHER_SHAPES:
+                arr, idx, truth = gather_probe_case(kind, r, w, c, pattern)
+                src = torch.from_numpy(arr).to(device)
+                ix = torch.from_numpy(idx).to(device)
+                compare(name, src, ix, axis, truth)
+        # the probe's largest shape, timed per launch (the sublane row
+        # of the table: no stage launches that variant)
+        arr, idx, _ = gather_probe_case(kind, *GATHER_SHAPES[-1], "affine")
+        src = torch.from_numpy(arr).to(device)
+        ix = torch.from_numpy(idx).to(device)
+        ix64 = ix.long()
+        probe = dict(
+            ms=time_cuda(lambda: gather.take_along_axis(src, ix, axis)),
+            burst_ms=time_burst(lambda: gather.take_along_axis(src, ix,
+                                                               axis)),
+            plain_ms=time_cuda(lambda: gather.take_along_axis_plain(
+                src, ix, axis)),
+            library_ms=time_cuda(lambda: torch.gather(src, axis, ix64)),
+            bound_ms=gather_bytes(src, ix, axis) / HBM_BYTES_PER_S * 1e3)
+        log("  %-24s affine probe r,w,c=%s, per launch: kernel %.4f ms "
+            "(back to back %.4f)  plain %.4f ms  torch.gather %.4f ms  "
+            "bound %.6f ms (bytes)" % (
+                name, GATHER_SHAPES[-1], probe["ms"], probe["burst_ms"],
+                probe["plain_ms"], probe["library_ms"], probe["bound_ms"]))
+        if kind == "sublane":
+            rows[name].update({k: probe[k] for k in
+                               ("ms", "plain_ms", "library_ms",
+                                "bound_ms")})
+
+    # the grid build's own inputs: (n_gx, n_gx - 1) t values with inf
+    # where a ray misses, gathered at the argmin of each row
+    site = site_inputs(device)
+    n_inf = 0
+    for src, idx, axis in site:
+        truth = np.take_along_axis(src.cpu().numpy(),
+                                   idx.long().cpu().numpy(), axis=axis)
+        n_inf += int(np.isinf(truth).sum())
+        compare("take_along_axis_lane", src, idx, axis, None)
+        got = gather.take_along_axis(src, idx, axis).cpu().numpy()
+        if not np.array_equal(got, truth):
+            failures.append("take_along_axis_lane at the site")
+    idx64 = [i.long() for _, i, _ in site]
+
+    def per_page(fn):
+        def run():
+            for (src, idx, axis), i64 in zip(site, idx64):
+                fn(src, idx, axis, i64)
+        return run
+
+    row = rows["take_along_axis_lane"]
+    row.update(
+        ms=time_cuda(per_page(lambda s, i, a, i64:
+                              gather.take_along_axis(s, i, a))),
+        plain_ms=time_cuda(per_page(lambda s, i, a, i64:
+                                    gather.take_along_axis_plain(s, i, a))),
+        library_ms=time_cuda(per_page(lambda s, i, a, i64:
+                                      torch.gather(s, a, i64))),
+        bound_ms=sum(gather_bytes(s, i, a) for s, i, a in site)
+        / HBM_BYTES_PER_S * 1e3)
+    burst = time_burst(per_page(lambda s, i, a, i64:
+                                gather.take_along_axis(s, i, a)))
+    # the kernel's own device time over a page's launches: the events
+    # above also hold the host's time between launches
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        per_page(lambda s, i, a, i64: gather.take_along_axis(s, i, a))()
+        torch.cuda.synchronize()
+    dev_ms = sum(e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "gather_kernel" in e.name) / 1e3
+    log("  take_along_axis_lane    at the grid build site: %d launches per "
+        "page of %s -> %s (%d of the gathered values inf): per page "
+        "kernel %.4f ms (back to back %.4f; device time of the kernels "
+        "alone %.4f ms)  plain %.4f ms  torch.gather %.4f ms  bound %.6f "
+        "ms (bytes)" % (
+            len(site), tuple(site[0][0].shape), tuple(site[0][1].shape),
+            n_inf, row["ms"], burst, dev_ms, row["plain_ms"],
+            row["library_ms"], row["bound_ms"]))
+    if failures:
+        raise PhaseError("the gather kernel disagrees: %s"
+                         % ", ".join(failures[:10]))
+    return rows
+
+
 # ---------------------------------------------------------------- phase 3
 
 def run_ocr_cli(mode, workdir, device="cuda"):
@@ -556,6 +776,15 @@ def run_ocr_cli(mode, workdir, device="cuda"):
     return dict(mode=mode, pages=len(pages), lines=n_lines,
                 identical=share, cer=cer, launches=launches,
                 wall_s=wall, stage_s=elapsed)
+
+
+def _device_ms(prof):
+    """Device time of the kernels a profile recorded, in ms, or None when
+    it recorded no device event."""
+    import torch
+    times = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(times) / 1e3 if times else None
 
 
 def _cuda_total_ms(table):
@@ -746,6 +975,302 @@ def segment_throughput(workdir, reps=5):
                 peak_mb=torch.cuda.max_memory_allocated() / 2**20)
 
 
+# ---------------------------------------------------------------- phase 7
+
+def flow_corpus(dst, pages=None, with_flow=False):
+    """A corpus for the flow stage (or, `with_flow`, the dewarp stage):
+    the fixture's page PNGs and segment.zip, the JAX contours.0.zip (and
+    flow.zip), and a runtime.json of the stages before."""
+    dst.mkdir(parents=True, exist_ok=True)
+    for png in pages or sorted(FIXTURE.glob("*.png")):
+        shutil.copy(png, dst / png.name)
+        out = dst / (png.stem + ".out")
+        out.mkdir()
+        ref = FLOW_REF / (png.stem + ".out")
+        shutil.copy(FIXTURE / (png.stem + ".out") / "segment.zip", out)
+        shutil.copy(ref / "contours.0.zip", out)
+        keep = ("segment", "contours") + (("flow",) if with_flow else ())
+        if with_flow:
+            shutil.copy(ref / "flow.zip", out)
+        rt = json.loads((ref / "runtime.json").read_text())
+        (out / "runtime.json").write_text(json.dumps(
+            {k: v for k, v in rt.items() if k.rsplit(".", 1)[-1] in keep}))
+    return dst
+
+
+def _coords(g):
+    t = g.geom_type
+    if t == "Polygon":
+        return [g.np_shell] + list(g.np_holes)
+    if t in ("LineString", "LinearRing"):
+        return [g.np_coords]
+    if t == "Point":
+        return [g._all_coords()]
+    return [c for p in g.geoms for c in _coords(p)]
+
+
+def compare_flow_outputs(out, ref, artifacts):
+    """Hold a page's flow/dewarp artifacts in `out` against the JAX
+    stage's in `ref`: raises PhaseError on a different shape, sample
+    count, key set or vertex count; -> {measure: largest difference}
+    (flow samples in px and rad, line p/right in px, grid nodes in px,
+    contour vertices in px; `lines_identical`: share of line JSONs
+    equal to the JAX ones)."""
+    import io
+    import numpy as np
+    from origami_tpu_torch import geometry as G
+    r = {}
+
+    def entries(path):
+        with zipfile.ZipFile(path) as zf:
+            return {n: zf.read(n) for n in zf.namelist()}
+
+    if "flow.zip" in artifacts:
+        a, b = entries(out / "flow.zip"), entries(ref / "flow.zip")
+        for k in ("h", "v"):
+            x = np.load(io.BytesIO(a[k + ".npy"]))
+            y = np.load(io.BytesIO(b[k + ".npy"]))
+            if x.shape != y.shape:
+                raise PhaseError("%s flow %s: %s samples, JAX %s"
+                                 % (out.name, k, x.shape, y.shape))
+            d = np.abs(x - y).reshape(-1, 3)
+            r["flow_px"] = max(r.get("flow_px", 0.0),
+                               float(d[:, :2].max(initial=0.0)))
+            r["flow_rad"] = max(r.get("flow_rad", 0.0),
+                                float(d[:, 2].max(initial=0.0)))
+    if "lines.0.zip" in artifacts:
+        a, b = entries(out / "lines.0.zip"), entries(ref / "lines.0.zip")
+        if a.keys() != b.keys():
+            raise PhaseError("%s lines.0.zip: %d entries, JAX %d (%s)" % (
+                out.name, len(a), len(b), sorted(set(a) ^ set(b))[:4]))
+        d = same = n = 0
+        for k in b:
+            if k == "meta.json":
+                continue
+            x, y = json.loads(a[k]), json.loads(b[k])
+            d = max(d, float(np.abs(np.array(x["p"] + x["right"])
+                                    - np.array(y["p"] + y["right"])).max()))
+            same += x == y
+            n += 1
+        r["lines_px"] = d
+        r["lines_identical"] = same / max(n, 1)
+    if "dewarp.zip" in artifacts:
+        a, b = entries(out / "dewarp.zip"), entries(ref / "dewarp.zip")
+        x = np.load(io.BytesIO(a["data.npy"]))
+        y = np.load(io.BytesIO(b["data.npy"]))
+        if x.shape != y.shape or json.loads(a["meta.json"]) != \
+                json.loads(b["meta.json"]):
+            raise PhaseError("%s dewarp.zip: grid %s, JAX %s" % (
+                out.name, x.shape, y.shape))
+        r["grid_px"] = float(np.abs(x - y).max())
+    if "contours.1.zip" in artifacts:
+        a, b = entries(out / "contours.1.zip"), entries(ref / "contours.1.zip")
+        if a.keys() != b.keys():
+            raise PhaseError("%s contours.1.zip: keys differ (%s)" % (
+                out.name, sorted(set(a) ^ set(b))[:4]))
+        d = 0.0
+        for k in b:
+            if not k.endswith(".wkt"):
+                if a[k] != b[k]:
+                    raise PhaseError("%s contours.1.zip: %s differs"
+                                     % (out.name, k))
+                continue
+            x = _coords(G.wkt.loads(a[k].decode("utf8")))
+            y = _coords(G.wkt.loads(b[k].decode("utf8")))
+            if [len(c) for c in x] != [len(c) for c in y]:
+                raise PhaseError("%s contours.1.zip %s: vertex counts %s, "
+                                 "JAX %s" % (out.name, k,
+                                             [len(c) for c in x],
+                                             [len(c) for c in y]))
+            for c1, c2 in zip(x, y):
+                if len(c1):
+                    d = max(d, float(np.abs(c1 - c2).max()))
+        r["contours_px"] = d
+    return r
+
+
+FLOW_BARS = {"flow_px": FLOW_PX, "flow_rad": FLOW_RAD, "lines_px": LINES_PX,
+             "grid_px": GRID_PX, "contours_px": CONTOUR_PX}
+
+
+def run_stage_cli(stage, corpus, device="cuda"):
+    """Run `python -m origami_tpu_torch.batch.detect.<stage>` over
+    `corpus`; raise unless every page COMPLETED; -> (launch counts,
+    process seconds, summed stage seconds)."""
+    cmd = [sys.executable, "-m", "origami_tpu_torch.batch.detect." + stage,
+           "--lock-strategy", "NONE", "--plain", "--device", str(device),
+           str(corpus)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise PhaseError("%s CLI exited %d:\n%s" % (
+            stage, proc.returncode, proc.stderr[-4000:]))
+    launches = None
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"kernel_launches"'):
+            launches = json.loads(line)["kernel_launches"]
+    if launches is None:
+        raise PhaseError("%s CLI printed no launch counts" % stage)
+    key = FLOW_STAGE if stage == "flow" else DEWARP_STAGE
+    stage_s = 0.0
+    for png in sorted(corpus.glob("*.png")):
+        entry = json.loads((corpus / (png.stem + ".out") / "runtime.json")
+                           .read_text()).get(key, {})
+        if entry.get("status") != "COMPLETED":
+            raise PhaseError("%s on %s: %s" % (
+                stage, png.name, entry.get("traceback", entry)))
+        stage_s += entry["elapsed"]
+    return launches, wall, stage_s
+
+
+def check_flow_dewarp(workdir):
+    """Phase 7: the flow and dewarp CLIs on the card against the JAX
+    stages' artifacts. -> {run name: launch counts} for the kernel
+    table."""
+    pages = sorted(FIXTURE.glob("*.png"))
+    n = len(pages)
+    failed = []
+    runs = {}
+    chain = flow_corpus(workdir / "flow_chain")
+    isolated = flow_corpus(workdir / "dewarp_on_jax_flow", with_flow=True)
+    n_steps = None
+    plan = (("flow", chain, ("flow.zip", "lines.0.zip")),
+            ("dewarp", chain, ("dewarp.zip", "contours.1.zip")),
+            ("dewarp", isolated, ("dewarp.zip", "contours.1.zip")))
+    for stage, corpus, arts in plan:
+        name = "%s (%s)" % (stage, corpus.name)
+        launches, wall, stage_s = run_stage_cli(stage, corpus)
+        runs[name] = launches
+        worst = {}
+        for png in pages:
+            got = compare_flow_outputs(corpus / (png.stem + ".out"),
+                                       FLOW_REF / (png.stem + ".out"), arts)
+            for k, v in got.items():
+                worst[k] = max(worst.get(k, 0.0), v) if k != \
+                    "lines_identical" else min(worst.get(k, 1.0), v)
+        if stage == "dewarp":
+            gh = json.loads((FLOW_REF / (pages[0].stem + ".out") /
+                             "runtime.json").read_text())[
+                DEWARP_STAGE]["grid_shape"][0]
+            n_steps = gh - 1
+        # per page: the Sauvola prefetch once in each stage; the dewarp
+        # kernel once and the lane gather once per V-pass step in dewarp
+        want = {"sauvola_packed": n, "sauvola": 0, "take_along_axis_sublane": 0}
+        if stage == "dewarp":
+            want.update(dewarp_u8=n, take_along_axis_lane=n * n_steps)
+        else:
+            want.update(dewarp_u8=0, take_along_axis_lane=0)
+        bad_launch = {k: launches.get(k) for k, v in want.items()
+                      if launches.get(k) != v}
+        # the chained dewarp runs on the port's own flow.zip: its grid
+        # is held to the bar only where that flow.zip equals JAX's
+        gate = dict(FLOW_BARS)
+        if stage == "dewarp" and corpus is chain and not all(
+                compare_flow_outputs(
+                    corpus / (p.stem + ".out"), FLOW_REF / (p.stem + ".out"),
+                    ("flow.zip",)) == {"flow_px": 0.0, "flow_rad": 0.0}
+                for p in pages):
+            gate = {}
+        over = {k: v for k, v in worst.items() if k in gate and v > gate[k]}
+        log("  %-30s %d pages: %s  launches %s  stage %.2f s, process "
+            "%.2f s (cold)  %s" % (
+                name, n, "  ".join("%s %.3g" % kv for kv in
+                                   sorted(worst.items())),
+                json.dumps({k: v for k, v in launches.items() if v}),
+                stage_s, wall, "ok" if not over and not bad_launch
+                else "FAIL"))
+        if over:
+            failed.append("%s: %s over the bars %s" % (
+                name, over, {k: gate[k] for k in over}))
+        if bad_launch:
+            failed.append("%s: launches %s, expected %s" % (
+                name, bad_launch, {k: want[k] for k in bad_launch}))
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return runs
+
+
+# ---------------------------------------------------------------- phase 8
+
+def flow_dewarp_throughput(workdir, reps=5):
+    """Phase 8: the flow and dewarp stages in process, warm: `reps`
+    timed passes of each over fresh corpora after one warm-up pass, one
+    profiled pass each; and the launches of one grid build."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    from origami_tpu_torch.batch.detect.dewarp import DewarpProcessor
+    from origami_tpu_torch.batch.detect.flow import FlowDetectionProcessor
+    from origami_tpu_torch.core import dewarp
+    opts = dict(lock_strategy="NONE", plain=True, device="cuda")
+    n_pages = len(list(FIXTURE.glob("*.png")))
+    out = {}
+    for stage, cls, with_flow, key in (
+            ("flow", FlowDetectionProcessor, False, FLOW_STAGE),
+            ("dewarp", DewarpProcessor, True, DEWARP_STAGE)):
+        proc = cls(dict(opts))
+        times = []
+
+        def one_pass(tag):
+            corpus = flow_corpus(workdir / ("%s_%s" % (stage, tag)),
+                                 with_flow=with_flow)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            proc.traverse(str(corpus))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            for png in sorted(corpus.glob("*.png")):
+                st = json.loads((corpus / (png.stem + ".out") /
+                                 "runtime.json").read_text()).get(key, {})
+                if st.get("status") != "COMPLETED":
+                    raise PhaseError("%s pass %s, %s: %s" % (
+                        stage, tag, png.name, st.get("traceback", st)))
+            return dt
+
+        for i in range(reps + 1):
+            dt = one_pass("tp%d" % i)
+            if i:                       # the first pass warms up
+                times.append(dt)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_wall = one_pass("prof")
+        table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=12)
+        med = statistics.median(times)
+        out[stage] = dict(times=times, seconds=med,
+                          pages_per_s=n_pages / med,
+                          device_ms=_device_ms(prof),
+                          prof_wall_s=prof_wall, profile=table)
+
+    # one grid build (the first page's JAX flow.zip): wall time on the
+    # card and the number of device kernels it launches
+    png = sorted(FIXTURE.glob("*.png"))[0]
+    corpus = flow_corpus(workdir / "grid_build", [png], with_flow=True)
+    reader = Input(Artifact.CONTOURS, Artifact.FLOW, stage=Stage.WARPED) \
+        .instantiate(corpus / png.name, _Proc(torch.device("cuda")))
+    size, fh, fv = reader.page.size(), reader.flow["h"], reader.flow["v"]
+    dewarp.Grid.create(size, fh, fv, device="cuda")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dewarp.Grid.create(size, fh, fv, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dewarp.Grid.create(size, fh, fv, device="cuda")
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["grid"] = dict(wall_ms=statistics.median(walls) * 1e3,
+                       launches=len(kernels),
+                       device_ms=sum(e.device_time for e in kernels) / 1e3)
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -754,10 +1279,11 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if not (ROOT / "origami_tpu_torch").is_dir() or not FIXTURE.is_dir() \
-            or not SEG_REF.is_dir():
+            or not SEG_REF.is_dir() or not FLOW_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
-              "(origami_tpu_torch/, tests/data/torch_ocr/ or "
-              "tests/data/torch_segment/ missing)", file=sys.stderr)
+              "(origami_tpu_torch/, tests/data/torch_ocr/, "
+              "tests/data/torch_segment/ or tests/data/torch_flow/ "
+              "missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     torch.backends.cudnn.allow_tf32 = False
@@ -769,15 +1295,23 @@ def main():
     smi = smi_line()
     log("card: %s (torch %s, CUDA %s)" % (smi, torch.__version__,
                                           torch.version.cuda))
+    from concurrent.futures import ThreadPoolExecutor
+    from origami_tpu_torch.geometry import native_bindings
     from origami_tpu_torch.ops import _build
     from origami_tpu_torch.ops import remap as ops
     t0 = time.time()
-    nvcc_log = _build.build(force=True)
+    # g++ builds the host geometry library while nvcc builds the kernels
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(native_bindings.build, True)
+        nvcc_log = _build.build(force=True)
+        host.result()
     _build.library()
-    log("built %s from %s in %.1f s" % (
+    native_bindings.library()
+    log("built %s from %s and %s from %s in %.1f s" % (
         _build.LIBRARY.relative_to(ROOT),
         ", ".join("origami_tpu_torch/csrc/" + s for s in _build.SOURCES),
-        time.time() - t0))
+        native_bindings.LIBRARY.relative_to(ROOT),
+        native_bindings.SOURCE.relative_to(ROOT), time.time() - t0))
     for line in nvcc_log.splitlines():
         if "registers" in line or line.startswith("==") or "spill" in line:
             log("  " + line.strip())
@@ -785,6 +1319,7 @@ def main():
     log("== phase 2: kernels vs plain versions (median of %d, CUDA "
         "events; %s)" % (REPS, smi))
     rows = check_kernels(device)
+    rows.update(check_gather(device))
 
     log("== phase 3: OCR CLI on the card vs the JAX references (%s)"
         % smi)
@@ -875,9 +1410,39 @@ def main():
                 100.0 * stp["device_ms"] / 1e3 / stp["prof_wall_s"]))
         log(stp["profile"])
 
+        log("== phase 7: flow and dewarp CLIs on the card vs the JAX "
+            "stages (%s)" % smi)
+        flow_runs = check_flow_dewarp(work)
+
+        log("== phase 8: flow and dewarp stage throughput, warm (%s)" % smi)
+        ftp = flow_dewarp_throughput(work)
+        for stage in ("flow", "dewarp"):
+            r = ftp[stage]
+            log("  %s: median of %d warm passes %.4f s (min %.4f, max "
+                "%.4f): %.3f pages/s" % (
+                    stage, len(r["times"]), r["seconds"], min(r["times"]),
+                    max(r["times"]), r["pages_per_s"]))
+            if r["device_ms"] is None:
+                log("  %s profiled pass: %.4f s wall; the profiler recorded "
+                    "no device event (device time not measured)"
+                    % (stage, r["prof_wall_s"]))
+            else:
+                log("  %s profiled pass: %.4f s wall, %.3f ms device "
+                    "(kernel) time, device busy %.2f %%" % (
+                        stage, r["prof_wall_s"], r["device_ms"],
+                        100.0 * r["device_ms"] / 1e3 / r["prof_wall_s"]))
+            log(r["profile"])
+        g = ftp["grid"]
+        log("  one grid build (88 x 64 nodes, 1312x1920 page): %.2f ms wall "
+            "(median of 5), %d device kernel launches, %.3f ms device time"
+            % (g["wall_ms"], g["launches"], g["device_ms"]))
+
     total = {k: sum(r["launches"][k] for r in runs) for k in ops.launches}
     total.update({k: sum(r["launches"][k] for r in seg_runs)
                   for k in ("sauvola", "sauvola_packed")})
+    for launches in flow_runs.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",
@@ -887,7 +1452,11 @@ def main():
         "sauvola": ("sauvola.cu", "origami_tpu/ops/pallas/sauvola.py:120"),
         "sauvola_packed": ("sauvola.cu",
                            "origami_tpu/ops/pallas/sauvola.py:120"),
+        "take_along_axis_lane": ("gather.cu",
+                                 "scripts/pallas_gather_repro.py:73"),
         "remap": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
+        "take_along_axis_sublane": ("gather.cu",
+                                    "scripts/pallas_gather_repro.py:73"),
     }
     kernels = {}
     for name, (source, replaces) in table.items():
@@ -899,16 +1468,19 @@ def main():
             max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
+    off_path = ("remap", "take_along_axis_sublane")
     starved = [n for n, k in kernels.items()
-               if n != "remap" and k["launches"] < 1]
+               if n not in off_path and k["launches"] < 1]
     if starved:
         raise PhaseError("kernels of the driven paths never launched: %s"
                          % starved)
     log("total %.1f s" % (time.time() - t_start))
-    # `remap` (remap_pallas' own function) is an entry point that no
-    # stage calls: held against its plain version above, launched by no
-    # path, and so kept out of the table of the paths' kernels
-    print(json.dumps({"off_path_kernels": [kernels.pop("remap")]}),
+    # `remap` (remap_pallas' own function) and the sublane gather are
+    # entry points that no stage calls: held against their plain
+    # versions above, launched by no path, and so kept out of the table
+    # of the paths' kernels
+    print(json.dumps({"off_path_kernels": [kernels.pop(n)
+                                           for n in off_path]}),
           flush=True)
     log(smi)
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -1,7 +1,7 @@
 """Typed artifact I/O: Stage/Artifact registry, Reader/Writer, atomic writes.
 
-Port of the parts of origami_tpu/batch/core/io.py that the segment and
-OCR stages use.
+Port of the parts of origami_tpu/batch/core/io.py that the segment,
+flow, dewarp and OCR stages use.
 Per-page `<image>.out/` directories hold the stage artifacts of
 docs/formats.md; a stage declares its I/O as (name, Input/Output) pairs,
 the runtime instantiates Readers/Writers, skips pages whose inputs are
@@ -101,8 +101,74 @@ class AtomicFileWriter:
 
 
 # ---------------------------------------------------------------------------
-# contours zips: only the names are read (no WKT parsing)
+# contours zips
 # ---------------------------------------------------------------------------
+
+_BUILTIN_OPEN = open
+_CONTOURS_PARSE_CACHE = {}
+
+
+def read_contours_zip(path, pred_type=None, open=open):
+    """Read back (items, folder_meta) from a contours zip; `items` is a
+    list of ((pred, label, idx...), geometry) sorted by numeric index.
+
+    Parses are memoized per (path, mtime, size, pred_type) when read with
+    the builtin open (io.py:226-279): consecutive stages of a process
+    re-read the same zips, and geometries are immutable by convention."""
+    from origami_tpu_torch import geometry as G
+    from origami_tpu_torch.core.segment import PredictorType
+    cache_key = None
+    if open is _BUILTIN_OPEN:
+        try:
+            st = os.stat(path)
+            cache_key = (str(path), st.st_mtime_ns, st.st_size, pred_type)
+        except OSError:
+            cache_key = None
+        hit = _CONTOURS_PARSE_CACHE.get(cache_key)
+        if hit is not None:
+            return list(hit[0]), hit[1]
+    items = []
+    folder_meta = {}
+    with open(path, "rb") as f:
+        with zipfile.ZipFile(f, "r") as zf:
+            meta = json.loads(zf.read("meta.json"))
+            types = {p["name"]: PredictorType[p["type"]]
+                     for p in meta["predictions"]}
+
+            def want(parts):
+                return pred_type is None or types.get(parts[0]) == pred_type
+
+            for name in zf.namelist():
+                if name.endswith("/meta.json"):
+                    parts = tuple(name.split("/"))
+                    if want(parts):
+                        folder_meta[tuple(parts[:-1])] = \
+                            json.loads(zf.read(name))
+                elif name.endswith(".wkt"):
+                    parts = tuple(name[:-4].split("/"))
+                    if want(parts):
+                        items.append((parts, G.wkt.loads(
+                            zf.read(name).decode("utf8"))))
+    items.sort(key=lambda it: _numeric_path_key(it[0]))
+    if cache_key is not None:
+        if len(_CONTOURS_PARSE_CACHE) > 64:
+            _CONTOURS_PARSE_CACHE.clear()
+        _CONTOURS_PARSE_CACHE[cache_key] = (items, folder_meta)
+        return list(items), folder_meta
+    return items, folder_meta
+
+
+def read_separators(path, open=open):
+    """Separator geometries + per-separator widths from a contours zip."""
+    from origami_tpu_torch.core.segment import PredictorType
+    items, meta = read_contours_zip(path, PredictorType.SEPARATOR, open=open)
+    seps = {parts: geom for parts, geom in items}
+    widths = {}
+    for folder, data in meta.items():
+        for i, w in enumerate(data.get("width", [])):
+            widths[folder + (str(i),)] = w
+    return seps, widths
+
 
 def _numeric_path_key(parts):
     """Sort key treating dotted numeric components numerically."""
@@ -114,21 +180,6 @@ def _numeric_path_key(parts):
         else:
             key.append((1, p, ()))
     return tuple(key)
-
-
-def region_paths(path, open=open):
-    """Paths (pred, label, idx) of the REGION-predictor entries of a
-    contours zip, sorted as io.read_contours_zip sorts them."""
-    with open(path, "rb") as f:
-        with zipfile.ZipFile(f, "r") as zf:
-            meta = json.loads(zf.read("meta.json"))
-            regions = {p["name"] for p in meta["predictions"]
-                       if p["type"] == "REGION"}
-            items = [tuple(n[:-4].split("/")) for n in zf.namelist()
-                     if n.endswith(".wkt")]
-    items = [p for p in items if p[0] in regions]
-    items.sort(key=_numeric_path_key)
-    return items
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +212,10 @@ class Reader:
     @property
     def page_path(self):
         return self._page_path
+
+    @property
+    def data_path(self):
+        return self._data_path
 
     @property
     def paths(self):
@@ -198,10 +253,31 @@ class Reader:
             self.path(Artifact.SEGMENTATION), open=self._open)
 
     @cached_property
+    def contours(self):
+        return read_contours_zip(
+            self.path(Artifact.CONTOURS), None, open=self._open)[0]
+
+    @cached_property
     def regions(self):
         from origami_tpu_torch.core.block import Block, Regions
-        paths = region_paths(self.path(Artifact.CONTOURS), open=self._open)
-        return Regions({p: Block(self.page, p, self._stage) for p in paths})
+        from origami_tpu_torch.core.segment import PredictorType
+        items, _ = read_contours_zip(
+            self.path(Artifact.CONTOURS), PredictorType.REGION,
+            open=self._open)
+        return Regions({parts: Block(self.page, geom, self._stage)
+                        for parts, geom in items})
+
+    @cached_property
+    def separators(self):
+        """Separators with their labels, which come from segment.zip's
+        JSON entries (the label PNGs are not decoded)."""
+        from origami_tpu_torch.core.segment import Segmentation
+        from origami_tpu_torch.core.separate import Separators
+        geoms, widths = read_separators(
+            self.path(Artifact.CONTOURS), open=self._open)
+        predictors = Segmentation.open_meta(
+            self.path(Artifact.SEGMENTATION), open=self._open)
+        return Separators(predictors, geoms, widths)
 
     @cached_property
     def lines(self):
@@ -213,6 +289,16 @@ class Reader:
     def grid(self):
         from origami_tpu_torch.core.dewarp import Grid
         return Grid.open(self.path(Artifact.DEWARPING_TRANSFORM))
+
+    @cached_property
+    def flow(self):
+        from origami_tpu_torch.core.flow import Samples
+        out = {}
+        with self._open(self.path(Artifact.FLOW), "rb") as f:
+            with zipfile.ZipFile(f, "r") as zf:
+                for kind in ("h", "v"):
+                    out[kind] = Samples.from_zip(zf, kind)
+        return out
 
     @cached_property
     def tables(self):
@@ -256,6 +342,31 @@ class Writer:
 
     def ocr(self):
         return self.write_zip(Artifact.OCR)
+
+    def flow(self):
+        return self.write_zip(Artifact.FLOW)
+
+    def lines(self):
+        return self.write_zip(Artifact.LINES)
+
+    @contextmanager
+    def contours(self, copy_meta_from=None):
+        """contours.N.zip; `copy_meta_from` (a Reader) supplies meta.json
+        and the per-folder meta.json files of its contours zip."""
+        with self.write_zip(Artifact.CONTOURS) as zf:
+            if copy_meta_from is not None:
+                src = copy_meta_from.path(Artifact.CONTOURS)
+                with zipfile.ZipFile(src, "r") as sf:
+                    zf.writestr("meta.json", sf.read("meta.json"))
+                    for name in sf.namelist():
+                        if name.endswith("/meta.json"):
+                            zf.writestr(name, sf.read(name))
+            yield zf
+
+    @contextmanager
+    def dewarping_transform(self):
+        with self._write(self.path(Artifact.DEWARPING_TRANSFORM), "wb") as f:
+            yield f
 
     def segmentation(self, segmentation):
         with self._write(self.path(Artifact.SEGMENTATION), "wb") as f:

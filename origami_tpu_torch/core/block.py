@@ -1,11 +1,14 @@
-"""Blocks and text lines: what line extraction needs of them.
+"""Blocks and text lines.
 
-Port of the extraction side of origami_tpu/core/block.py. A `Block` binds
-a region to its page (the region polygon is not parsed: the strip frames
-never use it); a `Line` keeps the p/right/up frame and confidence of the
-lines.N.zip JSON (docs/formats.md#lineszip) and builds the (2, 3) strip
-frames the strip kernel consumes. `Lines.open` reads lines.N.zip and
-drops lines whose block is not among the regions (block.py:444-460).
+Port of origami_tpu/core/block.py (the parts the flow and OCR stages
+use). A `Block` binds a region polygon to its page at a stage; a `Line`
+keeps the p/right/up frame, the detection data and the confidence of the
+lines.N.zip JSON (docs/formats.md#lineszip), its polygon (the line
+rectangle clipped to the block's text area, or the stored WKT, kept as
+text), and builds the (2, 3) strip frames the strip kernel consumes. `Lines.open` reads lines.N.zip and drops lines whose block is
+not among the regions (block.py:444-460). `TextAreaFactory` carves a
+block's text area out of its neighbours and the page's separators
+(block.py:486-538).
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import zipfile
 
 import numpy as np
 
+from origami_tpu_torch import geometry as G
+
 # Canonical recognizer framing (block.py:89-98): the detected band is the
 # ink extent; padding it by these fractions of its height before the
 # scale-to-height puts serving strips at the centre of the recognizer's
@@ -24,11 +29,11 @@ BAND_PAD = (0.28, 0.12)
 
 
 class Block:
-    """A region bound to a page at some stage."""
+    """A region polygon bound to a page at some stage."""
 
-    def __init__(self, page, path, stage):
+    def __init__(self, page, polygon, stage):
         self._page = page
-        self._path = tuple(path)
+        self._polygon = polygon
         self._stage = stage
 
     @property
@@ -36,25 +41,48 @@ class Block:
         return self._page
 
     @property
-    def path(self):
-        return self._path
-
-    @property
     def stage(self):
         return self._stage
 
+    @property
+    def image_space_polygon(self):
+        return self._polygon
+
+    @property
+    def bounds(self):
+        return self._polygon.bounds
+
 
 class Line:
-    """A text line: rectangle frame (p + right + up) and confidence."""
+    """A text line: rectangle frame (p + right + up), polygon,
+    confidence and detection data."""
 
-    def __init__(self, block, p, right, up, confidence=1,
-                 tesseract_data=None, wkt=None, text_area=None):
-        # wkt / tesseract_data / text_area are read and dropped: the
-        # extraction frames never use them
+    def __init__(self, block, p, right, up, tesseract_data=None,
+                 wkt=None, text_area=None, confidence=1):
         self._block = block
         self._p = np.asarray(p, dtype=np.float64)
         self._right = np.asarray(right, dtype=np.float64)
         self._up = np.asarray(up, dtype=np.float64)
+        self._data = tesseract_data or {}
+        self._wkt = wkt or None
+        self._polygon = None
+        if not self._wkt:
+            rect = G.Polygon([
+                self._p, self._p + self._right,
+                self._p + self._right + self._up, self._p + self._up])
+            if text_area is not None:
+                rect._convex_memo = True
+                # hull(text_area ∩ rect) without the exact overlay: one
+                # Sutherland-Hodgman pass per shell + a hull
+                from origami_tpu_torch.geometry.ops import clip_hull
+                inter = clip_hull(text_area, rect)
+                if inter is None:              # unsupported input type
+                    inter = text_area.intersection(rect)
+                    inter = inter.convex_hull if not inter.is_empty \
+                        else rect
+                rect = inter if inter.geom_type == "Polygon" \
+                    and not inter.is_empty else rect
+            self._polygon = rect
         self._confidence = confidence
 
     @property
@@ -72,6 +100,37 @@ class Line:
     @property
     def up(self):
         return self._up
+
+    @property
+    def baseline(self):
+        bl = self._data.get("baseline")
+        if bl is None:
+            return [list(self._p), list(self._p + self._right)]
+        return bl
+
+    @property
+    def center(self):
+        p1, p2 = self.baseline
+        return (np.asarray(p1) + np.asarray(p2)) / 2.0
+
+    @property
+    def angle(self):
+        return math.atan2(self._right[1], self._right[0])
+
+    @property
+    def length(self):
+        return float(np.linalg.norm(self._right))
+
+    @property
+    def info(self):
+        """The lines.N.zip JSON (docs/formats.md#lineszip)."""
+        return dict(
+            p=[float(v) for v in self._p],
+            right=[float(v) for v in self._right],
+            up=[float(v) for v in self._up],
+            wkt=self._wkt if self._polygon is None else self._polygon.wkt,
+            confidence=self._confidence,
+            tesseract_data=_jsonable(self._data))
 
     @property
     def confidence(self):
@@ -116,6 +175,22 @@ class Line:
         frame = np.array([[dx[0], dy[0], origin[0]],
                           [dx[1], dy[1], origin[1]]], np.float32)
         return frame, width
+
+
+def _jsonable(d):
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, np.ndarray):
+            out[k] = v.tolist()
+        elif isinstance(v, (np.floating, np.integer)):
+            out[k] = float(v)
+        elif isinstance(v, (list, tuple)):
+            out[k] = [_jsonable({"": x})[""] if isinstance(x, dict)
+                      else (x.tolist() if isinstance(x, np.ndarray) else x)
+                      for x in v]
+        else:
+            out[k] = v
+    return out
 
 
 class Regions:
@@ -173,3 +248,52 @@ class Lines:
 
     def __len__(self):
         return len(self._lines)
+
+
+class TextAreaFactory:
+    """Text area of a block = its polygon minus buffered neighbour blocks
+    and minus pre-buffered areal obstacles (the page's separators), the
+    latter unless the caller opts out (block.py:486-538)."""
+
+    def __init__(self, blocks=(), buffer=10, obstacles=()):
+        self._blocks = list(blocks)
+        self._buffer = buffer
+        self._tree = G.STRtree([b.image_space_polygon for b in self._blocks])
+        self._index = {id(b): i for i, b in enumerate(self._blocks)}
+        self._overlaps = {}
+        self._obstacles = [o for o in obstacles
+                           if o is not None and not o.is_empty]
+        self._obstacle_tree = (G.STRtree(self._obstacles)
+                               if self._obstacles else None)
+
+    def _interiors_overlap(self, i, j, pi, pj):
+        # each candidate pair is probed from both sides: memoize the
+        # symmetric answer
+        from origami_tpu_torch.geometry.ops import interiors_overlap
+        if i < 0:
+            return interiors_overlap(pi, pj)
+        key = (i, j) if i < j else (j, i)
+        hit = self._overlaps.get(key)
+        if hit is None:
+            hit = interiors_overlap(pi, pj)
+            self._overlaps[key] = hit
+        return hit
+
+    def __call__(self, block, avoid_obstacles=True):
+        poly = block.image_space_polygon
+        area = poly
+        bi = self._index.get(id(block), -1)
+        for idx in self._tree.query_indices(poly):
+            other = self._blocks[idx]
+            if other is block:
+                continue
+            if other.image_space_polygon.equals(poly):
+                continue
+            if self._interiors_overlap(bi, int(idx), poly,
+                                       other.image_space_polygon):
+                area = area.difference(
+                    other.image_space_polygon.buffer(self._buffer))
+        if avoid_obstacles and self._obstacle_tree is not None:
+            for idx in self._obstacle_tree.query_indices(poly):
+                area = area.difference(self._obstacles[int(idx)])
+        return area if not area.is_empty else poly

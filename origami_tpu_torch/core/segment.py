@@ -208,6 +208,17 @@ class Segmentation:
         return seg
 
     @staticmethod
+    def open_meta(path, open=None):
+        """segment.zip's predictors without their label maps: type, name
+        and classes from the JSON entries, labels empty. What the
+        separator store needs (core/separate.Separators), without
+        decoding the label PNGs."""
+        return Segmentation([
+            Prediction(m["type"], m["name"], np.zeros((0, 0), np.uint8),
+                       m["classes"])
+            for m in Segmentation.read_predictors(path, open=open)])
+
+    @staticmethod
     def read_predictors(path, open=None):
         """Metadata-only read of segment.zip."""
         open = open or builtins.open

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "origami_tpu_torch"
-SOURCES = ("remap.cu", "strips.cu", "sauvola.cu")
+SOURCES = ("remap.cu", "strips.cu", "sauvola.cu", "gather.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libkernels.so"
 
@@ -40,6 +40,7 @@ SIGNATURES = {
     "origami_strips_through_grid": [_P, _I, _I, _P, _I, _I, _F, _P, _P, _I,
                                     _I, _I, _F, _P, _P],
     "origami_sauvola_u8": [_P, _I, _I, _I, _F, _F, _I, _I, _P, _P],
+    "origami_take_along_axis_f32": [_P, _I, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -17,6 +17,7 @@ centre.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -49,12 +50,16 @@ def _weight_matrix(n_in, n_out, antialias, device):
 
 
 def _nearest_index(n_in, n_out, device):
-    """floor((i + 0.5) * n_in / n_out) in float32, in the order
-    jax.image.resize writes it."""
+    """floor((i + 0.5) * scale) in float32 with scale = n_in * (1 /
+    n_out), each rounded to float32: jax.image.resize writes
+    (i + 0.5) * n_in / n_out, and XLA folds the division by the constant
+    into that scale. Where an output centre falls exactly on a source
+    pixel boundary (40 -> 100: every fifth pixel), the folded scale
+    lands an ulp below it and takes the lower pixel, as JAX does."""
+    one = np.float32(1.0)
+    scale = np.float32(np.float32(n_in) * (one / np.float32(n_out)))
     i = torch.arange(n_out, dtype=torch.float32, device=device)
-    n = torch.full((), float(n_out), dtype=torch.float32, device=device)
-    return torch.floor((i + 0.5) * float(n_in) / n).long() \
-        .clamp(0, n_in - 1)
+    return torch.floor((i + 0.5) * float(scale)).long().clamp(0, n_in - 1)
 
 
 def resize_batch(images, out_hw, method="area"):

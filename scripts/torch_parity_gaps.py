@@ -9,7 +9,11 @@ C): numbers the parity tests only bound.
   2. the port's dewarp vs the JAX dense route on the fixture pages'
      own grids (page-boundary pixels of the hard edge);
   3. remap vs remap_pallas(interpret=True) on a map off the 1/64-px
-     lattice.
+     lattice;
+  4. the dewarp grid build (core/dewarp.build_grid) vs build_grid_device
+     on seeded sample sets, at 400x300 and at the fixture's 1312x1920;
+  5. the port's convex hull vs cv2.convexHull on point sets collinear to
+     within float32 rounding.
 """
 
 from __future__ import annotations
@@ -122,12 +126,53 @@ def remap_offlattice(crop):
           % (np.abs(got - ref).max(), np.abs(gotq - refq).max()))
 
 
+def grid_drift():
+    import math
+    from origami_tpu.core import dewarp as jax_dewarp
+    from origami_tpu_torch.core import dewarp as port_dewarp
+    print("4. build_grid vs build_grid_device (60 seeded samples a field)")
+    for seed, (w, h) in ((0, (400, 300)), (1, (400, 300)),
+                         (2, (1312, 1920))):
+        rng = np.random.default_rng(seed)
+        padded = []
+        for base in (0.0, math.pi / 2):
+            pts = np.c_[rng.uniform(0, w, 60), rng.uniform(0, h, 60)]
+            phi = base + 0.03 * np.sin(pts[:, 0] / 70.0) \
+                + rng.normal(0, 0.01, 60)
+            padded += list(jax_dewarp._pad_samples(pts, phi, 1024))
+        n_gx = jax_dewarp._round_up(math.ceil(w / 25) + 6, 8)
+        n_gy = jax_dewarp._round_up(math.ceil(h / 25) + 6, 8)
+        ref = np.asarray(jax_dewarp.build_grid_device(
+            *map(jnp.asarray, padded), n_gy=n_gy, n_gx=n_gx, res=25))
+        got = port_dewarp.build_grid(*map(t, padded), n_gy, n_gx, 25).numpy()
+        print("   seed %d, %dx%d page, grid %s: max |diff| %.2e px"
+              % (seed, w, h, ref.shape[:2], np.abs(got - ref).max()))
+
+
+def hull_collinear(n_sets=2000):
+    import cv2
+    from origami_tpu_torch.geometry.poly import convex_hull_f32
+    print("5. convex hull vs cv2.convexHull, near-collinear point sets")
+    rng = np.random.default_rng(1)
+    differ = 0
+    for _ in range(n_sets):
+        u = rng.uniform(0, 1, int(rng.integers(3, 15)))
+        p = np.c_[3 + 7 * u, 2 + 5 * u].astype(np.float32)
+        want = cv2.convexHull(p).reshape(-1, 2).astype(np.float64)
+        got = convex_hull_f32(p)
+        differ += got.shape != want.shape or not np.array_equal(got, want)
+    print("   %d of %d sets differ (a middle point kept or dropped)"
+          % (differ, n_sets))
+
+
 def main():
     page = _png.read_gray(FIXTURE / "synth0001.png")
     crop = np.ascontiguousarray(page[700:900, 250:550])
     strip_drift(crop)
     dewarp_edges()
     remap_offlattice(crop)
+    grid_drift()
+    hull_collinear()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,203 @@
+"""The port's host geometry (origami_tpu_torch/geometry, a copy of
+origami_tpu/geometry without cv2) against the JAX package's, on seeded
+polygons and on the fixture pages' text areas.
+
+Tolerances, each with its reason:
+  * WKT, transform, exact overlays (difference through native.cpp, built
+    from the same source with the same flags), separator buffers (the
+    exact miter offset) and make_valid of a valid polygon: exact
+    coordinates — the same arithmetic in the same order;
+  * the convex hull: the same points in cv2's order, exactly, for points
+    in general position and on integer lattices (the port repeats
+    cv2.convexHull's Sklansky scan; on points collinear to within
+    float32 rounding it may keep or drop a middle point where cv2 does
+    the other);
+  * polygon buffers and make_valid of an invalid polygon go through the
+    raster bridge, whose fill and contour tracer are the port's own
+    (cv2's in the JAX copy): the symmetric difference of the two results
+    stays below one raster pixel times the perimeter.
+"""
+
+import shutil
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+
+from origami_tpu import geometry as J
+from origami_tpu_torch import geometry as G
+from origami_tpu_torch.geometry import booleans, poly, raster
+
+ROOT = Path(__file__).resolve().parent.parent
+FULL = ROOT / "tests/data/torch_ocr/full"
+FLOW = ROOT / "tests/data/torch_flow"
+
+
+def star(rng, cx, cy, r0, r1, n):
+    """A seeded simple star-shaped polygon ring."""
+    ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+    rad = rng.uniform(r0, r1, n)
+    return np.c_[cx + rad * np.cos(ang), cy + rad * np.sin(ang)]
+
+
+def pair(seed):
+    rng = np.random.default_rng(seed)
+    a = star(rng, 100, 100, 40, 90, 12)
+    b = star(rng, 150, 120, 30, 80, 9)
+    hole = star(rng, 100, 100, 5, 15, 6)
+    return (G.Polygon(a, [hole]), G.Polygon(b),
+            J.Polygon(a, [hole]), J.Polygon(b))
+
+
+def all_coords(g):
+    return np.asarray(g._all_coords())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_wkt_round_trip_and_dumps_match(seed):
+    pa, pb, ja, jb = pair(seed)
+    for p, j in ((pa, ja), (pb, jb),
+                 (G.MultiPolygon([pa, pb]), J.MultiPolygon([ja, jb]))):
+        assert p.wkt == j.wkt
+        back = G.wkt.loads(j.wkt)
+        assert back.wkt == j.wkt
+        np.testing.assert_array_equal(all_coords(back), all_coords(p))
+    line = G.LineString(pa.np_shell[:5])
+    assert G.wkt.loads(line.wkt).wkt == J.wkt.loads(line.wkt).wkt
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_difference_and_intersection_equal_jax(seed):
+    pa, pb, ja, jb = pair(seed)
+    for op in ("difference", "intersection", "union"):
+        got, want = getattr(pa, op)(pb), getattr(ja, op)(jb)
+        assert got.geom_type == want.geom_type
+        assert got.wkt == want.wkt
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_native_and_python_overlay_agree(seed):
+    pa, pb, _, _ = pair(seed)
+    try:
+        booleans.USE_NATIVE = True
+        native = pa.difference(pb)
+        booleans.USE_NATIVE = False
+        python = pa.difference(pb)
+    finally:
+        booleans.USE_NATIVE = True
+    assert native.symmetric_difference(python).area < 1e-6
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_separator_buffer_and_transform_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    xs = np.linspace(0, 400, 7)
+    c = np.c_[xs, 50 + rng.normal(0, 2, 7)]
+    got = G.ops.buffer(G.LineString(c), 3.0)
+    want = J.ops.buffer(J.LineString(c), 3.0)
+    assert got.wkt == want.wkt
+
+    def f(x, y):
+        return x * 1.01 + 0.3 * y, y - 0.002 * x * x
+
+    pa, _, ja, _ = pair(seed)
+    assert G.transform(f, pa).wkt == J.transform(f, ja).wkt
+    assert G.make_valid(pa) is pa
+
+
+@pytest.mark.parametrize("dist", [10.0, -4.0])
+def test_polygon_buffer_close_to_jax_raster(dist):
+    pa, _, ja, _ = pair(11)
+    got = G.ops.buffer(pa, dist)
+    want = J.ops.buffer(ja, dist)
+    sym = J.wkt.loads(got.wkt).symmetric_difference(want).area
+    assert sym < want.length * 1.0
+    assert abs(got.area - want.area) < 0.02 * want.area
+
+
+def test_make_valid_of_a_bowtie_close_to_jax():
+    c = [(0, 0), (40, 40), (40, 0), (0, 40)]
+    got = G.make_valid(G.Polygon(c))
+    want = J.make_valid(J.Polygon(c))
+    assert got.is_valid and not got.is_empty
+    assert abs(got.area - want.area) < 0.02 * want.area
+
+
+def test_crack_tracer_keeps_holes_and_diagonal_pixels():
+    m = np.zeros((12, 12), np.uint8)
+    m[2:10, 2:10] = 1
+    m[4:7, 4:7] = 0                  # a hole
+    m[10, 10] = 1                    # joined diagonally to the square
+    frame = raster.RasterFrame((0, 0, 7, 7), scale=1.0, margin=2)
+    g = raster.vectorize(m, frame, min_area_px=0.5)
+    assert g.geom_type == "Polygon"
+    assert len(g.np_holes) == 1
+    assert abs(g.area - (64 - 9 + 1)) < 1e-9
+
+
+def test_ellipse_kernel_is_cv2s():
+    for r in range(1, 16):
+        np.testing.assert_array_equal(
+            raster.ellipse_kernel(r).astype(np.uint8),
+            cv2.getStructuringElement(cv2.MORPH_ELLIPSE,
+                                      (2 * r + 1, 2 * r + 1)))
+
+
+@pytest.mark.parametrize("kind", ["uniform", "lattice", "clustered"])
+def test_convex_hull_is_cv2s(kind):
+    rng = np.random.default_rng({"uniform": 0, "lattice": 1,
+                                 "clustered": 2}[kind])
+    for _ in range(300):
+        k = int(rng.integers(1, 30))
+        if kind == "uniform":
+            p = rng.uniform(0, 1000, (k, 2))
+        elif kind == "lattice":
+            p = rng.integers(0, 6, (k, 2)).astype(float)
+        else:
+            base = rng.uniform(0, 1000, (4, 2))
+            p = base[rng.integers(0, 4, k)] \
+                + rng.integers(0, 2, (k, 2)) * 0.25
+        p = p.astype(np.float32)
+        np.testing.assert_array_equal(
+            poly.convex_hull_f32(p),
+            cv2.convexHull(p).reshape(-1, 2).astype(np.float64))
+
+
+@pytest.fixture(scope="module")
+def fixture_regions(tmp_path_factory):
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    tmp = tmp_path_factory.mktemp("regions")
+    readers = []
+    for png in sorted(FULL.glob("*.png")):
+        shutil.copy(png, tmp)
+        out = tmp / (png.stem + ".out")
+        out.mkdir()
+        shutil.copy(FULL / (png.stem + ".out") / "segment.zip", out)
+        shutil.copy(FLOW / (png.stem + ".out") / "contours.0.zip", out)
+        readers.append(Input(Artifact.CONTOURS, stage=Stage.WARPED)
+                       .instantiate(tmp / png.name, device="cpu"))
+    return readers
+
+
+def test_native_and_python_text_areas_agree_on_fixture(fixture_regions):
+    """The flow stage's text areas (blocks minus buffered neighbours and
+    separators) through native.cpp and through the Python overlay."""
+    from origami_tpu_torch.core.block import TextAreaFactory
+    n = 0
+    for r in fixture_regions:
+        obstacles = [G.ops.buffer(g, 3.0) for g in r.separators.geoms]
+        blocks = r.regions.by_path
+        areas = {}
+        try:
+            for native in (True, False):
+                booleans.USE_NATIVE = native
+                f = TextAreaFactory(list(blocks.values()),
+                                    obstacles=obstacles)
+                areas[native] = {p: f(b, "TABULAR" not in p).wkt
+                                 for p, b in blocks.items()}
+        finally:
+            booleans.USE_NATIVE = True
+        assert areas[True] == areas[False]
+        n += len(blocks)
+    assert n > 50

@@ -160,7 +160,11 @@ print(json.dumps({"modules": names,
     for name in ("batch.detect.ocr", "batch.detect.segment", "core.binarize",
                  "core.predict", "core.segment", "core.utils",
                  "models.unet", "ops.binarize", "ops.morphology",
-                 "ops.resize", "ops.tiling"):
+                 "ops.resize", "ops.tiling", "batch.detect.flow",
+                 "batch.detect.dewarp", "core.baselines", "core.flow",
+                 "core.separate", "ops.gather", "geometry",
+                 "geometry.booleans", "geometry.native_bindings",
+                 "geometry.raster", "geometry.wkt"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
@@ -208,3 +212,30 @@ def test_segment_entry_points_need_cuda_unless_told_cpu(tmp_path):
         "heuristic", {"device": "cpu"}).device.type == "cpu"
     assert HeuristicSegmentationPredictor(
         device="cpu")._device.type == "cpu"
+
+
+@pytest.mark.parametrize("stage", ["flow", "dewarp"])
+def test_flow_and_dewarp_entry_points_need_cuda_unless_told_cpu(stage):
+    """The flow and dewarp CLIs, their processors and the grid factory
+    run on the card by default and raise without one; --device cpu /
+    device="cpu" runs them on the CPU."""
+    import importlib
+    from origami_tpu_torch.core.dewarp import GridFactory
+    from origami_tpu_torch.core.flow import Samples
+    from origami_tpu_torch.core.math import Geometry
+    mod = importlib.import_module("origami_tpu_torch.batch.detect." + stage)
+    proc = {"flow": "FlowDetectionProcessor",
+            "dewarp": "DewarpProcessor"}[stage]
+    assert mod.parser().parse_args(["x"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    empty = Samples(Geometry(100, 100))
+    for make in (lambda: getattr(mod, proc)({}),
+                 lambda: getattr(mod, proc)({"device": None}),
+                 lambda: mod.main(["--lock-strategy", "NONE", "."]),
+                 lambda: GridFactory((100, 100), empty, empty)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert getattr(mod, proc)({"device": "cpu"}).device.type == "cpu"
+    assert GridFactory((100, 100), empty, empty,
+                       device="cpu")().points("sample").shape == (16, 16, 2)

@@ -2,12 +2,9 @@
 
 Tolerance: 1e-3 gray levels on a 0..255 image for "area" and "linear"
 (both sides multiply by the same float32 weight matrices; the sums run
-in another order), exact for "nearest" at sizes where no output pixel's
-centre falls exactly on a boundary between two source pixels. On such a
-tie (40 -> 100 has one every fifth pixel) XLA's CPU arithmetic lands an
-ulp below the boundary and takes the lower pixel, while the formula as
-written, which the port computes, takes the upper: the sizes below have
-no ties.
+in another order), exact for "nearest", also where an output pixel's
+centre falls exactly on a boundary between two source pixels (40 -> 100
+has one every fifth pixel): the port computes the scale as XLA folds it.
 """
 
 import numpy as np
@@ -42,7 +39,12 @@ def test_resize_matches_jax(in_hw, out_hw, method):
     assert np.abs(got - ref).max() <= TOL
 
 
-@pytest.mark.parametrize("in_hw,out_hw", SHAPES)
+# sizes whose output centres fall on source pixel boundaries
+TIES = [((40, 100), (100, 40)), ((100, 40), (40, 100)),
+        ((64, 48), (160, 120))]
+
+
+@pytest.mark.parametrize("in_hw,out_hw", SHAPES + TIES)
 def test_resize_labels_matches_jax(in_hw, out_hw):
     lab = np.random.default_rng(1).integers(0, 4, in_hw).astype(np.uint8)
     ref = np.asarray(jax_resize.resize_labels(jnp.asarray(lab), out_hw))
