@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the result line):
      their grids and their real line frames) and time kernel, plain
      version and one PyTorch yardstick call (F.grid_sample on the
      precomputed sampling grid; the port never calls it) with CUDA
-     events, median of 20;
+     events, median of 20, and each one's device time alone
+     (torch.profiler); then the host µs of a wrapper call;
   3. run the OCR CLI (`python -m origami_tpu_torch.batch.detect.ocr`) on
      the card three times, each on a fresh copy of the `full` fixture
      corpus — single model, the 3-member voted ensemble, and
@@ -50,7 +51,14 @@ bit-packed, windows 15 and 31) against its plain version at a fixture
 page, a dewarped page and a ragged crop: the two must agree exactly; and
 the gather kernel (lane and sublane) over the sweep of
 scripts/pallas_gather_repro.py and at the grid build's own inputs, which
-must agree exactly with numpy's take_along_axis and the plain version.
+must agree exactly with numpy's take_along_axis and the plain version;
+dewarp_u8 (bit-equal) on both of its tile routes: the pages' own grids
+(every tile staged in shared memory), a scrambled grid (every tile
+through __ldg), a sheared grid and a ragged crop; and the grid scan
+kernels against the plain build (nodes within 1e-3 px; the chosen
+segments equal on the fixture pages) on the fixture pages' inputs,
+seeded samples at 400x300 and 1312x1920, rays that miss their row
+(some at 400x300, all at 1312x1920), and no samples at all.
 
 The line before the last is the kernel table as JSON (the kernels of the
 driven paths; a kernel entry point that no path runs is printed on a
@@ -126,6 +134,14 @@ GRID_PX = 1e-3
 CONTOUR_PX = 0.01
 FLOW_STAGE = "origami_tpu.batch.detect.flow"
 DEWARP_STAGE = "origami_tpu.batch.detect.dewarp"
+# what the grid scans need at least: per sample of a field evaluation
+# 2 subtractions, 2 multiplications and 1 addition for d2, the softening
+# addition, 1 division and 3 accumulations with 2 multiplications; per
+# segment of a V step's intersection the segment and offset (4), the
+# two cross products with their division (2 x 4 + 2), the denominator
+# (3), its clamp (2), 3 comparisons, the select and the argmin compare
+GRID_OPS_PER_SAMPLE = 12
+GRID_OPS_PER_SEGMENT = 22
 # the gather probe's sweep (scripts/pallas_gather_repro.py:97-99)
 GATHER_SHAPES = ((8, 128, 128), (8, 256, 128), (8, 384, 256),
                  (32, 384, 256), (64, 384, 256), (64, 512, 256))
@@ -184,6 +200,58 @@ def time_burst(fn, n=REPS):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def device_ms(fn, reps=10):
+    """Device time per call of `fn()` in ms: the summed device time of
+    the kernels (and copies) that torch.profiler records over `reps`
+    calls, after one warm-up call; the host's time between launches is
+    not in it. None when the profiler records no device event."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    ms = _device_ms(profiled(run))
+    return None if ms is None else ms / reps
+
+
+def profiled(fn, attempts=3):
+    """torch.profiler's record of `fn()` (CPU and CUDA activity, ending
+    in a synchronize). The profiler sometimes returns a record without
+    any device event for work that ran on the card; such a record is
+    taken again, up to `attempts` times, and the last one returned."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if _device_ms(prof) is not None:
+            break
+    return prof
+
+
+def host_us(fn, n=200):
+    """Host time per call of `fn()` in µs, `n` calls enqueued back to
+    back (the card runs behind; synchronised after the clock stops)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else "%.4f ms" % ms
 
 
 def levenshtein(a, b):
@@ -279,6 +347,28 @@ def _norm_grid(x, y, w, h):
                         2 * y / max(h - 1, 1) - 1], dim=-1)
 
 
+def dewarp_grids(hv, h, w, res):
+    """Phase 2's dewarp_u8 grids beyond a page's own, each of hv's
+    shape: "scrambled" (every node drawn uniformly over the page, so
+    every 4x4-cell tile's source window is about the whole page and every
+    tile reads its taps through the read-only cache) and "sheared" (1 px
+    per px along x, 0.5 along y, with a wave: windows of about 224 x 153
+    bytes, over the 32 KB budget inside the page and under it where the
+    page clamps them, so the tiles take both routes)."""
+    import numpy as np
+    import torch
+    gh, gw = hv.shape[:2]
+    rng = np.random.default_rng(11)
+    scrambled = np.stack([rng.uniform(0, w - 1, (gh, gw)),
+                          rng.uniform(0, h - 1, (gh, gw))], -1)
+    ii, jj = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    sheared = np.stack([
+        -600.0 + res * jj + 1.0 * res * ii + 3.1 * np.sin(ii / 2.3),
+        -400.0 + res * ii + 0.5 * res * jj + 2.7 * np.cos(jj / 3.1)], -1)
+    return {k: torch.from_numpy(v.astype(np.float32)).to(hv.device)
+            for k, v in (("scrambled", scrambled), ("sheared", sheared))}
+
+
 def check_kernels(device):
     """Phase 2: kernel vs plain version at main-path shapes; returns
     {kernel name: row} for the JSON table."""
@@ -292,28 +382,56 @@ def check_kernels(device):
     rows = {}
     failures = []
     images = []          # [(page u8, dewarped page u8)] for check_sauvola
+    timed = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+             "library_device_ms")
 
-    def report(name, got, want, tol, ms, plain_ms, nbytes, lib_ms, shape):
+    def report(name, got, want, tol, kernel, plain, nbytes, library, shape):
         diff = (got.double() - want.double()).abs()
         err = float(diff.max()) if diff.numel() else 0.0
         ok = err <= tol
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log("  %-20s %-30s max|diff| %.3g (tol %g) %s  kernel %.4f ms  "
-            "plain %.4f ms  bound %.4f ms  grid_sample %s" % (
-                name, shape, err, tol, "ok" if ok else "FAIL", ms,
-                plain_ms, bound_ms,
-                "%.4f ms" % lib_ms))
+        t = dict(ms=time_cuda(kernel), plain_ms=time_cuda(plain),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 library_ms=time_cuda(library), device_ms=device_ms(kernel),
+                 library_device_ms=device_ms(library))
+        log("  %-20s %-30s max|diff| %.3g (tol %g) %s  kernel %.4f ms "
+            "(device %s)  plain %.4f ms  bound %.4f ms  grid_sample %.4f ms "
+            "(device %s)" % (
+                name, shape, err, tol, "ok" if ok else "FAIL", t["ms"],
+                fmt_ms(t["device_ms"]), t["plain_ms"], t["bound_ms"],
+                t["library_ms"], fmt_ms(t["library_device_ms"])))
         if not ok:
             failures.append(name)
-        row = rows.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0,
-                                          bound_ms=0.0, library_ms=0.0))
+        row = rows.setdefault(name, dict({k: 0.0 for k in timed}, err=0.0))
         row["err"] = max(row["err"], err)
-        row["ms"] += ms
-        row["plain_ms"] += plain_ms
-        row["bound_ms"] += bound_ms
-        row["library_ms"] += lib_ms
+        for k in timed:
+            row[k] = None if row[k] is None or t[k] is None \
+                else row[k] + t[k]
 
-    for png in pages:
+    def dewarp_only(label, page, grid, res, want_route):
+        """dewarp_u8 against its plain version (bit-equal) on a grid off
+        the main path, with the count of tiles that staged a window."""
+        staged = torch.zeros(1, dtype=torch.int32, device=device)
+        got = ops.dewarp_u8(page, grid, res, staged_tiles=staged)
+        want = ops.dewarp_u8_plain(page, grid, res)
+        torch.cuda.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        gh, gw = grid.shape[:2]
+        tiles = -(-gh // 4) * -(-gw // 4)
+        n_staged = int(staged)
+        route_ok = {"staged": n_staged == tiles, "direct": n_staged == 0,
+                    "any": True}[want_route]
+        log("  %-20s %-30s max|diff| %g (tol 0) %s  tiles %d: %d staged, "
+            "%d read through __ldg  kernel %.4f ms  plain %.4f ms" % (
+                "dewarp_u8", "%s %dx%d" % ((label,) + tuple(page.shape)),
+                err, "ok" if err == 0 and route_ok else "FAIL", tiles,
+                n_staged, tiles - n_staged,
+                time_cuda(lambda: ops.dewarp_u8(page, grid, res)),
+                time_cuda(lambda: ops.dewarp_u8_plain(page, grid, res))))
+        if err != 0 or not route_ok:
+            failures.append("dewarp_u8 %s" % label)
+        return n_staged, tiles
+
+    for i, png in enumerate(pages):
         log(" page %s" % png.name)
         groups, reader = page_groups(png, device, "banded")
         page = reader.page
@@ -323,7 +441,7 @@ def check_kernels(device):
         res = page.grid.resolution
         gh, gw = hv.shape[:2]
 
-        # dewarp_u8 (the dewarp kernel on the main path)
+        # dewarp_u8 (the dewarp kernel on the main path): bit-equal
         got = ops.dewarp_u8(px, hv, res)
         want = ops.dewarp_u8_plain(px, hv, res)
         torch.cuda.synchronize()
@@ -331,17 +449,30 @@ def check_kernels(device):
         inb = (mx >= 0) & (mx <= w - 1) & (my >= 0) & (my <= h - 1)
         grid = _norm_grid(mx, my, w, h)[None]
         pxf = px.float()[None, None]
-        report("dewarp_u8", got, want, U8_TOL,
-               time_cuda(lambda: ops.dewarp_u8(px, hv, res)),
-               time_cuda(lambda: ops.dewarp_u8_plain(px, hv, res)),
+        report("dewarp_u8", got, want, 0,
+               lambda: ops.dewarp_u8(px, hv, res),
+               lambda: ops.dewarp_u8_plain(px, hv, res),
                tapped_pixels(mx, my, inb, h, w) + hv.numel() * 4
                + got.numel(),
-               time_cuda(lambda: F.grid_sample(
-                   pxf, grid, mode="bilinear", padding_mode="zeros",
-                   align_corners=True)),
+               lambda: F.grid_sample(pxf, grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True),
                "%dx%d -> %dx%d" % (h, w, gh * res, gw * res))
         dew = got
         images.append((px, dew))
+        # both tile routes: the page's own grid stages every tile's
+        # window, the scrambled grid none; the sheared grid mixes them;
+        # a ragged crop (rows not 16-byte aligned) stages with byte loads
+        dewarp_only("own grid", px, hv, res, "staged")
+        if i == 0:
+            extra = dewarp_grids(hv, h, w, res)
+            dewarp_only("scrambled grid", px, extra["scrambled"], res,
+                        "direct")
+            dewarp_only("sheared grid", px, extra["sheared"], res, "any")
+            crop = px[100:297, 60:311].contiguous()
+            shift = torch.tensor([60.0, 100.0], device=device)
+            dewarp_only("ragged crop", crop, (hv - shift).contiguous(), res,
+                        "any")
 
         # remap (remap_pallas' function, f32, fill 0): parity entry
         # point of the same source, not on the OCR path
@@ -351,15 +482,15 @@ def check_kernels(device):
         want = ops.remap_plain(img, map_xy, 0.0)
         torch.cuda.synchronize()
         report("remap", got, want, F32_TOL,
-               time_cuda(lambda: ops.remap(img, map_xy, 0.0)),
-               time_cuda(lambda: ops.remap_plain(img, map_xy, 0.0)),
+               lambda: ops.remap(img, map_xy, 0.0),
+               lambda: ops.remap_plain(img, map_xy, 0.0),
                tapped_pixels(map_xy[..., 0].clamp(-2.0, w + 1.0),
                              map_xy[..., 1].clamp(-2.0, h + 1.0),
                              torch.ones_like(mx, dtype=torch.bool), h, w) * 4
                + map_xy.numel() * 4 + got.numel() * 4,
-               time_cuda(lambda: F.grid_sample(
-                   img[None, None], grid, mode="bilinear",
-                   padding_mode="zeros", align_corners=True)),
+               lambda: F.grid_sample(img[None, None], grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True),
                "%dx%d -> %dx%d" % (h, w, *map_xy.shape[:2]))
 
         # strip mode (a): every (bucket, profile) group of the page
@@ -383,15 +514,13 @@ def check_kernels(device):
                     & (xs < wd.float().clamp(min=2.0)[:, None, None]))
             dewf = dew.float()[None, None].expand(n, 1, dh, dw)
             report("strips_dewarped", got, want, U8_TOL,
-                   time_cuda(lambda: ops.strips_dewarped(
-                       dew, fr, wd, 48, wmax)),
-                   time_cuda(lambda: ops.strips_dewarped_plain(
-                       dew, fr, wd, 48, wmax)),
+                   lambda: ops.strips_dewarped(dew, fr, wd, 48, wmax),
+                   lambda: ops.strips_dewarped_plain(dew, fr, wd, 48, wmax),
                    tapped_pixels(sx, sy, keep, dh, dw) + fr.numel() * 4
                    + wd.numel() * 4 + got.numel(),
-                   time_cuda(lambda: F.grid_sample(
-                       dewf, sgrid, mode="bilinear", padding_mode="zeros",
-                       align_corners=True)),
+                   lambda: F.grid_sample(dewf, sgrid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True),
                    "%d x 48 x %d" % (n, wmax))
 
         # strip mode (b): the gather route's groups of the page
@@ -409,26 +538,32 @@ def check_kernels(device):
             keep = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
             pxn = px.float()[None, None].expand(n, 1, h, w)
             report("strips_through_grid", got, want, U8_TOL,
-                   time_cuda(lambda: ops.strips_through_grid(
-                       px, hv, float(res), fr, wd, 48, wmax)),
-                   time_cuda(lambda: ops.strips_through_grid_plain(
-                       px, hv, float(res), fr, wd, 48, wmax)),
+                   lambda: ops.strips_through_grid(
+                       px, hv, float(res), fr, wd, 48, wmax),
+                   lambda: ops.strips_through_grid_plain(
+                       px, hv, float(res), fr, wd, 48, wmax),
                    tapped_pixels(cx, cy, keep, h, w)
                    + lattice_grid_cells(hv, float(res), fr, 48, wmax) * 8
                    + fr.numel() * 4 + wd.numel() * 4 + got.numel(),
-                   time_cuda(lambda: F.grid_sample(
-                       pxn, ggrid, mode="bilinear", padding_mode="zeros",
-                       align_corners=True)),
+                   lambda: F.grid_sample(pxn, ggrid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True),
                    "%d x 48 x %d" % (n, wmax))
     if failures:
         raise PhaseError("kernel disagrees with its plain version: %s"
                          % ", ".join(sorted(set(failures))))
     n_pages = len(pages)
     # per page: the sum over that page's launches, averaged over pages
-    for row in rows.values():
-        for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            row[k] /= n_pages
+    for name, row in rows.items():
+        for k in timed:
+            if row[k] is not None:
+                row[k] /= n_pages
         row["bound_by"] = "bytes"
+        log("  %s per page: kernel %.4f ms (device %s)  plain %.4f ms  "
+            "bound %.5f ms  grid_sample %.4f ms (device %s)" % (
+                name, row["ms"], fmt_ms(row["device_ms"]), row["plain_ms"],
+                row["bound_ms"], row["library_ms"],
+                fmt_ms(row["library_device_ms"])))
     rows.update(check_sauvola(images))
     return rows
 
@@ -461,7 +596,7 @@ def check_sauvola(images):
                                    ops.sauvola_packed_plain)}
     main = {("sauvola_packed", 15, "clamp"), ("sauvola", 31, "clamp")}
     timed = ("ms", "burst_ms", "cold_ms", "plain_ms", "bound_ms",
-             "library_ms")
+             "library_ms", "device_ms", "library_device_ms")
     rows = {name: dict({k: 0.0 for k in timed}, err=0.0, bound_by="bytes")
             for name in wrappers}
     flush = torch.empty(64 << 20, dtype=torch.uint8,
@@ -511,11 +646,17 @@ def check_sauvola(images):
                     lambda: plain(img, window, border=border)),
                 library_ms=time_cuda(
                     lambda: sauvola_library(img, window, border=border)),
-                bound_ms=max(t_bytes, t_ops))
-            line += ("  back to back %.4f ms  L2-cold %.4f ms  plain %.4f "
-                     "ms  avg_pool2d %.4f ms (%.5f of its pixels equal)" % (
+                bound_ms=max(t_bytes, t_ops),
+                device_ms=device_ms(kernel) or 0.0,
+                library_device_ms=device_ms(
+                    lambda: sauvola_library(img, window, border=border))
+                or 0.0)
+            line += ("  back to back %.4f ms  L2-cold %.4f ms  device %.4f "
+                     "ms  plain %.4f ms  avg_pool2d %.4f ms (device %.4f ms;"
+                     " %.5f of its pixels equal)" % (
                          times["burst_ms"], times["cold_ms"],
-                         times["plain_ms"], times["library_ms"],
+                         times["device_ms"], times["plain_ms"],
+                         times["library_ms"], times["library_device_ms"],
                          float((lib == mask).float().mean())))
             for k in timed:
                 row[k] += times[k]
@@ -528,10 +669,11 @@ def check_sauvola(images):
         for k in timed:
             row[k] /= len(images)
         log("  %s per page: kernel %.4f ms (back to back %.4f, L2-cold "
-            "%.4f)  plain %.4f ms  bound %.5f ms (%s)  avg_pool2d %.4f ms"
+            "%.4f, device %.4f)  plain %.4f ms  bound %.5f ms (%s)  "
+            "avg_pool2d %.4f ms (device %.4f)"
             % (name, row["ms"], row["burst_ms"], row["cold_ms"],
-               row["plain_ms"], row["bound_ms"], row["bound_by"],
-               row["library_ms"]))
+               row["device_ms"], row["plain_ms"], row["bound_ms"],
+               row["bound_by"], row["library_ms"], row["library_device_ms"]))
     return rows
 
 
@@ -563,35 +705,83 @@ def gather_probe_case(kind, r, w, c, pattern, seed=0):
     return arr, idx, np.take_along_axis(arr, idx, axis=axis)
 
 
-def site_inputs(device):
-    """The gather kernel's inputs on the main path: every (t_sel, best)
-    pair the V pass of one fixture page's grid build hands it (the JAX
-    flow.zip of the first page), recorded from a build on the card."""
+def grid_case(kind, w, h, seed=3, n=60):
+    """Padded grid-build inputs over a w x h page: [h_xy, h_phi, h_mask,
+    v_xy, v_phi, v_mask] (numpy float32, 1024 samples) and (n_gy, n_gx),
+    as GridFactory shapes them. `kind`: "seeded" (H samples near 0 rad,
+    V near pi/2, a smooth warp and noise), "miss" (the same, but the V
+    samples of the left 30 % point up, so the rays there miss the next
+    H row and take the field step; at the full page the rays that turn
+    through the horizontal between the two halves make the grid
+    ill-conditioned, ROADMAP.md queue C), "upward" (every V sample
+    points up: every ray misses every row), "empty" (no samples: the fields fall
+    back to phi0 and the grid is the regular lattice, every ray through a
+    vertex, an exact tie of two segments)."""
+    import math
+    import numpy as np
+    from origami_tpu_torch.core import dewarp
+    rng = np.random.default_rng(seed)
+    padded = []
+    for base in (0.0, math.pi / 2):
+        pts = np.c_[rng.uniform(0, w, n), rng.uniform(0, h, n)]
+        phi = base + 0.03 * np.sin(pts[:, 0] / 70.0) + rng.normal(0, 0.01, n)
+        if kind == "miss" and base > 0:
+            phi = np.where(pts[:, 0] < 0.3 * w,
+                           -math.pi / 2 + rng.normal(0, 0.01, n), phi)
+        if kind == "upward" and base > 0:
+            phi = -math.pi / 2 + rng.normal(0, 0.01, n)
+        if kind == "empty":
+            pts, phi = pts[:0], phi[:0]
+        padded += list(dewarp._pad_samples(pts, phi, 1024))
+    n_gx = dewarp._round_up(math.ceil(w / 25) + 6, 8)
+    n_gy = dewarp._round_up(math.ceil(h / 25) + 6, 8)
+    return padded, (n_gy, n_gx)
+
+
+def page_grid_inputs(png, device):
+    """A fixture page's grid-build inputs, as the dewarp stage makes
+    them from the JAX flow.zip: the padded H and V samples on `device`
+    and the grid shape (n_gy, n_gx)."""
+    import torch
     from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
     from origami_tpu_torch.core import dewarp
-    from origami_tpu_torch.ops import gather
-    png = sorted(FIXTURE.glob("*.png"))[0]
     corpus = Path(tempfile.mkdtemp(prefix="chip_smoke_site_"))
     try:
         flow_corpus(corpus, [png], with_flow=True)
         reader = Input(Artifact.CONTOURS, Artifact.FLOW,
                        stage=Stage.WARPED).instantiate(
             corpus / png.name, _Proc(device))
-        recorded = []
-        kernel = gather.take_along_axis
-
-        def record(src, idx, axis):
-            recorded.append((src.clone(), idx.clone(), axis))
-            return kernel(src, idx, axis)
-
-        gather.take_along_axis = record
-        try:
-            dewarp.Grid.create(reader.page.size(), reader.flow["h"],
-                               reader.flow["v"], device=device)
-        finally:
-            gather.take_along_axis = kernel
+        fh, fv = reader.flow["h"], reader.flow["v"]
+        shape = dewarp.GridFactory(reader.page.size(), fh, fv,
+                                   device=device).shape()
     finally:
         shutil.rmtree(corpus, ignore_errors=True)
+    padded = [torch.from_numpy(a).to(device)
+              for f in (fh, fv)
+              for a in dewarp._pad_samples(f.points, f.values, 1024)]
+    return padded, shape
+
+
+def site_inputs(device):
+    """The lane gather's inputs at the grid build's site: every (t_sel,
+    best) pair that the V scan of the first fixture page's grid build
+    gathers from (its JAX flow.zip), recorded from the plain build on the
+    card; the stage's own build gathers inside the V scan kernel."""
+    from origami_tpu_torch.ops import gather, grid
+    padded, shape = page_grid_inputs(sorted(FIXTURE.glob("*.png"))[0],
+                                     device)
+    recorded = []
+    plain = gather.take_along_axis_plain
+
+    def record(src, idx, axis):
+        recorded.append((src.clone(), idx.clone(), axis))
+        return plain(src, idx, axis)
+
+    gather.take_along_axis_plain = record
+    try:
+        grid.build_grid_plain(*padded, *shape, 25)
+    finally:
+        gather.take_along_axis_plain = plain
     return recorded
 
 
@@ -599,8 +789,10 @@ def check_gather(device):
     """Phase 2, the gather kernel: lane and sublane over the probe's
     sweep and at the grid build's inputs, each against numpy's
     take_along_axis and the plain version (max |diff| must be 0); times
-    at the probe's largest shape and per page at the site. Returns the
-    lane (main path) and sublane (no stage calls it) rows."""
+    at the probe's largest shape and per page at the site (the inputs
+    of the plain grid build's 87 gathers; the stage's build gathers
+    inside the V scan kernel). Returns the lane and sublane rows, both
+    off the stages' paths."""
     import numpy as np
     import torch
     from origami_tpu_torch.ops import gather
@@ -658,12 +850,18 @@ def check_gather(device):
             plain_ms=time_cuda(lambda: gather.take_along_axis_plain(
                 src, ix, axis)),
             library_ms=time_cuda(lambda: torch.gather(src, axis, ix64)),
-            bound_ms=gather_bytes(src, ix, axis) / HBM_BYTES_PER_S * 1e3)
+            bound_ms=gather_bytes(src, ix, axis) / HBM_BYTES_PER_S * 1e3,
+            device_ms=device_ms(lambda: gather.take_along_axis(src, ix,
+                                                               axis)),
+            library_device_ms=device_ms(lambda: torch.gather(src, axis,
+                                                             ix64)))
         log("  %-24s affine probe r,w,c=%s, per launch: kernel %.4f ms "
-            "(back to back %.4f)  plain %.4f ms  torch.gather %.4f ms  "
-            "bound %.6f ms (bytes)" % (
+            "(back to back %.4f, device %s)  plain %.4f ms  torch.gather "
+            "%.4f ms (device %s)  bound %.6f ms (bytes)" % (
                 name, GATHER_SHAPES[-1], probe["ms"], probe["burst_ms"],
-                probe["plain_ms"], probe["library_ms"], probe["bound_ms"]))
+                fmt_ms(probe["device_ms"]), probe["plain_ms"],
+                probe["library_ms"], fmt_ms(probe["library_device_ms"]),
+                probe["bound_ms"]))
         if kind == "sublane":
             rows[name].update({k: probe[k] for k in
                                ("ms", "plain_ms", "library_ms",
@@ -703,26 +901,267 @@ def check_gather(device):
                                 gather.take_along_axis(s, i, a)))
     # the kernel's own device time over a page's launches: the events
     # above also hold the host's time between launches
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        per_page(lambda s, i, a, i64: gather.take_along_axis(s, i, a))()
-        torch.cuda.synchronize()
+    prof = profiled(per_page(lambda s, i, a, i64:
+                             gather.take_along_axis(s, i, a)))
     dev_ms = sum(e.device_time for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and "gather_kernel" in e.name) / 1e3
+    row["library_device_ms"] = device_ms(
+        per_page(lambda s, i, a, i64: torch.gather(s, a, i64)), reps=3)
     log("  take_along_axis_lane    at the grid build site: %d launches per "
         "page of %s -> %s (%d of the gathered values inf): per page "
         "kernel %.4f ms (back to back %.4f; device time of the kernels "
-        "alone %.4f ms)  plain %.4f ms  torch.gather %.4f ms  bound %.6f "
-        "ms (bytes)" % (
+        "alone %.4f ms)  plain %.4f ms  torch.gather %.4f ms (device %s)  "
+        "bound %.6f ms (bytes)" % (
             len(site), tuple(site[0][0].shape), tuple(site[0][1].shape),
             n_inf, row["ms"], burst, dev_ms, row["plain_ms"],
-            row["library_ms"], row["bound_ms"]))
+            row["library_ms"], fmt_ms(row["library_device_ms"]),
+            row["bound_ms"]))
+    row["device_ms"] = dev_ms
     if failures:
         raise PhaseError("the gather kernel disagrees: %s"
                          % ", ".join(failures[:10]))
     return rows
+
+
+def check_grid(device, lane_row):
+    """Phase 2, the grid scan kernels: grid_scan (the H and the V kernel)
+    against the plain build on the card over the fixture pages' inputs
+    and the cases of grid_case (seeded samples at 400x300 and the full
+    page, rays that miss at 400x300, every ray missing at the full page,
+    no samples); nodes within GRID_PX, and the
+    segment each V step chose equal on the fixture pages. Times per page
+    at the fixture pages' inputs. `lane_row`: the lane gather's row, whose
+    torch.gather time at the site is the V kernel's yardstick. Returns
+    the grid_scan_h and grid_scan_v rows."""
+    import torch
+    from origami_tpu_torch.ops import grid
+    from origami_tpu_torch.ops import remap as ops
+    pages = sorted(FIXTURE.glob("*.png"))
+    cases = [("fixture %s" % p.stem, *page_grid_inputs(p, device), True)
+             for p in pages]
+    for kind, w, h in (("seeded", 400, 300), ("seeded", 1312, 1920),
+                       ("miss", 400, 300), ("upward", 1312, 1920),
+                       ("empty", 1312, 1920)):
+        padded, shape = grid_case(kind, w, h)
+        cases.append(("%s %dx%d" % (kind, w, h),
+                      [torch.from_numpy(a).to(device) for a in padded],
+                      shape, False))
+    failures = []
+    worst = 0.0
+    nearest = grid._nearest_hit
+
+    def dm(fn, reps=10):
+        ms = device_ms(fn, reps)
+        return float("nan") if ms is None else ms
+
+    misses = []
+
+    def count_misses(t_sel):
+        best, t_best = nearest(t_sel)
+        misses.append(int((~torch.isfinite(t_best)).sum()))
+        return best, t_best
+
+    for label, padded, shape, gate_best in cases:
+        n_gy, n_gx = shape
+        bk = torch.full((n_gy - 1, n_gx), -1, dtype=torch.int32,
+                        device=device)
+        bp = torch.full_like(bk, -1)
+        got = grid.grid_scan(*padded, n_gy, n_gx, 25, best=bk)
+        misses.clear()
+        grid._nearest_hit = count_misses
+        try:
+            want = grid.build_grid_plain(*padded, n_gy, n_gx, 25, best=bp)
+        finally:
+            grid._nearest_hit = nearest
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        same_best = float((bk == bp).float().mean())
+        ok = finite and err <= GRID_PX and (same_best == 1.0
+                                            or not gate_best)
+        worst = max(worst, err)
+        log("  grid_scan  %-22s grid %dx%d: nodes max|diff| %.3g px (tol "
+            "%g)  segment choice equal %.4f%s  rays that missed %d  %s" % (
+                label, n_gy, n_gx, err, GRID_PX, same_best,
+                " (gated)" if gate_best else "", sum(misses),
+                "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append(label)
+    if failures:
+        raise PhaseError("the grid scan kernels disagree with the plain "
+                         "build: %s" % ", ".join(failures))
+
+    names = ("grid_scan_h", "grid_scan_v")
+    timed = ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+             "chain_ms", "build_wall_ms", "build_device_ms",
+             "plain_wall_ms", "plain_build_device_ms")
+    rows = {n: dict({k: 0.0 for k in timed}, err=worst, library_ms=None,
+                    bound_by="operations") for n in names}
+    for label, padded, shape, _ in cases[:len(pages)]:
+        n_gy, n_gx = shape
+        h_xy, h_phi, h_mask, v_xy, v_phi, v_mask = padded
+        n_h, n_v = h_xy.shape[0], v_xy.shape[0]
+        grid_h = torch.empty((n_gy, n_gx, 2), device=device)
+        out = torch.empty_like(grid_h)
+        short = torch.empty((n_gy, 8, 2), device=device)
+
+        def run_h(cols=n_gx, dst=grid_h):
+            ops._launch("origami_grid_scan_h", ops._ptr(h_xy),
+                        ops._ptr(h_phi), ops._ptr(h_mask), n_h, n_gy, cols,
+                        25.0, -50.0, ops._ptr(dst))
+
+        def run_v(rows_=n_gy):
+            ops._launch("origami_grid_scan_v", ops._ptr(grid_h),
+                        ops._ptr(v_xy), ops._ptr(v_phi), ops._ptr(v_mask),
+                        n_v, rows_, n_gx, 25.0, ops._ptr(out), None)
+
+        run_h()
+        gh_plain = grid.scan_h_plain(h_xy, h_phi, h_mask, n_gy, n_gx, 25)
+        torch.cuda.synchronize()
+        dev = {"h": dm(run_h), "v": dm(run_v)}
+        # one step's latency: the slope of a kernel's device time over
+        # its number of steps (H: 8 columns against n_gx; V: 8 rows
+        # against n_gy)
+        h_step = (dev["h"] - dm(lambda: run_h(8, short))) / (n_gx - 8)
+        v_step = (dev["v"] - dm(lambda: run_v(8))) / (n_gy - 8)
+        real_h, real_v = float(h_mask.sum()), float(v_mask.sum())
+        ops_h = n_gy * (n_gx - 1) * real_h * GRID_OPS_PER_SAMPLE
+        ops_v = n_gx * (n_gy - 1) * (real_v * GRID_OPS_PER_SAMPLE
+                                     + (n_gx - 1) * GRID_OPS_PER_SEGMENT)
+        grid_bytes = n_gy * n_gx * 8
+        bytes_h = n_h * 16 + grid_bytes
+        bytes_v = n_v * 16 + 2 * grid_bytes
+        t = {
+            "grid_scan_h": dict(
+                ms=time_cuda(run_h), device_ms=dev["h"],
+                plain_ms=time_cuda(lambda: grid.scan_h_plain(
+                    h_xy, h_phi, h_mask, n_gy, n_gx, 25), reps=5),
+                plain_device_ms=dm(lambda: grid.scan_h_plain(
+                    h_xy, h_phi, h_mask, n_gy, n_gx, 25), reps=2),
+                ops=ops_h, bytes=bytes_h, chain_ms=(n_gx - 1) * h_step),
+            "grid_scan_v": dict(
+                ms=time_cuda(run_v), device_ms=dev["v"],
+                plain_ms=time_cuda(lambda: grid.scan_v_plain(
+                    gh_plain, v_xy, v_phi, v_mask, 25), reps=5),
+                plain_device_ms=dm(lambda: grid.scan_v_plain(
+                    gh_plain, v_xy, v_phi, v_mask, 25), reps=2),
+                ops=ops_v, bytes=bytes_v, chain_ms=(n_gy - 1) * v_step)}
+
+        def wall_ms(fn, reps):
+            fn()
+            walls = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(walls)
+
+        def build():
+            grid.grid_scan(*padded, n_gy, n_gx, 25)
+
+        def plain_build():
+            grid.build_grid_plain(*padded, n_gy, n_gx, 25)
+
+        whole = dict(build_wall_ms=wall_ms(build, 5),
+                     build_device_ms=dm(build, reps=5),
+                     plain_wall_ms=wall_ms(plain_build, 3),
+                     plain_build_device_ms=dm(plain_build, reps=1))
+        for name in names:
+            r = t[name]
+            t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
+            t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+            r["bound_ms"] = max(t_ops, t_bytes)
+            if t_bytes > t_ops:
+                rows[name]["bound_by"] = "bytes"
+            r.update(whole)
+            log("  %-11s %-22s kernel %.4f ms (device %.4f)  plain %.3f ms "
+                "(device %.3f)  bound %.5f ms (%.3g operations at the FP32 "
+                "rate; %d bytes %.6f ms)  dependency chain %.4f ms (steps x "
+                "%.2f us a step)" % (
+                    name, label, r["ms"], r["device_ms"], r["plain_ms"],
+                    r["plain_device_ms"], r["bound_ms"], r["ops"],
+                    r["bytes"], t_bytes, r["chain_ms"],
+                    1e3 * (h_step if name == "grid_scan_h" else v_step)))
+            for k in timed:
+                rows[name][k] += r[k] / len(pages)
+        log("  grid build %-22s grid_scan %.3f ms wall, %.4f ms device;  "
+            "plain build %.2f ms wall, %.3f ms device" % (
+                label, whole["build_wall_ms"], whole["build_device_ms"],
+                whole["plain_wall_ms"], whole["plain_build_device_ms"]))
+    rows["grid_scan_v"]["library_ms"] = lane_row["library_ms"]
+    rows["grid_scan_v"]["library_device_ms"] = lane_row["library_device_ms"]
+    for name in names:
+        r = rows[name]
+        log("  %s per page: kernel %.4f ms (device %.4f)  plain %.3f ms "
+            "(device %.3f)  bound %.5f ms (%s)  dependency chain %.4f ms  "
+            "yardstick %s" % (
+                name, r["ms"], r["device_ms"], r["plain_ms"],
+                r["plain_device_ms"], r["bound_ms"], r["bound_by"],
+                r["chain_ms"],
+                "none (no single PyTorch call)" if r["library_ms"] is None
+                else "torch.gather x 87 at the site %.4f ms (device %s)"
+                % (r["library_ms"], fmt_ms(r["library_device_ms"]))))
+    return rows
+
+
+def host_path_ab(device):
+    """Host µs per wrapper call: the launch path the wrappers share
+    (ops/remap.py `_launch`, `_ptr`: the raw current stream, the
+    pointer as an int) against the earlier one (a torch.cuda.Stream
+    object and a ctypes.c_void_p per pointer, re-created here), in
+    turns earlier, current, current, earlier."""
+    import ctypes
+    import torch
+    from origami_tpu_torch.core import _png, dewarp
+    from origami_tpu_torch.ops import _build, binarize, gather, grid
+    from origami_tpu_torch.ops import remap as ops
+    mods = (ops, gather, grid, binarize)
+    current = {m: (m._launch, m._ptr) for m in mods}
+
+    def earlier_launch(fn_name, *args):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(_build.library(), fn_name)(*args, stream)
+        if rc != 0:
+            raise RuntimeError("%s: CUDA error %d at launch" % (fn_name, rc))
+
+    def earlier_ptr(t):
+        return ctypes.c_void_p(t.data_ptr())
+
+    png = sorted(FIXTURE.glob("*.png"))[0]
+    px = torch.from_numpy(_png.read_gray(png)).to(device)
+    hv = torch.from_numpy(dewarp.Grid.open(
+        FIXTURE / (png.stem + ".out") / "dewarp.zip").points(
+            "sample")).to(device)
+    src = torch.rand((64, 63), device=device)
+    idx = torch.zeros((64, 1), dtype=torch.int32, device=device)
+    padded, shape = page_grid_inputs(png, device)
+    calls = {
+        "dewarp_u8": (lambda: ops.dewarp_u8(px, hv, 25), 200),
+        "sauvola_packed": (lambda: binarize.sauvola_packed(px, 15), 200),
+        "take_along_axis_lane": (lambda: gather.take_along_axis(src, idx, 1),
+                                 200),
+        "grid_scan": (lambda: grid.grid_scan(*padded, *shape, 25), 50),
+    }
+    got = {name: {"earlier": [], "current": []} for name in calls}
+    try:
+        for turn in ("earlier", "current", "current", "earlier"):
+            for m in mods:
+                m._launch, m._ptr = current[m] if turn == "current" \
+                    else (earlier_launch, earlier_ptr)
+            for name, (fn, n) in calls.items():
+                got[name][turn].append(host_us(fn, n))
+    finally:
+        for m in mods:
+            m._launch, m._ptr = current[m]
+    out = {}
+    for name, t in got.items():
+        out[name] = {k: statistics.mean(v) for k, v in t.items()}
+        log("  host path %-22s %.1f us a call (earlier launch path %.1f us)"
+            % (name, out[name]["current"], out[name]["earlier"]))
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1135,7 +1574,6 @@ def check_flow_dewarp(workdir):
     runs = {}
     chain = flow_corpus(workdir / "flow_chain")
     isolated = flow_corpus(workdir / "dewarp_on_jax_flow", with_flow=True)
-    n_steps = None
     plan = (("flow", chain, ("flow.zip", "lines.0.zip")),
             ("dewarp", chain, ("dewarp.zip", "contours.1.zip")),
             ("dewarp", isolated, ("dewarp.zip", "contours.1.zip")))
@@ -1150,18 +1588,13 @@ def check_flow_dewarp(workdir):
             for k, v in got.items():
                 worst[k] = max(worst.get(k, 0.0), v) if k != \
                     "lines_identical" else min(worst.get(k, 1.0), v)
-        if stage == "dewarp":
-            gh = json.loads((FLOW_REF / (pages[0].stem + ".out") /
-                             "runtime.json").read_text())[
-                DEWARP_STAGE]["grid_shape"][0]
-            n_steps = gh - 1
         # per page: the Sauvola prefetch once in each stage; the dewarp
-        # kernel once and the lane gather once per V-pass step in dewarp
-        want = {"sauvola_packed": n, "sauvola": 0, "take_along_axis_sublane": 0}
-        if stage == "dewarp":
-            want.update(dewarp_u8=n, take_along_axis_lane=n * n_steps)
-        else:
-            want.update(dewarp_u8=0, take_along_axis_lane=0)
+        # kernel and each grid scan kernel once in dewarp; the standalone
+        # gather never (the V scan kernel gathers inside)
+        want = {"sauvola_packed": n, "sauvola": 0, "take_along_axis_lane": 0,
+                "take_along_axis_sublane": 0}
+        once = n if stage == "dewarp" else 0
+        want.update(dewarp_u8=once, grid_scan_h=once, grid_scan_v=once)
         bad_launch = {k: launches.get(k) for k, v in want.items()
                       if launches.get(k) != v}
         # the chained dewarp runs on the port's own flow.zip: its grid
@@ -1199,7 +1632,6 @@ def flow_dewarp_throughput(workdir, reps=5):
     timed passes of each over fresh corpora after one warm-up pass, one
     profiled pass each; and the launches of one grid build."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
     from origami_tpu_torch.batch.detect.dewarp import DewarpProcessor
     from origami_tpu_torch.batch.detect.flow import FlowDetectionProcessor
@@ -1233,9 +1665,9 @@ def flow_dewarp_throughput(workdir, reps=5):
             dt = one_pass("tp%d" % i)
             if i:                       # the first pass warms up
                 times.append(dt)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            prof_wall = one_pass("prof")
+        walls = []
+        prof = profiled(lambda: walls.append(one_pass("prof%d" % len(walls))))
+        prof_wall = walls[-1]
         table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=12)
         med = statistics.median(times)
@@ -1259,14 +1691,12 @@ def flow_dewarp_throughput(workdir, reps=5):
         dewarp.Grid.create(size, fh, fv, device="cuda")
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dewarp.Grid.create(size, fh, fv, device="cuda")
-        torch.cuda.synchronize()
+    prof = profiled(lambda: dewarp.Grid.create(size, fh, fv, device="cuda"))
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     out["grid"] = dict(wall_ms=statistics.median(walls) * 1e3,
                        launches=len(kernels),
+                       scans=sum("grid_scan" in e.name for e in kernels),
                        device_ms=sum(e.device_time for e in kernels) / 1e3)
     return out
 
@@ -1320,6 +1750,8 @@ def main():
         "events; %s)" % (REPS, smi))
     rows = check_kernels(device)
     rows.update(check_gather(device))
+    rows.update(check_grid(device, rows["take_along_axis_lane"]))
+    host_path_ab(device)
 
     log("== phase 3: OCR CLI on the card vs the JAX references (%s)"
         % smi)
@@ -1434,8 +1866,9 @@ def main():
             log(r["profile"])
         g = ftp["grid"]
         log("  one grid build (88 x 64 nodes, 1312x1920 page): %.2f ms wall "
-            "(median of 5), %d device kernel launches, %.3f ms device time"
-            % (g["wall_ms"], g["launches"], g["device_ms"]))
+            "(median of 5), %d device launches (kernels and copies; %d of "
+            "them the grid scan kernels), %.3f ms device time"
+            % (g["wall_ms"], g["launches"], g["scans"], g["device_ms"]))
 
     total = {k: sum(r["launches"][k] for r in runs) for k in ops.launches}
     total.update({k: sum(r["launches"][k] for r in seg_runs)
@@ -1452,9 +1885,12 @@ def main():
         "sauvola": ("sauvola.cu", "origami_tpu/ops/pallas/sauvola.py:120"),
         "sauvola_packed": ("sauvola.cu",
                            "origami_tpu/ops/pallas/sauvola.py:120"),
+        "grid_scan_h": ("grid.cu", "origami_tpu/core/dewarp.py:93"),
+        "grid_scan_v": ("grid.cu", "scripts/pallas_gather_repro.py:73, "
+                                   "origami_tpu/core/dewarp.py:131"),
+        "remap": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "take_along_axis_lane": ("gather.cu",
                                  "scripts/pallas_gather_repro.py:73"),
-        "remap": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "take_along_axis_sublane": ("gather.cu",
                                     "scripts/pallas_gather_repro.py:73"),
     }
@@ -1468,17 +1904,17 @@ def main():
             max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
-    off_path = ("remap", "take_along_axis_sublane")
+    off_path = ("remap", "take_along_axis_lane", "take_along_axis_sublane")
     starved = [n for n, k in kernels.items()
                if n not in off_path and k["launches"] < 1]
     if starved:
         raise PhaseError("kernels of the driven paths never launched: %s"
                          % starved)
     log("total %.1f s" % (time.time() - t_start))
-    # `remap` (remap_pallas' own function) and the sublane gather are
-    # entry points that no stage calls: held against their plain
-    # versions above, launched by no path, and so kept out of the table
-    # of the paths' kernels
+    # `remap` (remap_pallas' own function) and the gather (lane and
+    # sublane) are entry points that no stage calls: held against their
+    # plain versions above, launched by no path, and so kept out of the
+    # table of the paths' kernels
     print(json.dumps({"off_path_kernels": [kernels.pop(n)
                                            for n in off_path]}),
           flush=True)

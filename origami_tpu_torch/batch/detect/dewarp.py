@@ -2,9 +2,9 @@
 stage 4).
 
 Port of origami_tpu/batch/detect/dewarp.py: contours.0.zip + flow.zip ->
-dewarp.zip + contours.1.zip. The grid is built on the card
-(core.dewarp.build_grid, with the gather kernel of csrc/gather.cu in its
-V pass) and comes back to the host once; the contours move into the
+dewarp.zip + contours.1.zip. The grid is built on the card (the two
+scan kernels of csrc/grid.cu, ops.grid.grid_scan) and comes back to the
+host once; the contours move into the
 dewarped frame on the host through the grid's Newton inverse. Then the
 stage dewarps and binarizes the page on the card (the dewarp kernel of
 csrc/remap.cu, the Sauvola kernel of csrc/sauvola.cu) into the

@@ -208,8 +208,9 @@ def parser():
 
 def kernel_launches():
     """Every port kernel's launch count in this process."""
-    from origami_tpu_torch.ops import binarize, gather, remap
-    return {**remap.launches, **binarize.launches, **gather.launches}
+    from origami_tpu_torch.ops import binarize, gather, grid, remap
+    return {**remap.launches, **binarize.launches, **gather.launches,
+            **grid.launches}
 
 
 def main(argv=None):

@@ -5,18 +5,14 @@ Port of origami_tpu/core/dewarp.py. A `Grid` holds the dewarped->warped
 sample lattice `hv` ((gh, gw, 2) float32, one node every `res` px) of
 dewarp.zip (data.npy + meta.json {"version", "cell", "shape"}).
 
-`build_grid` is the port of `build_grid_device` (dewarp.py:72-145): the
-angle fields are masked inverse-distance weights over the padded sample
-set, evaluated elementwise (a matmul or cdist form would run in TF32 on
-the card); the H pass integrates H streamlines column by column, the V
-pass marches V rays across the H rows and takes, for each ray, the
-nearest intersection with the next row through the gather kernel
-(ops.gather.take_along_axis, csrc/gather.cu) where the JAX graph runs
-jnp.take_along_axis. The scans are Python loops of small PyTorch ops on
-the page's device (about 25 launches per step); the grid comes back to
-the host once. `GridFactory` chooses the JAX package's static shapes
-(samples padded to 1024, grid sides rounded up to multiples of 8 cells
-with a 2-cell pad), so both packages build the same grid.
+`GridFactory` builds the grid of `build_grid_device` (dewarp.py:72-145)
+with ops.grid.grid_scan: the H and V scans as two kernels of
+csrc/grid.cu on the card (one block per streamline or ray, the V scan's
+argmin and gather of t inside), their plain PyTorch version on the CPU;
+the grid comes back to the host once. It chooses the JAX package's
+static shapes (samples padded to 1024, grid sides rounded up to
+multiples of 8 cells with a 2-cell pad), so both packages build the
+same grid.
 
 `Dewarper.dewarped_dev` launches the dewarp kernel (ops.remap.dewarp_u8)
 in place of both JAX routes (dewarp.py:504-531): one direct bilinear
@@ -37,98 +33,12 @@ import torch
 
 from origami_tpu_torch import device as _device
 from origami_tpu_torch.core.math import Geometry
+from origami_tpu_torch.ops.grid import grid_scan
 
 
 # ---------------------------------------------------------------------------
-# device field + grid construction
+# grid construction
 # ---------------------------------------------------------------------------
-
-def _field_eval(points, sample_xy, sample_phi, sample_mask, phi0):
-    """Masked IDW interpolation of angles at `points` (N, 2) -> unit
-    direction vectors (N, 2); phi0 where no sample has weight."""
-    diff = points[:, None, :] - sample_xy[None, :, :]
-    d2 = (diff * diff).sum(dim=-1)
-    w = sample_mask[None, :] / (d2 + 25.0)          # soften at ~5px scale
-    wsum = w.sum(dim=1)
-    # interpolate angles via their unit vectors to avoid wrap issues
-    cx = (w * torch.cos(sample_phi)[None, :]).sum(dim=1)
-    sx = (w * torch.sin(sample_phi)[None, :]).sum(dim=1)
-    have = wsum > 1e-12
-    phi0 = torch.tensor(phi0, dtype=torch.float32, device=points.device)
-    cx = torch.where(have, cx, torch.cos(phi0))
-    sx = torch.where(have, sx, torch.sin(phi0))
-    n = torch.sqrt(cx * cx + sx * sx) + 1e-12
-    return torch.stack([cx / n, sx / n], dim=-1)
-
-
-def _intersect_row(p0, d, row, max_len, res_f):
-    """Intersect the rays p0 + t * d * max_len with the polyline `row`
-    (the next H row); the border segments are extended far outwards, so
-    a ray nearly always hits. Picks the hit nearest to p0, else a plain
-    field step (dewarp.py:102-136)."""
-    from origami_tpu_torch.ops.gather import take_along_axis
-    a = row[:-1].clone()                            # (S, 2) segment starts
-    b = row[1:].clone()                             # (S, 2) segment ends
-    big = 1e5
-    dir0 = a[0] - b[0]
-    dirn = b[-1] - a[-1]
-    n0 = dir0 / (torch.sqrt((dir0 * dir0).sum()) + 1e-12)
-    nn = dirn / (torch.sqrt((dirn * dirn).sum()) + 1e-12)
-    a[0] = a[0] + n0 * big
-    b[-1] = b[-1] + nn * big
-
-    r = d * max_len                                 # (n, 2)
-    s = b - a                                       # (S, 2)
-    qp = a[None, :, :] - p0[:, None, :]             # (n, S, 2)
-    denom = r[:, None, 0] * s[None, :, 1] - r[:, None, 1] * s[None, :, 0]
-    denom = torch.where(denom.abs() < 1e-9,
-                        torch.full_like(denom, 1e-9), denom)
-    t = (qp[..., 0] * s[None, :, 1] - qp[..., 1] * s[None, :, 0]) / denom
-    u = (qp[..., 0] * r[:, None, 1] - qp[..., 1] * r[:, None, 0]) / denom
-    valid = (u >= -1e-6) & (u <= 1 + 1e-6) & (t > 1e-6)
-    t_sel = torch.where(valid, t, torch.full_like(t, math.inf))
-    best = torch.argmin(t_sel, dim=1)               # (n,)
-    t_best = take_along_axis(
-        t_sel, best[:, None].to(torch.int32), axis=1)[:, 0]
-    ok = torch.isfinite(t_best)
-    p_hit = p0 + r * t_best[:, None]
-    p_fallback = p0 + d * res_f
-    return torch.where(ok[:, None], p_hit, p_fallback)
-
-
-def build_grid(h_xy, h_phi, h_mask, v_xy, v_phi, v_mask, n_gy, n_gx, res,
-               pad_cells=2):
-    """The dewarp sample grid (n_gy, n_gx, 2) float32 on the samples'
-    device. h_*: padded H-field samples (points (S, 2), angles (S,),
-    mask (S,)), v_*: the same for the V field, all float32 tensors."""
-    dev = h_xy.device
-    res_f = torch.tensor(float(res), dtype=torch.float32, device=dev)
-    origin = -pad_cells * res_f
-
-    # --- horizontal pass: integrate H streamlines column by column ----
-    ys = origin + torch.arange(n_gy, dtype=torch.float32, device=dev) * res_f
-    pts = torch.stack([origin.expand(n_gy), ys], dim=-1)
-    cols = []
-    for _ in range(n_gx):
-        cols.append(pts)
-        d = _field_eval(pts, h_xy, h_phi, h_mask, 0.0)
-        pts = pts + d * res_f
-    grid_h = torch.stack(cols, dim=1)               # (n_gy, n_gx, 2)
-
-    # --- vertical pass: march V rays, snapping to each H row ----------
-    # per-row max step length (worst-case 60 degree shear)
-    row_dy = (grid_h[1:, :, 1] - grid_h[:-1, :, 1]).max()
-    sixty = torch.tensor(60.0, dtype=torch.float32, device=dev)
-    max_len = row_dy / torch.cos(torch.deg2rad(sixty)) + res_f
-    p = grid_h[0]
-    rows = []
-    for k in range(1, n_gy):
-        rows.append(p)
-        d = _field_eval(p, v_xy, v_phi, v_mask, math.pi / 2)
-        p = _intersect_row(p, d, grid_h[k], max_len, res_f)
-    rows.append(p)
-    return torch.stack(rows, dim=0)
-
 
 def _pad_samples(points, values, max_n):
     pts = np.zeros((max_n, 2), dtype=np.float32)
@@ -148,7 +58,8 @@ def _round_up(x, m):
 
 class GridFactory:
     """Chooses the static shapes of the JAX build (dewarp.py:432-474) and
-    runs `build_grid` on `device` (None: the card, raising without one)."""
+    runs the grid scans (ops.grid.grid_scan) on `device` (None: the card,
+    raising without one)."""
 
     def __init__(self, page_size, samples_h, samples_v, grid_res=25,
                  max_grid_size=1000, max_samples=1024, device=None):
@@ -179,8 +90,8 @@ class GridFactory:
                     for a in _pad_samples(samples.points, samples.values,
                                           self._max_samples)]
 
-        grid = build_grid(*upload(self._samples_h), *upload(self._samples_v),
-                          n_gy=n_gy, n_gx=n_gx, res=self._res, pad_cells=2)
+        grid = grid_scan(*upload(self._samples_h), *upload(self._samples_v),
+                         n_gy=n_gy, n_gx=n_gx, res=self._res, pad_cells=2)
         return Grid(grid.cpu().numpy(), self._res)
 
 

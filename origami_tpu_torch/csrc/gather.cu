@@ -3,9 +3,9 @@
 // Replaces the Pallas gather probe `run_case.kernel` of
 // scripts/pallas_gather_repro.py, whose body is `_lane_gather` (axis 1)
 // or `_sublane_gather` (axis 0) of origami_tpu/ops/pallas/remap.py in
-// their "tiled" mode, and the XLA `jnp.take_along_axis` of the dewarp
-// grid build (origami_tpu/core/dewarp.py:131, the V scan's choice of the
-// nearest ray/row intersection), where the port launches it.
+// their "tiled" mode. The dewarp grid build's `jnp.take_along_axis`
+// (origami_tpu/core/dewarp.py:131) runs inside the V scan kernel of
+// grid.cu, so no stage launches this one.
 //
 //   lane    (axis 1): out[i, j] = src[i, clamp(idx[i, j], 0, w - 1)]
 //                     src (r, w), idx (r, c) -> out (r, c)

@@ -12,7 +12,10 @@ returns cudaGetLastError().
 
 `-fmad=false` keeps each multiply and add rounded on its own, as
 PyTorch's elementwise ops round them, so a kernel and its plain version
-agree bit for bit (the kernels are bound by memory, not FLOPs).
+agree bit for bit (the kernels are bound by memory or by dependent
+steps, not FLOPs); only sums reduced in another order than PyTorch's
+(the grid scans' IDW sums) differ, by float32 rounding. No fast math:
+cosf, sinf, sqrtf and division stay the accurate ones PyTorch uses.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "origami_tpu_torch"
-SOURCES = ("remap.cu", "strips.cu", "sauvola.cu", "gather.cu")
+SOURCES = ("remap.cu", "strips.cu", "sauvola.cu", "gather.cu", "grid.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 LIBRARY = BUILD_DIR / "libkernels.so"
 
@@ -35,12 +38,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "origami_remap_f32": [_P, _I, _I, _P, _I, _I, _F, _P, _P],
-    "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _P, _P],
+    "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P],
     "origami_strips_dewarped": [_P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _P],
     "origami_strips_through_grid": [_P, _I, _I, _P, _I, _I, _F, _P, _P, _I,
                                     _I, _I, _F, _P, _P],
     "origami_sauvola_u8": [_P, _I, _I, _I, _F, _F, _I, _I, _P, _P],
     "origami_take_along_axis_f32": [_P, _I, _P, _I, _I, _I, _P, _P],
+    "origami_grid_scan_h": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],
+    "origami_grid_scan_v": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
 }
 
 

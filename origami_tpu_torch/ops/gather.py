@@ -3,8 +3,10 @@
 `take_along_axis` wraps the hand-written CUDA kernel of csrc/gather.cu,
 which replaces the Pallas gather probe (scripts/pallas_gather_repro.py:
 `run_case.kernel` over `_lane_gather` / `_sublane_gather` of
-origami_tpu/ops/pallas/remap.py) and the XLA `jnp.take_along_axis` of the
-dewarp grid build (core/dewarp.py:131), where the port launches it.
+origami_tpu/ops/pallas/remap.py). No stage launches it: the dewarp grid
+build's `jnp.take_along_axis` (core/dewarp.py:131) runs inside the V
+scan kernel of csrc/grid.cu, and the grid build's plain version
+(ops/grid.py) takes `take_along_axis_plain` there.
 
     axis 1 (lane):    src (r, w), idx (r, c) -> out (r, c)
     axis 0 (sublane): src (h, c), idx (r, c) -> out (r, c)

@@ -16,9 +16,9 @@ raises — it never falls back. `launches[name]` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from origami_tpu_torch.ops import _build
 
 launches = {"remap": 0, "dewarp_u8": 0, "strips_dewarped": 0,
             "strips_through_grid": 0}
@@ -223,15 +223,18 @@ def _check(t, name, dtype, ndim, device):
 
 
 def _launch(fn_name, *args):
-    from origami_tpu_torch.ops import _build
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(_build.library(), fn_name)(*args, stream)
+    """Call the C entry point `fn_name` with `args` and the current
+    device's current stream (its raw handle: no torch.cuda.Stream object
+    is built per call); raise on a CUDA error."""
+    rc = getattr(_build.library(), fn_name)(
+        *args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if rc != 0:
         raise RuntimeError("%s: CUDA error %d at launch" % (fn_name, rc))
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's address for a ctypes.c_void_p argument."""
+    return t.data_ptr()
 
 
 def _device_of(t):
@@ -259,15 +262,22 @@ def remap(image, map_xy, fill=0.0):
     return out
 
 
-def dewarp_u8(page_u8, hv, res, fill=255.0):
+def dewarp_u8(page_u8, hv, res, fill=255.0, staged_tiles=None):
     """u8 page (H, W), f32 grid (gh, gw, 2), int res -> u8 (gh*res,
-    gw*res) dewarped page."""
+    gw*res) dewarped page. `staged_tiles` (CUDA only): an int32 (1,)
+    tensor to which the kernel adds the number of its 4x4-cell tiles
+    that read their taps from a window staged in shared memory (the
+    others read them through the read-only cache)."""
     dev = _device_of(page_u8)
     _check(page_u8, "page_u8", torch.uint8, 2, dev)
     _check(hv, "hv", torch.float32, 3, dev)
     res = int(res)
     if hv.shape[2] != 2 or res < 1:
         raise ValueError("hv must be (gh, gw, 2) and res >= 1")
+    if staged_tiles is not None:
+        _check(staged_tiles, "staged_tiles", torch.int32, 1, dev)
+        if dev.type != "cuda" or staged_tiles.numel() != 1:
+            raise ValueError("staged_tiles is a (1,) tensor on the card")
     if dev.type == "cpu":
         return dewarp_u8_plain(page_u8, hv, res, fill)
     gh, gw = hv.shape[:2]
@@ -275,7 +285,8 @@ def dewarp_u8(page_u8, hv, res, fill=255.0):
     if out.numel():
         h, w = page_u8.shape
         _launch("origami_dewarp_u8", _ptr(page_u8), h, w, _ptr(hv), gh, gw,
-                res, float(fill), _ptr(out))
+                res, float(fill), _ptr(out),
+                None if staged_tiles is None else _ptr(staged_tiles))
         launches["dewarp_u8"] += 1
     return out
 

@@ -10,7 +10,7 @@ C): numbers the parity tests only bound.
      own grids (page-boundary pixels of the hard edge);
   3. remap vs remap_pallas(interpret=True) on a map off the 1/64-px
      lattice;
-  4. the dewarp grid build (core/dewarp.build_grid) vs build_grid_device
+  4. the dewarp grid build (ops/grid.build_grid_plain) vs build_grid_device
      on seeded sample sets, at 400x300 and at the fixture's 1312x1920;
   5. the port's convex hull vs cv2.convexHull on point sets collinear to
      within float32 rounding.
@@ -129,8 +129,8 @@ def remap_offlattice(crop):
 def grid_drift():
     import math
     from origami_tpu.core import dewarp as jax_dewarp
-    from origami_tpu_torch.core import dewarp as port_dewarp
-    print("4. build_grid vs build_grid_device (60 seeded samples a field)")
+    from origami_tpu_torch.ops import grid as port_grid
+    print("4. build_grid_plain vs build_grid_device (60 seeded samples a field)")
     for seed, (w, h) in ((0, (400, 300)), (1, (400, 300)),
                          (2, (1312, 1920))):
         rng = np.random.default_rng(seed)
@@ -144,9 +144,23 @@ def grid_drift():
         n_gy = jax_dewarp._round_up(math.ceil(h / 25) + 6, 8)
         ref = np.asarray(jax_dewarp.build_grid_device(
             *map(jnp.asarray, padded), n_gy=n_gy, n_gx=n_gx, res=25))
-        got = port_dewarp.build_grid(*map(t, padded), n_gy, n_gx, 25).numpy()
+        got = port_grid.build_grid_plain(*map(t, padded), n_gy, n_gx,
+                                         25).numpy()
         print("   seed %d, %dx%d page, grid %s: max |diff| %.2e px"
               % (seed, w, h, ref.shape[:2], np.abs(got - ref).max()))
+    # chip_smoke.grid_case "miss": the V samples of the left 30 % point
+    # up; between the halves the rays turn through the horizontal, where
+    # the choice among the far-extended border segments follows float32
+    # rounding, so the grid is ill-conditioned beyond small pages
+    from chip_smoke import grid_case
+    for w, h in ((400, 300), (800, 600), (1312, 1920)):
+        padded, (n_gy, n_gx) = grid_case("miss", w, h)
+        ref = np.asarray(jax_dewarp.build_grid_device(
+            *map(jnp.asarray, padded), n_gy=n_gy, n_gx=n_gx, res=25))
+        got = port_grid.build_grid_plain(*map(t, padded), n_gy, n_gx,
+                                         25).numpy()
+        print("   rays that miss (left 30 %% of the V field up), %dx%d: "
+              "max |diff| %.2e px" % (w, h, np.abs(got - ref).max()))
 
 
 def hull_collinear(n_sets=2000):

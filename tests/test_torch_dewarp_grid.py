@@ -1,4 +1,4 @@
-"""The port's dewarp grid build (core/dewarp.build_grid, GridFactory,
+"""The port's dewarp grid build (ops/grid.grid_scan, GridFactory,
 Grid) against the JAX package's build_grid_device, on the CPU.
 
 Tolerances, each with its reason:
@@ -24,7 +24,7 @@ from origami_tpu.core.math import Geometry as JaxGeometry
 from origami_tpu_torch.core import dewarp
 from origami_tpu_torch.core.flow import Samples
 from origami_tpu_torch.core.math import Geometry
-from origami_tpu_torch.ops import gather
+from origami_tpu_torch.ops import gather, grid
 
 TOL_PX = 1e-3
 
@@ -129,12 +129,13 @@ def test_field_eval_matches_jax():
     want = np.asarray(jax_dewarp._field_eval(
         jnp.asarray(pts), jnp.asarray(sxy), jnp.asarray(phi),
         jnp.asarray(mask), 0.0))
-    got = dewarp._field_eval(*(torch.from_numpy(a) for a in
+    got = grid._field_eval(*(torch.from_numpy(a) for a in
                                (pts, sxy, phi, mask)), 0.0).numpy()
     np.testing.assert_allclose(got, want, atol=2e-6)
 
 
 def test_cpu_build_launches_no_kernel():
-    before = dict(gather.launches)
+    before = dict(gather.launches), dict(grid.launches)
     port_grid(seeded_samples(5, 200, 150, n=10), 200, 150)
-    assert gather.launches == before
+    assert (gather.launches, grid.launches) == before
+    assert grid.launches == {"grid_scan_h": 0, "grid_scan_v": 0}

@@ -162,7 +162,7 @@ print(json.dumps({"modules": names,
                  "models.unet", "ops.binarize", "ops.morphology",
                  "ops.resize", "ops.tiling", "batch.detect.flow",
                  "batch.detect.dewarp", "core.baselines", "core.flow",
-                 "core.separate", "ops.gather", "geometry",
+                 "core.separate", "ops.gather", "ops.grid", "geometry",
                  "geometry.booleans", "geometry.native_bindings",
                  "geometry.raster", "geometry.wkt"):
         assert "origami_tpu_torch." + name in result["modules"]
