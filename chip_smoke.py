@@ -20,7 +20,9 @@ Phases (any failure exits non-zero before the result line):
      the card three times, each on a fresh copy of the `full` fixture
      corpus — single model, the 3-member voted ensemble, and
      `--extract-mode gather` — and compare every ocr.zip line by line
-     with the JAX reference the fixture holds;
+     with the JAX reference the fixture holds; a page's strips must
+     take exactly one launch of their mode's kernel (strips_dewarped in
+     the banded runs, strips_through_grid in the gather run);
   4. time the single-model stage in process, warm, for pages/s and
      lines/s, and list the device time by kernel (torch.profiler);
   5. run the segment CLI (`python -m
@@ -58,7 +60,14 @@ through __ldg), a sheared grid and a ragged crop; and the grid scan
 kernels against the plain build (nodes within 1e-3 px; the chosen
 segments equal on the fixture pages) on the fixture pages' inputs,
 seeded samples at 400x300 and 1312x1920, rays that miss their row
-(some at 400x300, all at 1312x1920), and no samples at all.
+(some at 400x300, all at 1312x1920), and no samples at all. Both strip
+kernels must equal their plain versions exactly, each main-path group
+through the group-level entry and a whole page through one page-level
+launch, on the fixture pages and on crafted cases (strip_cases; mode
+(b) through a seeded warped grid and frames that leave it); the page
+launch is timed against the per-group launches, and the OCR stage's
+device_groups (one upload, one launch per mode) against the earlier
+per-group path.
 
 The line before the last is the kernel table as JSON (the kernels of the
 driven paths; a kernel entry point that no path runs is printed on a
@@ -119,9 +128,8 @@ SEP_CLASSES = {"H": 0, "V": 1, "T": 2, "BACKGROUND": 3}
 # divisions, 4 multiplications, 4 additions, max, sqrt and compare
 SAUVOLA_OPS_PER_PIXEL = 25
 # kernel vs plain version: same arithmetic in the same order (the
-# kernels build with -fmad=false), so u8 outputs should agree exactly;
-# one gray level is allowed for a value that lands on a .5 rounding tie
-U8_TOL = 1
+# kernels build with -fmad=false), so u8 outputs must agree exactly;
+# remap's f32 output is held to F32_TOL
 F32_TOL = 1e-4
 # flow/dewarp runs vs the JAX stages (ROADMAP.md queue A4): samples and
 # line frames follow the binarized mask, which the port's exact-integer
@@ -236,6 +244,21 @@ def profiled(fn, attempts=3):
     return prof
 
 
+def wall_ms(fn, reps):
+    """Median host ms of `fn()` over `reps` runs, each between two
+    synchronisations, after one warm-up run."""
+    import torch
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
 def host_us(fn, n=200):
     """Host time per call of `fn()` in µs, `n` calls enqueued back to
     back (the card runs behind; synchronised after the clock stops)."""
@@ -285,8 +308,9 @@ class _Proc:
 
 def page_groups(page_png, device, mode):
     """The main path's strip groups of one page: [(frames (nb, 2, 3),
-    widths (nb,), wmax)] on `device`, as LineExtractor.groups plans them
-    for `--extract-mode mode`, and the page's reader."""
+    widths (nb,), wmax, real rows)] on `device`, as LineExtractor.groups
+    plans them for `--extract-mode mode`; the page's reader, the
+    extractor and its parts."""
     import torch
     from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
     from origami_tpu_torch.batch.core.lines import LineExtractor
@@ -300,7 +324,9 @@ def page_groups(page_png, device, mode):
     parts = ext.parts(reader.lines.by_path,
                       ignored=RegionsFilter("regions/ILLUSTRATION"))
     return [(torch.from_numpy(fr).to(device), torch.from_numpy(wd).to(device),
-             wmax) for _, _, fr, wd, wmax, _ in ext.groups(parts)], reader
+             wmax, len(paths))
+            for _, paths, fr, wd, wmax, _ in ext.groups(parts)], reader, ext, \
+        parts
 
 
 def tapped_pixels(x, y, keep, h, w):
@@ -319,25 +345,27 @@ def tapped_pixels(x, y, keep, h, w):
     return int(mask.sum())
 
 
-def lattice_grid_cells(hv, res, frames, out_h, out_w):
+def lattice_grid_cells(hv, res, groups, out_h):
     """How many distinct (gh, gw) grid nodes strip mode (b)'s 8-px
-    lattice reads (through_grid_coords' inverse-grid lookup)."""
+    lattice reads (through_grid_coords' inverse-grid lookup) for groups
+    [(frames (N, 2, 3), out_w)]."""
     import torch
     gh, gw = hv.shape[:2]
     step = 8
     dev = hv.device
-    ys = (torch.arange(out_h // step + 2, device=dev) * step).float()
-    xs = (torch.arange(out_w // step + 2, device=dev) * step).float()
-    f = frames[:, :, :, None, None]
-    dx = f[:, 0, 0] * xs + f[:, 0, 1] * ys[:, None] + f[:, 0, 2]
-    dy = f[:, 1, 0] * xs + f[:, 1, 1] * ys[:, None] + f[:, 1, 2]
-    gx = torch.floor((dx / res).clamp(0.0, gw - 1 - 1e-6)).long()
-    gy = torch.floor((dy / res).clamp(0.0, gh - 1 - 1e-6)).long()
     mask = torch.zeros(gh * gw, dtype=torch.bool, device=dev)
-    for oy in (0, 1):
-        for ox in (0, 1):
-            mask[(gy + oy).clamp(max=gh - 1) * gw
-                 + (gx + ox).clamp(max=gw - 1)] = True
+    ys = (torch.arange(out_h // step + 2, device=dev) * step).float()
+    for frames, out_w in groups:
+        xs = (torch.arange(out_w // step + 2, device=dev) * step).float()
+        f = frames[:, :, :, None, None]
+        dx = f[:, 0, 0] * xs + f[:, 0, 1] * ys[:, None] + f[:, 0, 2]
+        dy = f[:, 1, 0] * xs + f[:, 1, 1] * ys[:, None] + f[:, 1, 2]
+        gx = torch.floor((dx / res).clamp(0.0, gw - 1 - 1e-6)).long()
+        gy = torch.floor((dy / res).clamp(0.0, gh - 1 - 1e-6)).long()
+        for oy in (0, 1):
+            for ox in (0, 1):
+                mask[(gy + oy).clamp(max=gh - 1) * gw
+                     + (gx + ox).clamp(max=gw - 1)] = True
     return int(mask.sum())
 
 
@@ -367,6 +395,318 @@ def dewarp_grids(hv, h, w, res):
         -400.0 + res * ii + 0.5 * res * jj + 2.7 * np.cos(jj / 3.1)], -1)
     return {k: torch.from_numpy(v.astype(np.float32)).to(hv.device)
             for k, v in (("scrambled", scrambled), ("sheared", sheared))}
+
+
+def strip_fns(name, src, grid=None):
+    """Strip mode `name` on the page `src` (mode (b): through `grid` =
+    (hv, res)) as four callables: the group-level kernel (frames, widths,
+    out_w) and its plain version, the page-level kernel (frames, widths,
+    desc, out, max_w) and its plain version."""
+    from origami_tpu_torch.ops import remap as ops
+    if name == "strips_dewarped":
+        return (lambda fr, wd, ow: ops.strips_dewarped(src, fr, wd, 48, ow),
+                lambda fr, wd, ow: ops.strips_dewarped_plain(src, fr, wd, 48,
+                                                             ow),
+                lambda fr, wd, d, out, mw: ops.strips_dewarped_page(
+                    src, fr, wd, d, out, 48, mw),
+                lambda fr, wd, d, out, mw: ops.strips_dewarped_page_plain(
+                    src, fr, wd, d, out, 48, mw))
+    hv, res = grid
+    return (lambda fr, wd, ow: ops.strips_through_grid(src, hv, res, fr, wd,
+                                                       48, ow),
+            lambda fr, wd, ow: ops.strips_through_grid_plain(
+                src, hv, res, fr, wd, 48, ow),
+            lambda fr, wd, d, out, mw: ops.strips_through_grid_page(
+                src, hv, res, fr, wd, d, out, 48, mw),
+            lambda fr, wd, d, out, mw: ops.strips_through_grid_page_plain(
+                src, hv, res, fr, wd, d, out, 48, mw))
+
+
+def strip_page_args(groups):
+    """Groups [(frames, widths, wmax, real rows)] on the card laid out in
+    one buffer as LineExtractor.device_groups lays out a page: (frames
+    (N, 2, 3), widths (N,), desc (N, 4), buffer bytes, widest wmax)."""
+    import torch
+    from origami_tpu_torch.ops import remap as ops
+    desc, _, end = ops.strip_layout(
+        [(len(fr), n, wmax) for fr, _, wmax, n in groups], 48)
+    dev = groups[0][0].device
+    return (torch.cat([g[0] for g in groups]),
+            torch.cat([g[1] for g in groups]),
+            torch.from_numpy(desc).to(dev), end,
+            max(g[2] for g in groups))
+
+
+def check_strip_groups(name, fns, groups, label):
+    """Strip mode `name` against its plain version on `groups`: each
+    group through the group-level entry, and all of them through one
+    page-level launch -> max |diff| over both (it must be 0)."""
+    import torch
+    group_k, group_p, page_k, page_p = fns
+    errs = [(group_k(fr, wd, wmax).int() - group_p(fr, wd, wmax).int())
+            .abs().max() for fr, wd, wmax, _ in groups]
+    fr, wd, desc, end, max_w = strip_page_args(groups)
+    got = page_k(fr, wd, desc, torch.zeros(end, dtype=torch.uint8,
+                                           device=fr.device), max_w)
+    want = page_p(fr, wd, desc, torch.zeros(end, dtype=torch.uint8,
+                                            device=fr.device), max_w)
+    errs.append((got.int() - want.int()).abs().max())
+    torch.cuda.synchronize()
+    err = max(int(e) for e in errs)
+    log("  %-20s %-26s %d groups of %s rows (%d real), wmax %s: max|diff| "
+        "%d (tol 0) %s" % (
+            name, label, len(groups), [len(g[0]) for g in groups],
+            sum(g[3] for g in groups), [g[2] for g in groups], err,
+            "ok" if err == 0 else "FAIL"))
+    return err
+
+
+def strip_times(name, fns, groups, src, grid=None):
+    """One page's strip groups of mode `name`, timed: the page-level
+    launch (events, device time), the group-level launches one after
+    another (the earlier per-group path), the page-level plain version,
+    the yardstick (one F.grid_sample per group at the precomputed
+    coordinates; the port never calls it) and the bound (bytes: the
+    distinct page pixels the taps read, mode (b)'s distinct grid nodes,
+    the tables once, the strips written once)."""
+    import torch
+    import torch.nn.functional as F
+    from origami_tpu_torch.ops import remap as ops
+    group_k, _, page_k, page_p = fns
+    fr, wd, desc, end, max_w = strip_page_args(groups)
+    dev = fr.device
+    h, w = src.shape
+    out = torch.empty(end, dtype=torch.uint8, device=dev)
+    plain_out = torch.empty_like(out)
+    srcf = src.float()[None, None]
+    taps, libs = [], []
+    for gfr, gwd, wmax, _ in groups:
+        if name == "strips_dewarped":
+            xs = torch.arange(wmax, device=dev, dtype=torch.float32)
+            ys = torch.arange(48, device=dev, dtype=torch.float32)
+            sx = (gfr[:, 0, 0, None, None] * xs + gfr[:, 0, 1, None, None]
+                  * ys[:, None] + gfr[:, 0, 2, None, None])
+            sy = (gfr[:, 1, 0, None, None] * xs + gfr[:, 1, 1, None, None]
+                  * ys[:, None] + gfr[:, 1, 2, None, None])
+            keep = ((sx > -0.5) & (sx < w - 0.5) & (sy > -0.5)
+                    & (sy < h - 0.5)
+                    & (xs < gwd.float().clamp(min=2.0)[:, None, None]))
+        else:
+            sx, sy = ops.through_grid_coords(grid[0], grid[1], gfr, gwd, 48,
+                                             wmax)
+            keep = (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+        taps.append((sx.reshape(-1), sy.reshape(-1), keep.reshape(-1)))
+        libs.append((srcf.expand(len(gfr), 1, h, w), _norm_grid(sx, sy, w, h)))
+    nbytes = (tapped_pixels(*(torch.cat(t) for t in zip(*taps)), h, w)
+              + len(fr) * (16 + 24 + 4)
+              + sum(len(g[0]) * 48 * g[2] for g in groups))
+    if name == "strips_through_grid":
+        nbytes += lattice_grid_cells(grid[0], grid[1],
+                                     [(g[0], g[2]) for g in groups], 48) * 8
+
+    def kernel():
+        page_k(fr, wd, desc, out, max_w)
+
+    def per_group():
+        for gfr, gwd, wmax, _ in groups:
+            group_k(gfr, gwd, wmax)
+
+    def plain():
+        page_p(fr, wd, desc, plain_out, max_w)
+
+    def library():
+        for img, g in libs:
+            F.grid_sample(img, g, mode="bilinear", padding_mode="zeros",
+                          align_corners=True)
+
+    return dict(ms=time_cuda(kernel), device_ms=device_ms(kernel),
+                group_ms=time_cuda(per_group),
+                group_device_ms=device_ms(per_group),
+                plain_ms=time_cuda(plain), library_ms=time_cuda(library),
+                library_device_ms=device_ms(library),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def strip_cases(device, h, w):
+    """Phase 2's crafted strip groups over an (h, w) page, each [(frames
+    (nb, 2, 3), widths (nb,), wmax, real rows)] on `device`: -> [(label,
+    groups)]. A frame maps strip (x, y) to the page as a rotation by
+    slope t and a scale s from its left top corner (x0, y0): x' = s x -
+    t s y + x0, y' = t s x + s y + y0. The last case is every group in
+    one page-level launch."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(23)
+
+    def group(specs, nb, wmax):
+        fr = np.zeros((nb, 2, 3), np.float32)
+        wd = np.zeros(nb, np.int32)
+        for k, (x0, y0, sc, t, width) in enumerate(specs):
+            fr[k] = [[sc, -t * sc, x0], [t * sc, sc, y0]]
+            wd[k] = width
+        return (torch.from_numpy(fr).to(device),
+                torch.from_numpy(wd).to(device), wmax, len(specs))
+
+    tilted = group([(rng.uniform(20, w - 1000), rng.uniform(40, h - 100),
+                     rng.uniform(0.6, 1.4), t, int(rng.integers(300, 2049)))
+                    for t in (2e-2, -2e-2, 1e-2, -1e-2, 2e-2, 0.0)],
+                   8, 2048)
+    off_page = group([(-40.0, 100.0, 1.0, 0.0, 400),
+                      (w - 200.0, 300.0, 1.0, 2e-2, 500),
+                      (300.0, -30.0, 0.8, 0.0, 512),
+                      (500.0, h - 20.0, 1.2, -2e-2, 512),
+                      (-600.0, -600.0, 1.0, 0.0, 512),
+                      (w - 0.4, h - 0.6, 1.0, 0.0, 300)], 8, 512)
+    narrow = group([(100.0 + 40 * k, 200.0, 1.0, 2e-2, width)
+                    for k, width in enumerate((0, 1, 2, 3, 17))], 8, 256)
+    padded = group([(60.0, 400.0, 1.0, 5e-3, 200),
+                    (80.0, 460.0, 0.9, 0.0, 230)], 32, 256)
+    ragged = group([(120.0, 700.0, 1.0, 2e-2, 197),
+                    (140.0, 760.0, 1.1, 0.0, 150),
+                    (160.0, 820.0, 0.7, -1e-2, 300)], 5, 197)
+    groups = [tilted, off_page, narrow, padded, ragged]
+    return [("tilted 2e-2, wmax 2048", [tilted]),
+            ("off the page", [off_page]), ("widths 0-3 and 17", [narrow]),
+            ("padded rows 2 of 32", [padded]),
+            ("ragged out_w 197", [ragged]),
+            ("all five, one launch", groups)]
+
+
+def warped_grid(hv, res):
+    """A seeded warp of the grid hv: each node moved by a smooth field of
+    up to ~8 px and a shear, so the lattice of mode (b) bends."""
+    import numpy as np
+    import torch
+    gh, gw = hv.shape[:2]
+    rng = np.random.default_rng(29)
+    ii, jj = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    ph = rng.uniform(0, 2 * np.pi, 4)
+    dx = 5.0 * np.sin(ii / 3.3 + ph[0]) + 3.0 * np.sin(jj / 5.1 + ph[1]) \
+        + 0.02 * res * ii
+    dy = 4.0 * np.cos(jj / 4.7 + ph[2]) + 2.5 * np.sin(ii / 2.9 + ph[3])
+    d = torch.from_numpy(np.stack([dx, dy], -1).astype(np.float32))
+    return (hv + d.to(hv.device)).contiguous()
+
+
+def check_strip_cases(device, dew, px, hv, res):
+    """Phase 2's crafted cases for both strip modes (strip_cases over the
+    dewarped page; mode (b) through a seeded warped grid, plus frames
+    whose dewarped coordinates leave the grid, so the inverse grid
+    clamps): -> the failed cases."""
+    import torch
+    gh, gw = hv.shape[:2]
+    failed = []
+    cases = strip_cases(device, *dew.shape)
+    hv_w = warped_grid(hv, res)
+    fr = torch.tensor([[[1.0, 0.0, -300.0], [0.0, 1.0, -200.0]],
+                       [[1.0, -0.02, (gw - 1) * res - 60.0],
+                        [0.02, 1.0, 300.0]],
+                       [[1.2, 0.0, 500.0], [0.0, 1.2, (gh - 1) * res + 40.0]],
+                       [[0.8, 0.01, (gw + 3) * res], [-0.01, 0.8, -90.0]]],
+                      device=device)
+    leave = [(torch.cat([fr, torch.zeros_like(fr)]),
+              torch.tensor([700, 600, 800, 512, 0, 0, 0, 0], device=device,
+                           dtype=torch.int32), 1024, 4)]
+    for name, src, grid, extra in (
+            ("strips_dewarped", dew, None, []),
+            ("strips_through_grid", px, (hv_w, res),
+             [("leaving the grid", leave)])):
+        fns = strip_fns(name, src, grid)
+        for label, groups in cases + extra:
+            if check_strip_groups(name, fns, groups, label) != 0:
+                failed.append("%s %s" % (name, label))
+    return failed
+
+
+def earlier_device_groups(ext, parts):
+    """LineExtractor.device_groups as it ran before the page-level
+    launch: per group, its frames and widths uploaded (mode (b): the grid
+    too) and one group-level launch."""
+    import numpy as np
+    import torch
+    from origami_tpu_torch.ops import remap as ops
+    for page, paths, fr, wd, wmax, prof in ext.groups(parts):
+        dev = page.device
+        fr_dev = torch.from_numpy(fr).to(dev)
+        wd_dev = torch.from_numpy(wd).to(dev)
+        if prof == "gather":
+            hv = torch.from_numpy(np.ascontiguousarray(
+                page.grid.points("sample"))).to(dev)
+            strips = ops.strips_through_grid(
+                page.device_pixels, hv, float(page.grid.resolution), fr_dev,
+                wd_dev, 48, wmax, 255.0)
+        else:
+            strips = ops.strips_dewarped(page.dewarped_dev, fr_dev, wd_dev,
+                                         48, wmax, 255.0)
+        yield paths, strips, wd[: len(paths)].copy(), wmax
+
+
+def counted(fn):
+    """Run `fn()` once -> (host-to-device copies it made through
+    Tensor.to, the uploads of LineExtractor.device_groups and of the
+    earlier path; strip kernel launches, from the wrappers' counters).
+    Counted at the call: torch.profiler's record may miss an event."""
+    import torch
+    from origami_tpu_torch.ops import remap as ops
+    to = torch.Tensor.to
+    copies = [0]
+
+    def counting(self, *a, **k):
+        out = to(self, *a, **k)
+        copies[0] += self.device.type == "cpu" and out.device.type == "cuda"
+        return out
+
+    names = ("strips_dewarped", "strips_through_grid")
+    before = sum(ops.launches[k] for k in names)
+    own = "to" in vars(torch.Tensor)
+    torch.Tensor.to = counting
+    try:
+        fn()
+    finally:
+        if own:
+            torch.Tensor.to = to
+        else:
+            del torch.Tensor.to
+    return copies[0], sum(ops.launches[k] for k in names) - before
+
+
+def device_groups_ab(device):
+    """One fixture page's LineExtractor.device_groups (one upload, one
+    launch per mode) against the earlier per-group path
+    (earlier_device_groups), both extract modes: the strips must be
+    equal; host ms a call (median of 10, synchronised; in turns earlier,
+    current, current, earlier), and the host-to-device copies and strip
+    launches of one call (`counted`)."""
+    import torch
+    png = sorted(FIXTURE.glob("*.png"))[0]
+    out = {}
+    for mode in ("banded", "gather"):
+        _, _, ext, parts = page_groups(png, device, mode)
+        fns = {"current": lambda: list(ext.device_groups(parts)),
+               "earlier": lambda: list(earlier_device_groups(ext, parts))}
+        a, b = fns["current"](), fns["earlier"]()
+        torch.cuda.synchronize()
+        if len(a) != len(b) or not all(
+                x[0] == y[0] and x[3] == y[3] and torch.equal(x[1], y[1])
+                for x, y in zip(a, b)):
+            raise PhaseError("device_groups (%s) cuts other strips than the "
+                             "per-group path" % mode)
+        walls = {"earlier": [], "current": []}
+        for turn in ("earlier", "current", "current", "earlier"):
+            walls[turn].append(wall_ms(fns[turn], 10))
+        r = {}
+        for turn, fn in fns.items():
+            copies, launches = counted(fn)
+            r[turn] = dict(ms=statistics.mean(walls[turn]), copies=copies,
+                           launches=launches)
+        out[mode] = r
+        log("  device_groups %-7s %d groups: %.3f ms a page, %d host-to-device "
+            "copies, %d strip launches (earlier per-group path %.3f ms, %d "
+            "copies, %d launches); strips equal" % (
+                mode, len(a), r["current"]["ms"], r["current"]["copies"],
+                r["current"]["launches"], r["earlier"]["ms"],
+                r["earlier"]["copies"], r["earlier"]["launches"]))
+    return out
 
 
 def check_kernels(device):
@@ -433,7 +773,7 @@ def check_kernels(device):
 
     for i, png in enumerate(pages):
         log(" page %s" % png.name)
-        groups, reader = page_groups(png, device, "banded")
+        groups, reader, _, _ = page_groups(png, device, "banded")
         page = reader.page
         px = page.device_pixels
         h, w = px.shape
@@ -493,76 +833,50 @@ def check_kernels(device):
                                      align_corners=True),
                "%dx%d -> %dx%d" % (h, w, *map_xy.shape[:2]))
 
-        # strip mode (a): every (bucket, profile) group of the page
-        dh, dw = dew.shape
-        for fr, wd, wmax in groups:
-            n = fr.shape[0]
-            got = ops.strips_dewarped(dew, fr, wd, 48, wmax)
-            want = ops.strips_dewarped_plain(dew, fr, wd, 48, wmax)
-            torch.cuda.synchronize()
-            xs = torch.arange(wmax, device=device, dtype=torch.float32)
-            ys = torch.arange(48, device=device, dtype=torch.float32)
-            sx = (fr[:, 0, 0, None, None] * xs + fr[:, 0, 1, None, None]
-                  * ys[:, None] + fr[:, 0, 2, None, None])
-            sy = (fr[:, 1, 0, None, None] * xs + fr[:, 1, 1, None, None]
-                  * ys[:, None] + fr[:, 1, 2, None, None])
-            sgrid = _norm_grid(sx, sy, dw, dh)
-            # the page pixels under this group's frames (mode (a) reads
-            # taps inside the page, for outputs inside it and its widths)
-            keep = ((sx > -0.5) & (sx < dw - 0.5) & (sy > -0.5)
-                    & (sy < dh - 0.5)
-                    & (xs < wd.float().clamp(min=2.0)[:, None, None]))
-            dewf = dew.float()[None, None].expand(n, 1, dh, dw)
-            report("strips_dewarped", got, want, U8_TOL,
-                   lambda: ops.strips_dewarped(dew, fr, wd, 48, wmax),
-                   lambda: ops.strips_dewarped_plain(dew, fr, wd, 48, wmax),
-                   tapped_pixels(sx, sy, keep, dh, dw) + fr.numel() * 4
-                   + wd.numel() * 4 + got.numel(),
-                   lambda: F.grid_sample(dewf, sgrid, mode="bilinear",
-                                         padding_mode="zeros",
-                                         align_corners=True),
-                   "%d x 48 x %d" % (n, wmax))
-
-        # strip mode (b): the gather route's groups of the page
-        ggroups, _ = page_groups(png, device, "gather")
-        for fr, wd, wmax in ggroups:
-            n = fr.shape[0]
-            got = ops.strips_through_grid(px, hv, float(res), fr, wd, 48,
-                                          wmax)
-            want = ops.strips_through_grid_plain(px, hv, float(res), fr, wd,
-                                                 48, wmax)
-            torch.cuda.synchronize()
-            cx, cy = ops.through_grid_coords(hv, float(res), fr, wd, 48,
-                                             wmax)
-            ggrid = _norm_grid(cx, cy, w, h)
-            keep = (cx >= 0) & (cx <= w - 1) & (cy >= 0) & (cy <= h - 1)
-            pxn = px.float()[None, None].expand(n, 1, h, w)
-            report("strips_through_grid", got, want, U8_TOL,
-                   lambda: ops.strips_through_grid(
-                       px, hv, float(res), fr, wd, 48, wmax),
-                   lambda: ops.strips_through_grid_plain(
-                       px, hv, float(res), fr, wd, 48, wmax),
-                   tapped_pixels(cx, cy, keep, h, w)
-                   + lattice_grid_cells(hv, float(res), fr, 48, wmax) * 8
-                   + fr.numel() * 4 + wd.numel() * 4 + got.numel(),
-                   lambda: F.grid_sample(pxn, ggrid, mode="bilinear",
-                                         padding_mode="zeros",
-                                         align_corners=True),
-                   "%d x 48 x %d" % (n, wmax))
+        # the strip kernels: every main-path group of the page through
+        # the group-level entry and all of them through one page-level
+        # launch per mode, bit-equal; timed per page; the crafted cases
+        # on the first page
+        for name, sgroups, src, grid in (
+                ("strips_dewarped", groups, dew, None),
+                ("strips_through_grid",
+                 page_groups(png, device, "gather")[0], px,
+                 (hv, float(res)))):
+            fns = strip_fns(name, src, grid)
+            if check_strip_groups(name, fns, sgroups,
+                                  "page %s" % png.stem) != 0:
+                failures.append(name)
+            t = strip_times(name, fns, sgroups, src, grid)
+            log("  %-20s page %s, %d launches -> 1: page launch %.4f ms "
+                "(device %s)  per-group launches %.4f ms (device %s)  plain "
+                "%.4f ms  bound %.5f ms  grid_sample x %d %.4f ms (device %s)"
+                % (name, png.stem, len(sgroups), t["ms"],
+                   fmt_ms(t["device_ms"]), t["group_ms"],
+                   fmt_ms(t["group_device_ms"]), t["plain_ms"],
+                   t["bound_ms"], len(sgroups), t["library_ms"],
+                   fmt_ms(t["library_device_ms"])))
+            row = rows.setdefault(name, dict({k: 0.0 for k in t}, err=0.0))
+            for k, v in t.items():
+                row[k] = None if row[k] is None or v is None else row[k] + v
+        if i == 0:
+            failures += check_strip_cases(device, dew, px, hv, float(res))
     if failures:
         raise PhaseError("kernel disagrees with its plain version: %s"
                          % ", ".join(sorted(set(failures))))
     n_pages = len(pages)
     # per page: the sum over that page's launches, averaged over pages
     for name, row in rows.items():
-        for k in timed:
-            if row[k] is not None:
+        for k in row:
+            if k != "err" and row[k] is not None:
                 row[k] /= n_pages
         row["bound_by"] = "bytes"
-        log("  %s per page: kernel %.4f ms (device %s)  plain %.4f ms  "
+        log("  %s per page: kernel %.4f ms (device %s)%s  plain %.4f ms  "
             "bound %.5f ms  grid_sample %.4f ms (device %s)" % (
-                name, row["ms"], fmt_ms(row["device_ms"]), row["plain_ms"],
-                row["bound_ms"], row["library_ms"],
+                name, row["ms"], fmt_ms(row["device_ms"]),
+                "" if "group_ms" not in row else
+                "  [per-group launches %.4f ms (device %s)]" % (
+                    row["group_ms"], fmt_ms(row["group_device_ms"])),
+                row["plain_ms"], row["bound_ms"], row["library_ms"],
                 fmt_ms(row["library_device_ms"])))
     rows.update(check_sauvola(images))
     return rows
@@ -1047,17 +1361,6 @@ def check_grid(device, lane_row):
                 plain_device_ms=dm(lambda: grid.scan_v_plain(
                     gh_plain, v_xy, v_phi, v_mask, 25), reps=2),
                 ops=ops_v, bytes=bytes_v, chain_ms=(n_gy - 1) * v_step)}
-
-        def wall_ms(fn, reps):
-            fn()
-            walls = []
-            for _ in range(reps):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(walls)
 
         def build():
             grid.grid_scan(*padded, n_gy, n_gx, 25)
@@ -1752,6 +2055,7 @@ def main():
     rows.update(check_gather(device))
     rows.update(check_grid(device, rows["take_along_axis_lane"]))
     host_path_ab(device)
+    device_groups_ab(device)
 
     log("== phase 3: OCR CLI on the card vs the JAX references (%s)"
         % smi)
@@ -1763,11 +2067,26 @@ def main():
             r = run_ocr_cli(mode, work)
             runs.append(r)
             ok = r["identical"] >= MIN_IDENTICAL and r["cer"] <= MAX_CER
-            # the dewarp kernel and strip mode (a) at least once per page
-            # in the banded runs; strip mode (b) in the gather run
-            need = ["strips_through_grid"] if mode == "gather" \
-                else ["dewarp_u8", "strips_dewarped"]
-            starved = [k for k in need if r["launches"][k] < r["pages"]]
+            # the dewarp kernel at least once per page in the banded runs;
+            # a page's strips in exactly one launch of their mode: (a) in
+            # the banded runs (and (b) at most once, for lines past the
+            # banded profiles), (b) in the gather run, where (a) never runs
+            n = r["pages"]
+            got = r["launches"]
+            starved = [k for k in ("dewarp_u8",)
+                       if mode != "gather" and got[k] < n]
+            if mode == "gather":
+                strips_ok = got["strips_through_grid"] == n \
+                    and got["strips_dewarped"] == 0
+            else:
+                strips_ok = got["strips_dewarped"] == n \
+                    and got["strips_through_grid"] <= n
+            if not strips_ok:
+                starved.append("strip launches %s, expected one per page "
+                               "(%d pages) of the mode's kernel" % (
+                                   {k: got[k] for k in ("strips_dewarped",
+                                                        "strips_through_grid")},
+                                   n))
             log("  %-8s %d pages %d lines: identical %.4f  CER %.5f  "
                 "launches %s  stage %.2f s (%.2f pages/s, %.1f lines/s, "
                 "cold process)  %s" % (
@@ -1780,8 +2099,7 @@ def main():
                               % (mode, r["identical"], MIN_IDENTICAL,
                                  r["cer"], MAX_CER))
             if starved:
-                failed.append("%s: kernels not launched: %s"
-                              % (mode, starved))
+                failed.append("%s: launch counts: %s" % (mode, starved))
         if failed:
             raise PhaseError("; ".join(failed))
 

@@ -2,7 +2,8 @@
 
 Port of origami_tpu/batch/core/lines.py (`LineRewriter`,
 `LineExtractor`, :69-328). All strips of a page are cut by the strip
-kernel in one launch per (width bucket, profile) group:
+kernel in one launch per mode, into one u8 buffer of which each
+(width bucket, profile) group is a view:
 
   * each line's (2, 3) frame is its BAND_PAD-framed band scaled to the
     recognizer height, with x sampled at the same magnification; lines
@@ -13,12 +14,15 @@ kernel in one launch per (width bucket, profile) group:
   * p1 and p2 go to strip mode (a) on the device-resident dewarped page,
     gather to mode (b) on the warped page through the inverse grid
     (--extract-mode gather sends every line there), at the two sites of
-    lines.py:281-296.
+    lines.py:281-296;
+  * a page's frames, widths, strip descriptors (and mode (b)'s grid)
+    reach the device in one host-to-device copy.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import logging
 
 import numpy as np
@@ -175,34 +179,74 @@ class LineExtractor:
         """parts: [(path, line, column)] -> yield per group of `groups`
         (paths, strips (nb, th, wmax) u8 on the page's device, widths
         (n,) int32 numpy, wmax): p1/p2 groups through strip mode (a) on
-        the dewarped page, gather groups through mode (b)."""
-        dewarp = not self._options.get("do_not_dewarp", False)
+        the dewarped page, gather groups through mode (b); per page one
+        upload, one u8 buffer of which the strips are views, and one
+        launch per mode."""
+        planned = self.groups(parts)
+        for _, page_groups in itertools.groupby(planned,
+                                                key=lambda g: id(g[0])):
+            yield from self._page_strips(list(page_groups))
+
+    def _page_strips(self, plan):
+        """One page's groups of `groups` -> their (paths, strips, widths,
+        wmax), cut by one launch per mode."""
+        page = plan[0][0]
         th = self._line_height
-        for page, paths, fr, wd, wmax, prof in self.groups(parts):
-            dev = page.device
-            fr_dev = torch.from_numpy(fr).to(dev)
-            wd_dev = torch.from_numpy(wd).to(dev)
-            with span("lines.page_upload"):
-                if prof == "gather":
-                    if dewarp and page.grid is not None:
-                        hv = page.grid.points("sample")
-                        res = float(page.grid.resolution)
-                    else:
-                        hv, res = identity_grid(*page.size())
-                    src = page.device_pixels
-                    hv_dev = torch.from_numpy(np.ascontiguousarray(hv)) \
-                        .to(dev)
-                else:
-                    src = page.dewarped_dev \
-                        if dewarp and page.grid is not None \
-                        else page.device_pixels
-            with span("lines.extract_dispatch"):
-                if prof == "gather":
-                    strips = ops.strips_through_grid(
-                        src, hv_dev, res, fr_dev, wd_dev, th, wmax, 255.0)
-                else:
-                    strips = ops.strips_dewarped(src, fr_dev, wd_dev, th,
-                                                 wmax, 255.0)
+        dewarp = not self._options.get("do_not_dewarp", False) \
+            and page.grid is not None
+        # the host tables of both modes, laid out in one int32 upload:
+        # per mode desc (N, 4), frames (N, 6) as float32 bits, widths
+        # (N,); then mode (b)'s grid
+        words, launch, offsets, end = [], {}, [0] * len(plan), 0
+        for mode in ("a", "b"):
+            idx = [i for i, g in enumerate(plan)
+                   if (g[5] == "gather") == (mode == "b")]
+            if not idx:
+                continue
+            gs = [plan[i] for i in idx]
+            desc, offs, end = ops.strip_layout(
+                [(len(fr), len(paths), wmax)
+                 for _, paths, fr, _, wmax, _ in gs], th, start=end)
+            for i, off in zip(idx, offs):
+                offsets[i] = off
+            launch[mode] = (sum(map(len, words)), len(desc),
+                            max(g[4] for g in gs))
+            words += [desc.reshape(-1),
+                      np.concatenate([g[2] for g in gs]).reshape(-1)
+                      .view(np.int32),
+                      np.concatenate([g[3] for g in gs])]
+        if "b" in launch:
+            if dewarp:
+                hv = np.ascontiguousarray(page.grid.points("sample"),
+                                          np.float32)
+                res = float(page.grid.resolution)
+            else:
+                hv, res = identity_grid(*page.size())
+            hv_at = sum(map(len, words))
+            words.append(hv.reshape(-1).view(np.int32))
+        with span("lines.page_upload"):
+            table = torch.from_numpy(np.concatenate(words)).to(page.device)
+            out = torch.empty(end, dtype=torch.uint8, device=page.device)
+            src = page.dewarped_dev if dewarp and "a" in launch \
+                else page.device_pixels
+        with span("lines.extract_dispatch"):
+            for mode, (at, n, max_w) in launch.items():
+                desc = table[at: at + 4 * n].view(n, 4)
+                fr = table[at + 4 * n: at + 10 * n].view(torch.float32) \
+                    .view(n, 2, 3)
+                wd = table[at + 10 * n: at + 11 * n]
+                if mode == "a":
+                    ops.strips_dewarped_page(src, fr, wd, desc, out, th,
+                                             max_w, 255.0)
+                    continue
+                hv_dev = table[hv_at: hv_at + hv.size] \
+                    .view(torch.float32).view(hv.shape)
+                ops.strips_through_grid_page(
+                    page.device_pixels, hv_dev, res, fr, wd, desc, out, th,
+                    max_w, 255.0)
+        for (_, paths, fr, wd, wmax, _), off in zip(plan, offsets):
+            strips = out[off: off + len(fr) * th * wmax] \
+                .view(len(fr), th, wmax)
             yield paths, strips, wd[: len(paths)].copy(), wmax
 
     @staticmethod

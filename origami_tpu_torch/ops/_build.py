@@ -36,12 +36,14 @@ LIBRARY = BUILD_DIR / "libkernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_long
 SIGNATURES = {
     "origami_remap_f32": [_P, _I, _I, _P, _I, _I, _F, _P, _P],
     "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P],
-    "origami_strips_dewarped": [_P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _P],
-    "origami_strips_through_grid": [_P, _I, _I, _P, _I, _I, _F, _P, _P, _I,
-                                    _I, _I, _F, _P, _P],
+    "origami_strips_dewarped": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P,
+                                _L, _P],
+    "origami_strips_through_grid": [_P, _I, _I, _P, _I, _I, _F, _P, _P, _P,
+                                    _I, _I, _I, _F, _P, _L, _P],
     "origami_sauvola_u8": [_P, _I, _I, _I, _F, _F, _I, _I, _P, _P],
     "origami_take_along_axis_f32": [_P, _I, _P, _I, _I, _I, _P, _P],
     "origami_grid_scan_h": [_P, _P, _P, _I, _I, _I, _F, _F, _P, _P],

@@ -9,6 +9,12 @@ same signature and arithmetic:
     strips_dewarped     strip mode (a): extract_strips_banded's function
     strips_through_grid strip mode (b): extract_dewarped_strips' function
 
+The strip modes also have a page-level entry (`strips_dewarped_page`,
+`strips_through_grid_page`): all (width bucket, profile) groups of a page
+in one launch, each group a 16-byte aligned (nb, out_h, wmax) block of
+one flat u8 buffer placed by `strip_layout`'s per-strip descriptor. The
+group-level entries are the one-group case of the same kernels.
+
 A wrapper given CPU tensors computes the plain version (the CPU tests run
 it); given CUDA tensors it launches its kernel on the current stream or
 raises — it never falls back. `launches[name]` counts kernel launches.
@@ -16,6 +22,7 @@ raises — it never falls back. `launches[name]` counts kernel launches.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from origami_tpu_torch.ops import _build
@@ -204,6 +211,79 @@ def strips_through_grid_plain(page_u8, hv, res, frames, widths, out_h,
 
 
 # ---------------------------------------------------------------------------
+# a page's strips in one buffer
+# ---------------------------------------------------------------------------
+
+STRIP_ALIGN = 16     # bytes: each group's block starts 16-byte aligned
+
+
+def strip_layout(groups, out_h, start=0):
+    """Lay out strip groups in one flat u8 buffer. groups: [(nb, n_real,
+    wmax)] -> (desc (N, 4) int32 numpy, one row per strip: (group,
+    offset, wmax, real), the group offsets, end). Group g's (nb, out_h,
+    wmax) block starts at the first multiple of STRIP_ALIGN at or after
+    the previous block's end (the first at or after `start`); its rows
+    past n_real are padding (real 0)."""
+    rows, offsets = [], []
+    off = int(start)
+    for g, (nb, n_real, wmax) in enumerate(groups):
+        off = -(-off // STRIP_ALIGN) * STRIP_ALIGN
+        offsets.append(off)
+        stride = out_h * wmax
+        rows += [(g, off + r * stride, wmax, int(r < n_real))
+                 for r in range(nb)]
+        off += nb * stride
+    if off >= 2 ** 31:
+        raise ValueError("a page's strips need %d bytes; offsets are "
+                         "int32" % off)
+    return np.asarray(rows, np.int32).reshape(-1, 4), offsets, off
+
+
+def _page_plain(group_plain, frames, widths, desc, out):
+    """Run `group_plain(frames, widths, wmax)` on each group of `desc`
+    (a run of rows with one group id, placed one after another as
+    strip_layout places them) and write its strips at its offset in
+    `out`."""
+    rows = desc.cpu().tolist()
+    lo = 0
+    while lo < len(rows):
+        hi = lo + 1
+        while hi < len(rows) and rows[hi][0] == rows[lo][0]:
+            hi += 1
+        strips = group_plain(frames[lo:hi], widths[lo:hi], rows[lo][2])
+        start = rows[lo][1]
+        if any(rows[r][1] != start + (r - lo) * strips[0].numel()
+               for r in range(lo, hi)):
+            raise ValueError("the rows of group %d are not contiguous"
+                             % rows[lo][0])
+        out[start: start + strips.numel()] = strips.reshape(-1)
+        lo = hi
+    return out
+
+
+def strips_dewarped_page_plain(dew_u8, frames, widths, desc, out, out_h,
+                               max_w=None, fill=255.0):
+    """Strip mode (a) for a page: strips_dewarped_plain of each group of
+    `desc`, each strip's (out_h, wmax) rows written at its offset in the
+    flat u8 `out` -> out. `max_w` is the kernel's and unused here."""
+    return _page_plain(
+        lambda fr, wd, wmax: strips_dewarped_plain(dew_u8, fr, wd, out_h,
+                                                   wmax, fill),
+        frames, widths, desc, out)
+
+
+def strips_through_grid_page_plain(page_u8, hv, res, frames, widths, desc,
+                                   out, out_h, max_w=None, fill=255.0):
+    """Strip mode (b) for a page: strips_through_grid_plain of each
+    group of `desc`, written into `out` as strips_dewarped_page_plain
+    does -> out."""
+    return _page_plain(
+        lambda fr, wd, wmax: strips_through_grid_plain(
+            page_u8, hv, res, fr, wd, out_h, wmax, fill),
+        frames, widths, desc, out)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -291,18 +371,38 @@ def dewarp_u8(page_u8, hv, res, fill=255.0, staged_tiles=None):
     return out
 
 
+MAX_STRIPS = 65535   # the grid's z extent: one strip per z index
+
+
 def _check_frames(frames, widths, dev):
     _check(frames, "frames", torch.float32, 3, dev)
     _check(widths, "widths", torch.int32, 1, dev)
     if frames.shape[1:] != (2, 3) or widths.shape[0] != frames.shape[0]:
         raise ValueError("frames must be (N, 2, 3) and widths (N,)")
+    if dev.type == "cuda" and frames.shape[0] > MAX_STRIPS:
+        raise ValueError("at most %d strips a launch, got %d"
+                         % (MAX_STRIPS, frames.shape[0]))
+
+
+def _check_image(img, name, dev):
+    """A strip kernel's u8 page: its taps are int32 offsets."""
+    _check(img, name, torch.uint8, 2, dev)
+    if img.numel() >= 2 ** 31:
+        raise ValueError("%s must hold < 2**31 pixels" % name)
+
+
+def _check_page(desc, out, n, dev):
+    _check(desc, "desc", torch.int32, 2, dev)
+    _check(out, "out", torch.uint8, 1, dev)
+    if desc.shape != (n, 4):
+        raise ValueError("desc must be (N, 4), got %s" % (tuple(desc.shape),))
 
 
 def strips_dewarped(dew_u8, frames, widths, out_h, out_w, fill=255.0):
     """Strip mode (a): u8 dewarped page (H, W), f32 frames (N, 2, 3),
     int32 widths (N,) -> u8 (N, out_h, out_w)."""
     dev = _device_of(dew_u8)
-    _check(dew_u8, "dew_u8", torch.uint8, 2, dev)
+    _check_image(dew_u8, "dew_u8", dev)
     _check_frames(frames, widths, dev)
     if dev.type == "cpu":
         return strips_dewarped_plain(dew_u8, frames, widths, out_h, out_w,
@@ -312,8 +412,32 @@ def strips_dewarped(dew_u8, frames, widths, out_h, out_w, fill=255.0):
     if out.numel():
         h, w = dew_u8.shape
         _launch("origami_strips_dewarped", _ptr(dew_u8), h, w, _ptr(frames),
-                _ptr(widths), n, int(out_h), int(out_w), float(fill),
-                _ptr(out))
+                _ptr(widths), None, n, int(out_h), int(out_w), float(fill),
+                _ptr(out), out.numel())
+        launches["strips_dewarped"] += 1
+    return out
+
+
+def strips_dewarped_page(dew_u8, frames, widths, desc, out, out_h, max_w,
+                         fill=255.0):
+    """Strip mode (a) for all groups of a page in one launch: u8
+    dewarped page (H, W), f32 frames (N, 2, 3), int32 widths (N,), int32
+    desc (N, 4) from strip_layout, the flat u8 buffer `out`, max_w >=
+    every wmax of desc -> out, strip n's (out_h, wmax_n) rows written at
+    its offset."""
+    dev = _device_of(dew_u8)
+    _check_image(dew_u8, "dew_u8", dev)
+    _check_frames(frames, widths, dev)
+    n = frames.shape[0]
+    _check_page(desc, out, n, dev)
+    if dev.type == "cpu":
+        return strips_dewarped_page_plain(dew_u8, frames, widths, desc, out,
+                                          out_h, max_w, fill)
+    if n and out_h > 0 and max_w > 0:
+        h, w = dew_u8.shape
+        _launch("origami_strips_dewarped", _ptr(dew_u8), h, w, _ptr(frames),
+                _ptr(widths), _ptr(desc), n, int(out_h), int(max_w),
+                float(fill), _ptr(out), out.numel())
         launches["strips_dewarped"] += 1
     return out
 
@@ -323,7 +447,7 @@ def strips_through_grid(page_u8, hv, res, frames, widths, out_h, out_w,
     """Strip mode (b): u8 warped page (H, W), f32 grid (gh, gw, 2), res,
     f32 frames (N, 2, 3), int32 widths (N,) -> u8 (N, out_h, out_w)."""
     dev = _device_of(page_u8)
-    _check(page_u8, "page_u8", torch.uint8, 2, dev)
+    _check_image(page_u8, "page_u8", dev)
     _check(hv, "hv", torch.float32, 3, dev)
     _check_frames(frames, widths, dev)
     if dev.type == "cpu":
@@ -335,7 +459,33 @@ def strips_through_grid(page_u8, hv, res, frames, widths, out_h, out_w,
     if out.numel():
         h, w = page_u8.shape
         _launch("origami_strips_through_grid", _ptr(page_u8), h, w, _ptr(hv),
-                gh, gw, float(res), _ptr(frames), _ptr(widths), n,
-                int(out_h), int(out_w), float(fill), _ptr(out))
+                gh, gw, float(res), _ptr(frames), _ptr(widths), None, n,
+                int(out_h), int(out_w), float(fill), _ptr(out), out.numel())
+        launches["strips_through_grid"] += 1
+    return out
+
+
+def strips_through_grid_page(page_u8, hv, res, frames, widths, desc, out,
+                             out_h, max_w, fill=255.0):
+    """Strip mode (b) for all groups of a page in one launch: the
+    arguments of strips_through_grid, with desc, out and max_w as in
+    strips_dewarped_page -> out."""
+    dev = _device_of(page_u8)
+    _check_image(page_u8, "page_u8", dev)
+    _check(hv, "hv", torch.float32, 3, dev)
+    _check_frames(frames, widths, dev)
+    n = frames.shape[0]
+    _check_page(desc, out, n, dev)
+    if dev.type == "cpu":
+        return strips_through_grid_page_plain(page_u8, hv, res, frames,
+                                              widths, desc, out, out_h,
+                                              max_w, fill)
+    if n and out_h > 0 and max_w > 0:
+        h, w = page_u8.shape
+        gh, gw = hv.shape[:2]
+        _launch("origami_strips_through_grid", _ptr(page_u8), h, w, _ptr(hv),
+                gh, gw, float(res), _ptr(frames), _ptr(widths), _ptr(desc),
+                n, int(out_h), int(max_w), float(fill), _ptr(out),
+                out.numel())
         launches["strips_through_grid"] += 1
     return out
