@@ -49,8 +49,9 @@ Phases (any failure exits non-zero before the result line):
      build.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
-bit-packed, windows 15 and 31) against its plain version at a fixture
-page, a dewarped page and a ragged crop: the two must agree exactly; and
+bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
+plain version at a fixture page, a dewarped page and a ragged crop: the two
+must agree exactly (scripts/sauvola_ab.py runs this check alone); and
 the gather kernel (lane and sublane) over the sweep of
 scripts/pallas_gather_repro.py and at the grid build's own inputs, which
 must agree exactly with numpy's take_along_axis and the plain version;
@@ -896,12 +897,40 @@ def sauvola_library(image, window, k=0.2, r=128.0, border="clamp"):
     return (v > mean * (1.0 + k * (std / r - 1.0)))[0, 0]
 
 
+# the Sauvola windows of phase 2's sweep: the main path's 15 and 31, the
+# layout stage's range (33 and up), 259 (64-bit sums on a full page) and
+# 513, larger than the ragged crop
+SAUVOLA_WINDOWS = (15, 31, 33, 41, 63, 101, 259, 513)
+
+
+def sauvola_bound(img, out):
+    """(bound ms, "bytes" or "operations") of one Sauvola call."""
+    t_bytes = (img.numel() + out.numel()) / HBM_BYTES_PER_S * 1e3
+    t_ops = img.numel() * SAUVOLA_OPS_PER_PIXEL / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sauvola_times(kernel, plain, img, window, border, flush):
+    """A Sauvola call's times: events, back to back, L2-cold, device, the
+    plain version's events and the F.avg_pool2d yardstick's events and
+    device time."""
+    def library():
+        return sauvola_library(img, window, border=border)
+    return dict(ms=time_cuda(kernel), burst_ms=time_burst(kernel),
+                cold_ms=time_cuda(kernel, flush=flush),
+                plain_ms=time_cuda(plain), library_ms=time_cuda(library),
+                device_ms=device_ms(kernel) or 0.0,
+                library_device_ms=device_ms(library) or 0.0)
+
+
 def check_sauvola(images):
-    """Phase 2, the Sauvola kernel: every variant against its plain
-    version (they must agree exactly) at a fixture page, its dewarped
-    page and a ragged crop; the rows are the main path's two launches
-    (packed, window 15 and mask, window 31, both "clamp", on the warped
-    page), per page."""
+    """Phase 2, the Sauvola kernel: every variant (both outputs, both
+    borders, SAUVOLA_WINDOWS) against its plain version (they must agree
+    exactly) at a fixture page, its dewarped page and a ragged crop; the
+    rows are the main path's two launches (packed, window 15 and mask,
+    window 31, both "clamp", on the warped page), per page. Also timed:
+    window 41 packed on the dewarped page (the layout stage's launch)
+    and window 63 on the page, beside window 15."""
     import itertools
     import torch
     from origami_tpu_torch.ops import binarize as ops
@@ -909,6 +938,9 @@ def check_sauvola(images):
                 "sauvola_packed": (ops.sauvola_packed,
                                    ops.sauvola_packed_plain)}
     main = {("sauvola_packed", 15, "clamp"), ("sauvola", 31, "clamp")}
+    extra = {("dew", "sauvola_packed", 41, "clamp"),
+             ("page", "sauvola_packed", 63, "clamp"),
+             ("page", "sauvola", 63, "clamp")}
     timed = ("ms", "burst_ms", "cold_ms", "plain_ms", "bound_ms",
              "library_ms", "device_ms", "library_device_ms")
     rows = {name: dict({k: 0.0 for k in timed}, err=0.0, bound_by="bytes")
@@ -918,14 +950,15 @@ def check_sauvola(images):
     # every variant at three shapes on the first page, then the main
     # path's two launches on every other page
     px0, dew0 = images[0]
-    cases = [(img, *v) for img in (px0, dew0,
-                                   px0[100:297, 60:311].contiguous())
-             for v in itertools.product(wrappers, (15, 31),
+    shapes = (("page", px0), ("dew", dew0),
+              ("crop", px0[100:297, 60:311].contiguous()))
+    cases = [(label, img, *v) for label, img in shapes
+             for v in itertools.product(wrappers, SAUVOLA_WINDOWS,
                                         ("clamp", "zero"))]
-    cases += [(px, *v) for px, _ in images[1:] for v in sorted(main)]
+    cases += [("page", px, *v) for px, _ in images[1:] for v in sorted(main)]
     pages = {id(px) for px, _ in images}
     failures = []
-    for img, name, window, border in cases:
+    for label, img, name, window, border in cases:
         fn, plain = wrappers[name]
         h, w = img.shape
         row = rows[name]
@@ -933,8 +966,11 @@ def check_sauvola(images):
         def kernel():
             return fn(img, window, border=border)
 
+        def plain_call():
+            return plain(img, window, border=border)
+
         got = kernel()
-        want = plain(img, window, border=border)
+        want = plain_call()
         torch.cuda.synchronize()
         err = float((got.to(torch.int16) - want.to(torch.int16))
                     .abs().max())
@@ -942,39 +978,30 @@ def check_sauvola(images):
         if err != 0:
             failures.append("%s %dx%d w%d %s" % (name, h, w, window, border))
         ms = time_cuda(kernel)
-        t_bytes = (img.numel() + got.numel()) / HBM_BYTES_PER_S * 1e3
-        t_ops = img.numel() * SAUVOLA_OPS_PER_PIXEL / FP32_OPS_PER_S * 1e3
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        line = ("  %-15s %4dx%-4d w%-2d %-5s max|diff| %g %s  kernel %.4f "
-                "ms  bound %.5f ms (%s)" % (
-                    name, h, w, window, border, err,
-                    "ok" if err == 0 else "FAIL", ms, max(t_bytes, t_ops),
-                    bound_by))
-        if id(img) in pages and (name, window, border) in main:
+        bound, bound_by = sauvola_bound(img, got)
+        line = ("  %-15s %-4s %4dx%-4d w%-3d %-5s max|diff| %g %s  kernel "
+                "%.4f ms  bound %.5f ms (%s)" % (
+                    name, label, h, w, window, border, err,
+                    "ok" if err == 0 else "FAIL", ms, bound, bound_by))
+        is_main = id(img) in pages and (name, window, border) in main
+        if is_main or (label, name, window, border) in extra:
             lib = sauvola_library(img, window, border=border)
             mask = ops.sauvola_plain(img, window, border=border)
-            times = dict(
-                ms=ms, burst_ms=time_burst(kernel),
-                cold_ms=time_cuda(kernel, flush=flush),
-                plain_ms=time_cuda(
-                    lambda: plain(img, window, border=border)),
-                library_ms=time_cuda(
-                    lambda: sauvola_library(img, window, border=border)),
-                bound_ms=max(t_bytes, t_ops),
-                device_ms=device_ms(kernel) or 0.0,
-                library_device_ms=device_ms(
-                    lambda: sauvola_library(img, window, border=border))
-                or 0.0)
+            times = sauvola_times(kernel, plain_call, img, window, border,
+                                  flush)
+            times["bound_ms"] = bound
             line += ("  back to back %.4f ms  L2-cold %.4f ms  device %.4f "
                      "ms  plain %.4f ms  avg_pool2d %.4f ms (device %.4f ms;"
-                     " %.5f of its pixels equal)" % (
+                     " %.5f of its pixels equal)%s" % (
                          times["burst_ms"], times["cold_ms"],
                          times["device_ms"], times["plain_ms"],
                          times["library_ms"], times["library_device_ms"],
-                         float((lib == mask).float().mean())))
-            for k in timed:
-                row[k] += times[k]
-            row["bound_by"] = bound_by
+                         float((lib == mask).float().mean()),
+                         "" if is_main else "  [off the main path]"))
+            if is_main:
+                for k in timed:
+                    row[k] += times[k]
+                row["bound_by"] = bound_by
         log(line)
     if failures:
         raise PhaseError("the Sauvola kernel disagrees with its plain "

@@ -6,17 +6,17 @@ separator-whitening variants belong to the layout stage).
 `sauvola` and `sauvola_packed` wrap the kernel of csrc/sauvola.cu, which
 replaces the Pallas kernel `sauvola_pallas`
 (origami_tpu/ops/pallas/sauvola.py) and the XLA integral-image route the
-JAX main path runs. The kernel is bound by memory (one read of the u8
-page, one write of the mask, a bit per pixel when packed); it keeps the
-haloed tile and the per-column box sums in shared memory and packs the
-mask from a warp ballot, so neither an integral image nor the unpacked
-mask reaches device memory. Each wrapper sits beside its plain PyTorch
-version (`*_plain`), which has the same signature and arithmetic: exact
-integer box sums, then the float formula in the order `_sauvola_kernel`
-writes it. A wrapper given a CPU tensor computes the plain version (the
-CPU tests run it); given a CUDA tensor it launches the kernel on the
-current stream or raises; it never falls back. `launches[name]` counts
-kernel launches.
+JAX main path runs. Both take any odd window: a box larger than the page
+is the page. The kernel slides each column's box sums down a band of
+rows and scans them along each row, so a pixel costs the same at every
+window; neither an integral image nor the unpacked mask reaches device
+memory (the packed mask comes from a warp ballot). Each wrapper sits
+beside its plain PyTorch version (`*_plain`), which has the same
+signature and arithmetic: exact integer box sums, then the float formula
+in the order `_sauvola_kernel` writes it. A wrapper given a CPU tensor
+computes the plain version (the CPU tests run it); given a CUDA tensor
+it launches the kernel on the current stream or raises; it never falls
+back. `launches[name]` counts kernel launches.
 
 `border` says what the window does at the page's edge: "clamp" clips the
 box to the page and divides by the clipped area (ops/binarize.sauvola,
@@ -38,7 +38,6 @@ from origami_tpu_torch.ops.remap import (_check, _device_of, _div, _launch,
 
 launches = {"sauvola": 0, "sauvola_packed": 0}
 
-MAX_WINDOW = 31      # the kernel's shared-memory halo (csrc/sauvola.cu)
 _BORDERS = {"zero": 0, "clamp": 1}
 
 
@@ -77,9 +76,9 @@ def _check_args(image, window_size, border):
         raise TypeError("image must be a uint8 (H, W) tensor, got %s %s"
                         % (image.dtype, tuple(image.shape)))
     window_size = int(window_size)
-    if window_size < 1 or window_size % 2 == 0 or window_size > MAX_WINDOW:
-        raise ValueError("window_size must be odd and within 1..%d, got %d"
-                         % (MAX_WINDOW, window_size))
+    if window_size < 1 or window_size % 2 == 0:
+        raise ValueError("window_size must be odd and at least 1, got %d"
+                         % window_size)
     if border not in _BORDERS:
         raise ValueError("border must be 'clamp' or 'zero', got %r"
                          % (border,))

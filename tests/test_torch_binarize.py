@@ -78,6 +78,33 @@ def test_sauvola_clamp_border_matches_xla(hw, window):
     assert np.abs(thr - mine).max() < 0.25
 
 
+@pytest.mark.parametrize("hw,window", [((256, 384), 33), ((256, 384), 41),
+                                       ((256, 384), 63), ((256, 384), 101),
+                                       ((256, 384), 259), ((197, 251), 513)])
+def test_sauvola_clamp_border_any_window_matches_xla(hw, window):
+    # windows past the earlier limit of 31; 259 needs 64-bit sums on the
+    # card (its box's sum of squares passes 2^32); 513 is larger than the
+    # image, so every box is the whole image
+    img = page_like(6, *hw)
+    ref = np.asarray(jax_binarize.sauvola(jnp.asarray(img), window))
+    got = binarize.sauvola(torch.from_numpy(img), window).numpy()
+    assert got.shape == ref.shape
+    assert (got == ref).mean() >= 0.999
+    packed = binarize.sauvola_packed(torch.from_numpy(img), window).numpy()
+    np.testing.assert_array_equal(packed, np.packbits(got, axis=1))
+
+
+@pytest.mark.parametrize("window", [33, 63])
+def test_sauvola_zero_border_wide_window_matches_pallas(window):
+    img = page_like(7, *SIZES[-1])
+    ref = np.asarray(sauvola_pallas(jnp.asarray(img), window,
+                                    interpret=True)) > 0
+    got = binarize.sauvola(torch.from_numpy(img), window,
+                           border="zero").numpy()
+    # the Pallas kernel's float32 sums of squares pass 2^24 and round
+    assert (got == ref).mean() >= 0.999
+
+
 @pytest.mark.parametrize("page", ["synth0000", "synth0001"])
 def test_sauvola_packed_on_fixture_page_matches_stored_jax(page):
     ref = np.load(REF / (page + ".sauvola15.npz"))["packed"]
@@ -117,7 +144,8 @@ def test_otsu_threshold_matches_jax(seed):
 
 
 @pytest.mark.parametrize("spec", ["sauvola(window_size=15)", "otsu",
-                                  "sauvola(31, k=0.3)"])
+                                  "sauvola(31, k=0.3)",
+                                  "sauvola(window_size=41)"])
 def test_from_string_matches_jax(spec):
     img = page_like(5, 90, 130)
     ref = jax_core_binarize.from_string(spec)(img)
@@ -132,8 +160,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         binarize.sauvola(img.float(), 15)
     with pytest.raises(ValueError):
         binarize.sauvola(img, 14)
-    with pytest.raises(ValueError):
-        binarize.sauvola_packed(img, 33)
+    for window in (0, -1, -15):
+        with pytest.raises(ValueError):
+            binarize.sauvola_packed(img, window)
+    # any odd window runs, also past the earlier limit of 31
+    np.testing.assert_array_equal(
+        binarize.sauvola_packed(img, 33).numpy(),
+        binarize.sauvola_packed_plain(img, 33).numpy())
     with pytest.raises(ValueError):
         binarize.sauvola(img, 15, border="edge")
     with pytest.raises(ValueError):
