@@ -7,8 +7,8 @@ Phases (any failure exits non-zero before the result line):
 
   1. build the CUDA kernels from origami_tpu_torch/csrc with nvcc
      (sm_90a) and, beside them, the host geometry library
-     (origami_tpu_torch/geometry/native.cpp, g++); print ptxas' register
-     report and the card's name and power limit;
+     (origami_tpu_torch/geometry/native.cpp and contour_trace.cpp, g++);
+     print ptxas' register report and the card's name and power limit;
   2. hold each kernel entry point against its plain PyTorch version on
      the card at the main path's shapes (the fixture pages, 1312x1920,
      their grids and their real line frames) and time kernel, plain
@@ -46,7 +46,25 @@ Phases (any failure exits non-zero before the result line):
      checked;
   8. time the flow and dewarp stages in process, warm, for pages/s, list
      the device time by kernel, and count the launches of one grid
-     build.
+     build;
+  9. run the layout CLI on the JAX stages' artifacts (contours.2.zip and
+     tables.json must equal tests/data/torch_layout); the contours, flow,
+     dewarp and layout CLIs in turn from the fixture's JAX segment.zip
+     (contours.0.zip equal to tests/data/torch_flow's, the flow and
+     dewarp artifacts under phase 7's bars, contours.2.zip within 0.01 px
+     of tests/data/torch_layout's and tables.json equal); and the port
+     alone from the page images: segment (the students in bf16),
+     contours, flow, dewarp and layout, whose contours.2.zip must keep
+     the JAX keys and vertex counts and whose tables.json the JAX tables
+     and their counts of columns and dividers, both within CHAIN_PX
+     (the bf16 label maps move shapes by up to a label pixel). Every
+     stage's launches per page are checked
+     exactly (STAGE_LAUNCHES: the layout stage launches sauvola_packed,
+     dewarp_u8 and remap once a page), and the layout stage's Sauvola
+     windows are printed;
+  10. time the contours and layout stages in process, warm, for pages/s,
+     with the device time by kernel and the busy share of one profiled
+     pass.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -55,7 +73,8 @@ must agree exactly (scripts/sauvola_ab.py runs this check alone); and
 the gather kernel (lane and sublane) over the sweep of
 scripts/pallas_gather_repro.py and at the grid build's own inputs, which
 must agree exactly with numpy's take_along_axis and the plain version;
-dewarp_u8 (bit-equal) on both of its tile routes: the pages' own grids
+remap (f32, within 1e-4) on the separator mask the layout stage dewarps
+and on the page itself; dewarp_u8 (bit-equal) on both of its tile routes: the pages' own grids
 (every tile staged in shared memory), a scrambled grid (every tile
 through __ldg), a sheared grid and a ragged crop; and the grid scan
 kernels against the plain build (nodes within 1e-3 px; the chosen
@@ -71,8 +90,8 @@ device_groups (one upload, one launch per mode) against the earlier
 per-group path.
 
 The line before the last is the kernel table as JSON (the kernels of the
-driven paths; a kernel entry point that no path runs is printed on a
-line of its own before it), the last line {"ok": true, "device":
+driven paths; the gather's entry points, which no path runs, are printed
+on a line of their own before it), the last line {"ok": true, "device":
 {...}}. Imports nothing of JAX or origami_tpu.
 """
 
@@ -143,6 +162,28 @@ GRID_PX = 1e-3
 CONTOUR_PX = 0.01
 FLOW_STAGE = "origami_tpu.batch.detect.flow"
 DEWARP_STAGE = "origami_tpu.batch.detect.dewarp"
+CONTOURS_STAGE = "origami_tpu.batch.detect.contours"
+LAYOUT_STAGE = "origami_tpu.batch.detect.layout"
+STAGE_KEYS = {"segment": SEG_STAGE, "contours": CONTOURS_STAGE,
+              "flow": FLOW_STAGE, "dewarp": DEWARP_STAGE,
+              "layout": LAYOUT_STAGE}
+LAYOUT_REF = ROOT / "tests" / "data" / "torch_layout"
+# the chain from the port's own bf16 label maps (phase 9): they differ
+# from the JAX stage's on ~0.013 % of the pixels (phase 5), which moves a
+# region's vertices by up to a label pixel (1.05 page px across)
+CHAIN_PX = 2.5
+# each stage's launches per page: the Sauvola prefetch (packed, window
+# 15) in segment, flow and dewarp; the dewarp kernel and both grid scans
+# in dewarp; the layout stage's Sauvola at its own window, the dewarp of
+# its page and the remap of its separator mask; nothing else
+STAGE_LAUNCHES = {
+    "segment": {"sauvola_packed": 1},
+    "contours": {},
+    "flow": {"sauvola_packed": 1},
+    "dewarp": {"sauvola_packed": 1, "dewarp_u8": 1, "grid_scan_h": 1,
+               "grid_scan_v": 1},
+    "layout": {"sauvola_packed": 1, "dewarp_u8": 1, "remap": 1},
+}
 # what the grid scans need at least: per sample of a field evaluation
 # 2 subtractions, 2 multiplications and 1 addition for d2, the softening
 # addition, 1 division and 3 accumulations with 2 multiplications; per
@@ -710,6 +751,21 @@ def device_groups_ab(device):
     return out
 
 
+def separator_mask(png, device, h, w):
+    """The page's separator label mask (its JAX segment.zip), resized
+    onto the (h, w) warped page as the layout stage resizes it before
+    the remap: f32 on the card."""
+    import torch
+    from origami_tpu_torch.core.segment import PredictorType, Segmentation
+    from origami_tpu_torch.ops import binarize
+    from origami_tpu_torch.ops.resize import resize
+    seg = Segmentation.open(FIXTURE / (png.stem + ".out") / "segment.zip")
+    sep = [p.labels != p.classes["BACKGROUND"].value
+           for p in seg.predictions if p.type == PredictorType.SEPARATOR][0]
+    return resize(torch.from_numpy(sep).to(device).float(), (h, w),
+                  binarize._JAX_LINEAR).contiguous()
+
+
 def check_kernels(device):
     """Phase 2: kernel vs plain version at main-path shapes; returns
     {kernel name: row} for the JSON table."""
@@ -815,24 +871,29 @@ def check_kernels(device):
             dewarp_only("ragged crop", crop, (hv - shift).contiguous(), res,
                         "any")
 
-        # remap (remap_pallas' function, f32, fill 0): parity entry
-        # point of the same source, not on the OCR path
+        # remap (remap_pallas' function, f32, fill 0): on the layout
+        # stage's path it dewarps the separator mask, resized onto the
+        # warped page as that stage resizes it ("remap"); the page's own
+        # pixels through the same map are a second case ("remap_page")
         map_xy = torch.stack([mx, my], dim=-1).contiguous()
-        img = px.float().contiguous()
-        got = ops.remap(img, map_xy, 0.0)
-        want = ops.remap_plain(img, map_xy, 0.0)
-        torch.cuda.synchronize()
-        report("remap", got, want, F32_TOL,
-               lambda: ops.remap(img, map_xy, 0.0),
-               lambda: ops.remap_plain(img, map_xy, 0.0),
-               tapped_pixels(map_xy[..., 0].clamp(-2.0, w + 1.0),
-                             map_xy[..., 1].clamp(-2.0, h + 1.0),
-                             torch.ones_like(mx, dtype=torch.bool), h, w) * 4
-               + map_xy.numel() * 4 + got.numel() * 4,
-               lambda: F.grid_sample(img[None, None], grid, mode="bilinear",
-                                     padding_mode="zeros",
-                                     align_corners=True),
-               "%dx%d -> %dx%d" % (h, w, *map_xy.shape[:2]))
+        for name, img in (("remap", separator_mask(png, device, h, w)),
+                          ("remap_page", px.float().contiguous())):
+            got = ops.remap(img, map_xy, 0.0)
+            want = ops.remap_plain(img, map_xy, 0.0)
+            torch.cuda.synchronize()
+            report(name, got, want, F32_TOL,
+                   lambda: ops.remap(img, map_xy, 0.0),
+                   lambda: ops.remap_plain(img, map_xy, 0.0),
+                   tapped_pixels(map_xy[..., 0].clamp(-2.0, w + 1.0),
+                                 map_xy[..., 1].clamp(-2.0, h + 1.0),
+                                 torch.ones_like(mx, dtype=torch.bool), h,
+                                 w) * 4
+                   + map_xy.numel() * 4 + got.numel() * 4,
+                   lambda: F.grid_sample(img[None, None], grid,
+                                         mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True),
+                   "%dx%d -> %dx%d" % (h, w, *map_xy.shape[:2]))
 
         # the strip kernels: every main-path group of the page through
         # the group-level entry and all of them through one page-level
@@ -923,14 +984,41 @@ def sauvola_times(kernel, plain, img, window, border, flush):
                 library_device_ms=device_ms(library) or 0.0)
 
 
+def layout_windows():
+    """The Sauvola window the layout stage takes on each fixture page
+    (from the median dewarped height of the JAX stage's lines)."""
+    import tempfile
+    import torch
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    from origami_tpu_torch.batch.detect.layout import RegionState
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = layout_corpus(Path(tmp) / "c")
+        proc = _Proc(torch.device("cuda"))
+        for png in sorted(corpus.glob("*.png")):
+            warped = Input(Artifact.CONTOURS, Artifact.LINES,
+                           Artifact.SEGMENTATION, stage=Stage.WARPED) \
+                .instantiate(png, proc)
+            dew = Input(Artifact.CONTOURS, stage=Stage.DEWARPED) \
+                .instantiate(png, proc)
+            out.append(RegionState(
+                dew.page, warped.lines.by_path,
+                [(k, b.image_space_polygon)
+                 for k, b in dew.regions.by_path.items()],
+                dew.separators, warped.segmentation,
+                grid=dew.grid).sauvola_window())
+    return out
+
+
 def check_sauvola(images):
     """Phase 2, the Sauvola kernel: every variant (both outputs, both
-    borders, SAUVOLA_WINDOWS) against its plain version (they must agree
-    exactly) at a fixture page, its dewarped page and a ragged crop; the
-    rows are the main path's two launches (packed, window 15 and mask,
-    window 31, both "clamp", on the warped page), per page. Also timed:
-    window 41 packed on the dewarped page (the layout stage's launch)
-    and window 63 on the page, beside window 15."""
+    borders, SAUVOLA_WINDOWS and the layout stage's windows) against its
+    plain version (they must agree exactly) at a fixture page, its
+    dewarped page and a ragged crop; the rows are the main path's two
+    launches (packed, window 15 and mask, window 31, both "clamp", on
+    the warped page), per page. Also timed: the layout stage's launch
+    (packed on the dewarped page at its window), window 41 packed on the
+    dewarped page and window 63 on the page, beside window 15."""
     import itertools
     import torch
     from origami_tpu_torch.ops import binarize as ops
@@ -938,9 +1026,12 @@ def check_sauvola(images):
                 "sauvola_packed": (ops.sauvola_packed,
                                    ops.sauvola_packed_plain)}
     main = {("sauvola_packed", 15, "clamp"), ("sauvola", 31, "clamp")}
+    layout = {("dew", "sauvola_packed", w, "clamp")
+              for w in layout_windows()}
     extra = {("dew", "sauvola_packed", 41, "clamp"),
              ("page", "sauvola_packed", 63, "clamp"),
-             ("page", "sauvola", 63, "clamp")}
+             ("page", "sauvola", 63, "clamp")} | layout
+    windows = sorted(set(SAUVOLA_WINDOWS) | {w for *_, w, _ in layout})
     timed = ("ms", "burst_ms", "cold_ms", "plain_ms", "bound_ms",
              "library_ms", "device_ms", "library_device_ms")
     rows = {name: dict({k: 0.0 for k in timed}, err=0.0, bound_by="bytes")
@@ -953,7 +1044,7 @@ def check_sauvola(images):
     shapes = (("page", px0), ("dew", dew0),
               ("crop", px0[100:297, 60:311].contiguous()))
     cases = [(label, img, *v) for label, img in shapes
-             for v in itertools.product(wrappers, SAUVOLA_WINDOWS,
+             for v in itertools.product(wrappers, windows,
                                         ("clamp", "zero"))]
     cases += [("page", px, *v) for px, _ in images[1:] for v in sorted(main)]
     pages = {id(px) for px, _ in images}
@@ -997,7 +1088,9 @@ def check_sauvola(images):
                          times["device_ms"], times["plain_ms"],
                          times["library_ms"], times["library_device_ms"],
                          float((lib == mask).float().mean()),
-                         "" if is_main else "  [off the main path]"))
+                         "" if is_main else "  [the layout stage's launch]"
+                         if (label, name, window, border) in layout
+                         else "  [off the main path]"))
             if is_main:
                 for k in timed:
                     row[k] += times[k]
@@ -1862,13 +1955,13 @@ FLOW_BARS = {"flow_px": FLOW_PX, "flow_rad": FLOW_RAD, "lines_px": LINES_PX,
              "grid_px": GRID_PX, "contours_px": CONTOUR_PX}
 
 
-def run_stage_cli(stage, corpus, device="cuda"):
-    """Run `python -m origami_tpu_torch.batch.detect.<stage>` over
-    `corpus`; raise unless every page COMPLETED; -> (launch counts,
+def run_stage_cli(stage, corpus, device="cuda", args=()):
+    """Run `python -m origami_tpu_torch.batch.detect.<stage> [args]`
+    over `corpus`; raise unless every page COMPLETED; -> (launch counts,
     process seconds, summed stage seconds)."""
     cmd = [sys.executable, "-m", "origami_tpu_torch.batch.detect." + stage,
-           "--lock-strategy", "NONE", "--plain", "--device", str(device),
-           str(corpus)]
+           *args, "--lock-strategy", "NONE", "--plain", "--device",
+           str(device), str(corpus)]
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True, timeout=600)
@@ -1882,7 +1975,7 @@ def run_stage_cli(stage, corpus, device="cuda"):
             launches = json.loads(line)["kernel_launches"]
     if launches is None:
         raise PhaseError("%s CLI printed no launch counts" % stage)
-    key = FLOW_STAGE if stage == "flow" else DEWARP_STAGE
+    key = STAGE_KEYS[stage]
     stage_s = 0.0
     for png in sorted(corpus.glob("*.png")):
         entry = json.loads((corpus / (png.stem + ".out") / "runtime.json")
@@ -1958,53 +2051,19 @@ def check_flow_dewarp(workdir):
 # ---------------------------------------------------------------- phase 8
 
 def flow_dewarp_throughput(workdir, reps=5):
-    """Phase 8: the flow and dewarp stages in process, warm: `reps`
-    timed passes of each over fresh corpora after one warm-up pass, one
-    profiled pass each; and the launches of one grid build."""
+    """Phase 8: the flow and dewarp stages in process, warm (each as
+    stage_throughput); and the launches of one grid build."""
     import torch
     from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
     from origami_tpu_torch.batch.detect.dewarp import DewarpProcessor
     from origami_tpu_torch.batch.detect.flow import FlowDetectionProcessor
     from origami_tpu_torch.core import dewarp
-    opts = dict(lock_strategy="NONE", plain=True, device="cuda")
-    n_pages = len(list(FIXTURE.glob("*.png")))
     out = {}
-    for stage, cls, with_flow, key in (
-            ("flow", FlowDetectionProcessor, False, FLOW_STAGE),
-            ("dewarp", DewarpProcessor, True, DEWARP_STAGE)):
-        proc = cls(dict(opts))
-        times = []
-
-        def one_pass(tag):
-            corpus = flow_corpus(workdir / ("%s_%s" % (stage, tag)),
-                                 with_flow=with_flow)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            proc.traverse(str(corpus))
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            for png in sorted(corpus.glob("*.png")):
-                st = json.loads((corpus / (png.stem + ".out") /
-                                 "runtime.json").read_text()).get(key, {})
-                if st.get("status") != "COMPLETED":
-                    raise PhaseError("%s pass %s, %s: %s" % (
-                        stage, tag, png.name, st.get("traceback", st)))
-            return dt
-
-        for i in range(reps + 1):
-            dt = one_pass("tp%d" % i)
-            if i:                       # the first pass warms up
-                times.append(dt)
-        walls = []
-        prof = profiled(lambda: walls.append(one_pass("prof%d" % len(walls))))
-        prof_wall = walls[-1]
-        table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=12)
-        med = statistics.median(times)
-        out[stage] = dict(times=times, seconds=med,
-                          pages_per_s=n_pages / med,
-                          device_ms=_device_ms(prof),
-                          prof_wall_s=prof_wall, profile=table)
+    for stage, cls, with_flow in (("flow", FlowDetectionProcessor, False),
+                                  ("dewarp", DewarpProcessor, True)):
+        out[stage] = stage_throughput(
+            workdir, stage, cls,
+            lambda dst, w=with_flow: flow_corpus(dst, with_flow=w), reps)
 
     # one grid build (the first page's JAX flow.zip): wall time on the
     # card and the number of device kernels it launches
@@ -2031,6 +2090,304 @@ def flow_dewarp_throughput(workdir, reps=5):
     return out
 
 
+# ---------------------------------------------------------------- phase 9
+
+def chain_corpus(dst, jax_segmentation):
+    """The fixture's page PNGs and, `jax_segmentation`, the JAX
+    segment.zip of each (tests/data/torch_ocr/full)."""
+    dst.mkdir(parents=True)
+    for png in sorted(FIXTURE.glob("*.png")):
+        shutil.copy(png, dst / png.name)
+        if jax_segmentation:
+            out = dst / (png.stem + ".out")
+            out.mkdir()
+            shutil.copy(FIXTURE / (png.stem + ".out") / "segment.zip", out)
+    return dst
+
+
+def layout_corpus(dst):
+    """The layout stage's JAX inputs: the fixture's PNG and segment.zip
+    with tests/data/torch_flow's contours, lines and grid."""
+    dst.mkdir(parents=True)
+    for png in sorted(FIXTURE.glob("*.png")):
+        shutil.copy(png, dst / png.name)
+        out = dst / (png.stem + ".out")
+        out.mkdir()
+        shutil.copy(FIXTURE / (png.stem + ".out") / "segment.zip", out)
+        for name in ("contours.0.zip", "lines.0.zip", "contours.1.zip",
+                     "dewarp.zip", "runtime.json"):
+            shutil.copy(FLOW_REF / (png.stem + ".out") / name, out)
+    return dst
+
+
+def _entries(path):
+    with zipfile.ZipFile(path) as zf:
+        return {n: zf.read(n) for n in zf.namelist()}
+
+
+def compare_contours0(out, ref):
+    """(share of the JAX stage's contours.0.zip entries, WKT and
+    meta.json, that the port's holds byte-equal; the entries in only one
+    of the two)."""
+    a, b = _entries(out / "contours.0.zip"), _entries(ref / "contours.0.zip")
+    return (sum(a.get(k) == v for k, v in b.items()) / max(len(b), 1),
+            sorted(set(a) ^ set(b)))
+
+
+def compare_layout_outputs(out, ref):
+    """Hold a page's contours.2.zip and tables.json against the JAX
+    stage's: raises PhaseError on another key set or vertex count; ->
+    (largest vertex difference in px, share of entries byte-equal,
+    tables equal, the meta.json entries that differ: the separators'
+    widths, copied from contours.1.zip)."""
+    import numpy as np
+    from origami_tpu_torch import geometry as G
+    a, b = _entries(out / "contours.2.zip"), _entries(ref / "contours.2.zip")
+    if a.keys() != b.keys():
+        raise PhaseError("%s contours.2.zip: keys differ (%s)" % (
+            out.name, sorted(set(a) ^ set(b))[:4]))
+    d = 0.0
+    meta = []
+    for k in b:
+        if not k.endswith(".wkt"):
+            if a[k] != b[k]:
+                meta.append(k)
+            continue
+        x = _coords(G.wkt.loads(a[k].decode("utf8")))
+        y = _coords(G.wkt.loads(b[k].decode("utf8")))
+        if [len(c) for c in x] != [len(c) for c in y]:
+            raise PhaseError("%s contours.2.zip %s: vertex counts %s, JAX "
+                             "%s" % (out.name, k, [len(c) for c in x],
+                                     [len(c) for c in y]))
+        for c1, c2 in zip(x, y):
+            if len(c1):
+                d = max(d, float(np.abs(c1 - c2).max()))
+    same = sum(a[k] == b[k] for k in b) / max(len(b), 1)
+    tables = json.loads((out / "tables.json").read_text()) == \
+        json.loads((ref / "tables.json").read_text())
+    return d, same, tables, meta
+
+
+def tables_px(out, ref):
+    """Largest difference in px between the column and divider positions
+    of the port's tables.json and the JAX stage's; inf where the tables,
+    or their counts of columns or dividers, differ."""
+    a = json.loads((out / "tables.json").read_text())
+    b = json.loads((ref / "tables.json").read_text())
+    d = 0.0
+    for kind in ("columns", "dividers"):
+        if a[kind].keys() != b[kind].keys():
+            return float("inf")
+        for k, xs in b[kind].items():
+            if len(a[kind][k]) != len(xs):
+                return float("inf")
+            d = max([d] + [abs(x - y) for x, y in zip(a[kind][k], xs)])
+    return d
+
+
+def launch_errors(stage, launches, n_pages, device):
+    """{kernel: (count, expected)} where a stage's run launched a kernel
+    other than STAGE_LAUNCHES says; on the CPU nothing launches."""
+    per_page = STAGE_LAUNCHES[stage] if str(device) != "cpu" else {}
+    return {k: (v, per_page.get(k, 0) * n_pages)
+            for k, v in launches.items()
+            if v != per_page.get(k, 0) * n_pages}
+
+
+def windows(corpus):
+    """The Sauvola window the layout stage chose on each page."""
+    return [json.loads((corpus / (p.stem + ".out") / "runtime.json")
+                       .read_text())[LAYOUT_STAGE]["sauvola_window"]
+            for p in sorted(corpus.glob("*.png"))]
+
+
+def run_chain(name, corpus, stages, device, runs, failed, seg_args=()):
+    """Run the stage CLIs in turn over `corpus`, each in its own process
+    (its launch counts start at 0), and check each one's launches."""
+    n = len(list(corpus.glob("*.png")))
+    for stage in stages:
+        launches, wall, stage_s = run_stage_cli(
+            stage, corpus, device, seg_args if stage == "segment" else ())
+        runs["%s (%s)" % (stage, name)] = launches
+        bad = launch_errors(stage, launches, n, device)
+        log("  %-34s %d pages: launches %s  stage %.2f s, process %.2f s "
+            "(cold)  %s" % ("%s (%s)" % (stage, name), n,
+                            json.dumps({k: v for k, v in launches.items()
+                                        if v}),
+                            stage_s, wall, "ok" if not bad else "FAIL"))
+        if bad:
+            failed.append("%s (%s): launches (got, expected) %s"
+                          % (stage, name, bad))
+
+
+def check_chain_from_jax_segmentation(workdir, device="cuda"):
+    """The port's contours, flow, dewarp and layout CLIs in turn from
+    the JAX segment.zip: contours.0.zip equal to the JAX stage's, the
+    flow and dewarp artifacts under phase 7's bars, contours.2.zip within
+    CONTOUR_PX of the JAX stage's and tables.json equal. -> launch
+    counts of each run."""
+    runs, failed = {}, []
+    corpus = chain_corpus(workdir / "chain_from_jax_segment", True)
+    run_chain("from the JAX segment.zip", corpus,
+              ("contours", "flow", "dewarp", "layout"), device, runs, failed)
+    pages = sorted(FIXTURE.glob("*.png"))
+    worst = {}
+    for png in pages:
+        out, ref = corpus / (png.stem + ".out"), FLOW_REF / (png.stem + ".out")
+        equal0, keys = compare_contours0(out, ref)
+        equal0 = 0.0 if keys else equal0
+        got = compare_flow_outputs(out, ref, ("flow.zip", "lines.0.zip",
+                                              "dewarp.zip", "contours.1.zip"))
+        px, same, tables, meta = compare_layout_outputs(
+            out, LAYOUT_REF / (png.stem + ".out"))
+        got.update(contours0_equal=equal0, layout_px=px, layout_equal=same,
+                   tables_equal=float(tables), meta_equal=float(not meta))
+        for k, v in got.items():
+            worst[k] = min(worst.get(k, 1.0), v) if k in (
+                "lines_identical", "contours0_equal", "layout_equal",
+                "tables_equal", "meta_equal") else max(worst.get(k, 0.0), v)
+    gate = dict(FLOW_BARS, layout_px=CONTOUR_PX)
+    if worst["flow_px"] or worst["flow_rad"]:
+        gate.pop("grid_px")   # the grid is held only on JAX's flow.zip
+    over = {k: v for k, v in worst.items() if k in gate and v > gate[k]}
+    for k in ("contours0_equal", "tables_equal", "meta_equal"):
+        if worst[k] != 1.0:
+            over[k] = worst[k]
+    log("  chain from the JAX segment.zip vs the JAX stages: %s  %s" % (
+        "  ".join("%s %.4g" % kv for kv in sorted(worst.items())),
+        "ok" if not over else "FAIL"))
+    if over:
+        failed.append("chain from the JAX segment.zip: %s (bars %s)" % (
+            over, {k: gate.get(k, 1.0) for k in over}))
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return runs
+
+
+def check_port_chain(workdir, device="cuda"):
+    """The port alone, from the page images: segment (the students in
+    bf16), contours, flow, dewarp and layout CLIs in turn. Every stage
+    COMPLETED with its launches; contours.2.zip holds the JAX stage's
+    keys and vertex counts within CHAIN_PX, tables.json the JAX tables
+    with as many columns and dividers each, within CHAIN_PX. -> launch
+    counts of each run."""
+    runs, failed = {}, []
+    corpus = chain_corpus(workdir / "chain_port_only", False)
+    run_chain("port only", corpus,
+              ("segment", "contours", "flow", "dewarp", "layout"), device,
+              runs, failed, seg_args=("-m", str(ROOT / STUDENTS)))
+    worst = dict(layout_px=0.0, layout_equal=1.0, contours0_equal=1.0,
+                 tables_equal=1.0, tables_px=0.0)
+    only = []
+    for png in sorted(FIXTURE.glob("*.png")):
+        out = corpus / (png.stem + ".out")
+        equal0, keys = compare_contours0(out, FLOW_REF / (png.stem + ".out"))
+        worst["contours0_equal"] = min(worst["contours0_equal"], equal0)
+        only += ["%s:%s" % (png.stem, k) for k in keys]
+        px, same, tables, meta = compare_layout_outputs(
+            out, LAYOUT_REF / (png.stem + ".out"))
+        only += ["%s:%s differs" % (png.stem, k) for k in meta]
+        worst["layout_px"] = max(worst["layout_px"], px)
+        worst["layout_equal"] = min(worst["layout_equal"], same)
+        worst["tables_equal"] = min(worst["tables_equal"], float(tables))
+        worst["tables_px"] = max(worst["tables_px"], tables_px(
+            out, LAYOUT_REF / (png.stem + ".out")))
+    ok = worst["layout_px"] <= CHAIN_PX and worst["tables_px"] <= CHAIN_PX
+    log("  port-only chain vs the JAX stages: %s  entries in one of the "
+        "two only or differing (contours.0.zip, contours.2.zip's "
+        "meta.json): %s  windows %s  %s" % (
+            "  ".join("%s %.4g" % kv for kv in sorted(worst.items())),
+            only or "none", windows(corpus), "ok" if ok else "FAIL"))
+    if not ok:
+        failed.append("port-only chain: %s (bars layout_px and tables_px "
+                      "%g)" % (worst, CHAIN_PX))
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return runs
+
+
+def check_layout_on_jax_inputs(workdir, device="cuda"):
+    """The layout CLI on the JAX stages' artifacts: contours.2.zip and
+    tables.json equal to tests/data/torch_layout. -> launch counts."""
+    runs, failed = {}, []
+    corpus = layout_corpus(workdir / "layout_on_jax_inputs")
+    run_chain("on the JAX inputs", corpus, ("layout",), device, runs, failed)
+    for png in sorted(FIXTURE.glob("*.png")):
+        out, ref = corpus / (png.stem + ".out"), LAYOUT_REF / (png.stem
+                                                               + ".out")
+        a, b = _entries(out / "contours.2.zip"), _entries(
+            ref / "contours.2.zip")
+        tables = json.loads((out / "tables.json").read_text()) == \
+            json.loads((ref / "tables.json").read_text())
+        same = a == b
+        log("  layout on the JAX inputs, %s: contours.2.zip %d entries, %s; "
+            "tables.json %s" % (png.stem, len(a), "equal" if same else
+                                "DIFFERENT", "equal" if tables else
+                                "DIFFERENT"))
+        if not (same and tables):
+            failed.append("layout on the JAX inputs, %s: contours.2.zip "
+                          "equal %s, tables.json equal %s"
+                          % (png.stem, same, tables))
+    log("  layout Sauvola windows (median line height // 2, in steps of "
+        "8, odd): %s" % windows(corpus))
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return runs
+
+
+# ---------------------------------------------------------------- phase 10
+
+def stage_throughput(workdir, stage, cls, make_corpus, reps=5):
+    """A stage in process, warm: `reps` timed passes over fresh corpora
+    (`make_corpus(dst)`) after one warm-up pass, and one profiled pass
+    for the device time by kernel."""
+    import torch
+    key = STAGE_KEYS[stage]
+    proc = cls(dict(lock_strategy="NONE", plain=True, device="cuda"))
+    n_pages = len(list(FIXTURE.glob("*.png")))
+
+    def one_pass(tag):
+        corpus = make_corpus(workdir / ("%s_%s" % (stage, tag)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proc.traverse(str(corpus))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for png in sorted(corpus.glob("*.png")):
+            st = json.loads((corpus / (png.stem + ".out") /
+                             "runtime.json").read_text()).get(key, {})
+            if st.get("status") != "COMPLETED":
+                raise PhaseError("%s pass %s, %s: %s" % (
+                    stage, tag, png.name, st.get("traceback", st)))
+        return dt
+
+    times = [one_pass("tp%d" % i) for i in range(reps + 1)][1:]
+    walls = []
+    prof = profiled(lambda: walls.append(one_pass("prof%d" % len(walls))))
+    med = statistics.median(times)
+    return dict(times=times, seconds=med, pages_per_s=n_pages / med,
+                device_ms=_device_ms(prof), prof_wall_s=walls[-1],
+                profile=prof.key_averages().table(
+                    sort_by="self_cuda_time_total", row_limit=12))
+
+
+def log_throughput(stage, r):
+    log("  %s: median of %d warm passes %.4f s (min %.4f, max %.4f): "
+        "%.3f pages/s" % (stage, len(r["times"]), r["seconds"],
+                          min(r["times"]), max(r["times"]),
+                          r["pages_per_s"]))
+    if r["device_ms"] is None:
+        log("  %s profiled pass: %.4f s wall; the profiler recorded no "
+            "device event (device time not measured)"
+            % (stage, r["prof_wall_s"]))
+    else:
+        log("  %s profiled pass: %.4f s wall, %.3f ms device (kernel) "
+            "time, device busy %.2f %%" % (
+                stage, r["prof_wall_s"], r["device_ms"],
+                100.0 * r["device_ms"] / 1e3 / r["prof_wall_s"]))
+    log(r["profile"])
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -2039,11 +2396,12 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if not (ROOT / "origami_tpu_torch").is_dir() or not FIXTURE.is_dir() \
-            or not SEG_REF.is_dir() or not FLOW_REF.is_dir():
+            or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
+            or not LAYOUT_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
-              "tests/data/torch_segment/ or tests/data/torch_flow/ "
-              "missing)", file=sys.stderr)
+              "tests/data/torch_segment/, tests/data/torch_flow/ or "
+              "tests/data/torch_layout/ missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     torch.backends.cudnn.allow_tf32 = False
@@ -2071,7 +2429,8 @@ def main():
         _build.LIBRARY.relative_to(ROOT),
         ", ".join("origami_tpu_torch/csrc/" + s for s in _build.SOURCES),
         native_bindings.LIBRARY.relative_to(ROOT),
-        native_bindings.SOURCE.relative_to(ROOT), time.time() - t0))
+        ", ".join(str(s.relative_to(ROOT)) for s in native_bindings.SOURCES),
+        time.time() - t0))
     for line in nvcc_log.splitlines():
         if "registers" in line or line.startswith("==") or "spill" in line:
             log("  " + line.strip())
@@ -2194,31 +2553,36 @@ def main():
         log("== phase 8: flow and dewarp stage throughput, warm (%s)" % smi)
         ftp = flow_dewarp_throughput(work)
         for stage in ("flow", "dewarp"):
-            r = ftp[stage]
-            log("  %s: median of %d warm passes %.4f s (min %.4f, max "
-                "%.4f): %.3f pages/s" % (
-                    stage, len(r["times"]), r["seconds"], min(r["times"]),
-                    max(r["times"]), r["pages_per_s"]))
-            if r["device_ms"] is None:
-                log("  %s profiled pass: %.4f s wall; the profiler recorded "
-                    "no device event (device time not measured)"
-                    % (stage, r["prof_wall_s"]))
-            else:
-                log("  %s profiled pass: %.4f s wall, %.3f ms device "
-                    "(kernel) time, device busy %.2f %%" % (
-                        stage, r["prof_wall_s"], r["device_ms"],
-                        100.0 * r["device_ms"] / 1e3 / r["prof_wall_s"]))
-            log(r["profile"])
+            log_throughput(stage, ftp[stage])
         g = ftp["grid"]
         log("  one grid build (88 x 64 nodes, 1312x1920 page): %.2f ms wall "
             "(median of 5), %d device launches (kernels and copies; %d of "
             "them the grid scan kernels), %.3f ms device time"
             % (g["wall_ms"], g["launches"], g["scans"], g["device_ms"]))
 
+        log("== phase 9: the chain segment -> contours -> flow -> dewarp -> "
+            "layout on the card, each stage's CLI, vs the JAX stages (%s)"
+            % smi)
+        chain_runs = check_layout_on_jax_inputs(work)
+        chain_runs.update(check_chain_from_jax_segmentation(work))
+        chain_runs.update(check_port_chain(work))
+
+        log("== phase 10: contours and layout stage throughput, warm (%s)"
+            % smi)
+        from origami_tpu_torch.batch.detect.contours import \
+            ContoursProcessor
+        from origami_tpu_torch.batch.detect.layout import \
+            LayoutDetectionProcessor
+        log_throughput("contours", stage_throughput(
+            work, "contours", ContoursProcessor,
+            lambda dst: chain_corpus(dst, True)))
+        log_throughput("layout", stage_throughput(
+            work, "layout", LayoutDetectionProcessor, layout_corpus))
+
     total = {k: sum(r["launches"][k] for r in runs) for k in ops.launches}
     total.update({k: sum(r["launches"][k] for r in seg_runs)
                   for k in ("sauvola", "sauvola_packed")})
-    for launches in flow_runs.values():
+    for launches in list(flow_runs.values()) + list(chain_runs.values()):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     table = {
@@ -2249,17 +2613,16 @@ def main():
             max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
-    off_path = ("remap", "take_along_axis_lane", "take_along_axis_sublane")
+    off_path = ("take_along_axis_lane", "take_along_axis_sublane")
     starved = [n for n, k in kernels.items()
                if n not in off_path and k["launches"] < 1]
     if starved:
         raise PhaseError("kernels of the driven paths never launched: %s"
                          % starved)
     log("total %.1f s" % (time.time() - t_start))
-    # `remap` (remap_pallas' own function) and the gather (lane and
-    # sublane) are entry points that no stage calls: held against their
-    # plain versions above, launched by no path, and so kept out of the
-    # table of the paths' kernels
+    # the gather (lane and sublane) is an entry point that no stage
+    # calls: held against its plain version above, launched by no path,
+    # and so kept out of the table of the paths' kernels
     print(json.dumps({"off_path_kernels": [kernels.pop(n)
                                            for n in off_path]}),
           flush=True)

@@ -1,7 +1,7 @@
 """Typed artifact I/O: Stage/Artifact registry, Reader/Writer, atomic writes.
 
 Port of the parts of origami_tpu/batch/core/io.py that the segment,
-flow, dewarp and OCR stages use.
+contours, flow, dewarp, layout and OCR stages use.
 Per-page `<image>.out/` directories hold the stage artifacts of
 docs/formats.md; a stage declares its I/O as (name, Input/Output) pairs,
 the runtime instantiates Readers/Writers, skips pages whose inputs are
@@ -339,6 +339,13 @@ class Writer:
         with self._write(self.path(artifact), "wb") as f:
             with zipfile.ZipFile(f, "w", zipfile.ZIP_DEFLATED) as zf:
                 yield zf
+
+    def write_json(self, artifact, data):
+        with self._write(self.path(artifact), "wb") as f:
+            f.write(json.dumps(data).encode("utf8"))
+
+    def tables(self, data):
+        self.write_json(Artifact.TABLES, data)
 
     def ocr(self):
         return self.write_zip(Artifact.OCR)

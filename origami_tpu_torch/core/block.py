@@ -122,6 +122,10 @@ class Line:
         return float(np.linalg.norm(self._right))
 
     @property
+    def height(self):
+        return float(np.linalg.norm(self._up))
+
+    @property
     def info(self):
         """The lines.N.zip JSON (docs/formats.md#lineszip)."""
         return dict(

@@ -134,6 +134,41 @@ class Grid:
             return self._hv
         raise ValueError(resolution)
 
+    def has_banded_plan(self, src_shape):
+        """Whether the JAX Grid.banded_plan(src_shape) (dewarp.py:219-302)
+        returns a plan: x increasing along every lattice row, a vertical
+        shear of at most 0.25 px a px, and both passes' displacement
+        bands at most 768 px wide. The layout stage's separator mask
+        takes the JAX stage's route by it."""
+        hv = self._hv.astype(np.float64)
+        res = self._res
+        gh, gw = hv.shape[:2]
+        src_w = int(src_shape[1])
+        mxr = hv[..., 0]
+        if not np.all(np.diff(mxr, axis=1) > 1e-3):
+            return False
+        if np.abs(np.diff(hv[..., 1], axis=1)).max() / res > 0.25:
+            return False
+        cw1 = int(np.ceil(src_w / res)) + 2
+        x_nodes = np.arange(cw1, dtype=np.float64) * res
+        lat_my = np.empty((gh + 1, cw1), np.float32)
+        for r in range(gh):
+            lat_my[r] = np.interp(x_nodes, mxr[r], hv[r, :, 1])
+        lat_my[gh] = lat_my[gh - 1]
+        lat_mx = np.empty((gh + 1, gw + 1), np.float32)
+        lat_mx[:gh, :gw] = mxr
+        lat_mx[:gh, gw] = lat_mx[:gh, gw - 1]
+        lat_mx[gh] = lat_mx[gh - 1]
+
+        def narrow(lat, positions):
+            rel = lat.astype(np.float64) - positions
+            d_lo = int(np.floor(rel.min())) // 4 * 4
+            d_hi = int(np.floor(rel.max())) + 1
+            return -(-(d_hi - d_lo + 1) // 4) * 4 <= 768
+
+        return (narrow(lat_my, (np.arange(gh + 1.0) * res)[:, None])
+                and narrow(lat_mx, (np.arange(gw + 1.0) * res)[None, :]))
+
     def inverse_points(self, dewarped_pts):
         """Map dewarped (x, y) points to warped coordinates (bilinear in
         the sample grid, clamped to its extent)."""

@@ -1,15 +1,23 @@
 """Page geometry helpers (port of origami_tpu/core/math.py: `Geometry`,
-which core.page needs, and `Orientation`, which core.segment needs)."""
+which core.page needs, and `Orientation`, which core.segment and the
+separator polylines need)."""
 
 from __future__ import annotations
 
 import enum
 import math
 
+import numpy as np
+
 
 class Orientation(enum.Enum):
     H = 0
     V = 1
+
+    @property
+    def direction(self):
+        return np.array([1.0, 0.0]) if self == Orientation.H \
+            else np.array([0.0, 1.0])
 
 
 class Geometry:

@@ -1,17 +1,21 @@
-"""ctypes bindings for the C++ geometry kernels of native.cpp.
+"""ctypes bindings for the host C++ geometry kernels.
 
-Port of origami_tpu/geometry/native_bindings.py (the bindings the flow and
-dewarp stages reach: the polygon overlay, the segment distance and the
-Douglas-Peucker keep-mask). native.cpp is host C++, the JAX package's
-file copied whole; it is compiled at first use with g++ (the JAX package's
-Makefile flags) into
+Port of origami_tpu/geometry/native_bindings.py: the polygon overlay, the
+segment distance, the Douglas-Peucker keep-mask, Zhang-Suen thinning, the
+city-block EDT, the skeleton tracer and the concave hull of native.cpp
+(the JAX package's file copied whole), and the port's own raster
+vectorization of contour_trace.cpp (cv2's findContours, connected
+components, chamfer distance transform, fillPoly and line;
+geometry/contour_trace.py and raster.py wrap them). Both sources are compiled at first use with g++ (the JAX
+package's Makefile flags) into
 
     build/origami_tpu_torch/liborigami_native.so
 
-and rebuilt when the source is newer. The JAX artifacts the port is held
+and rebuilt when a source is newer. The JAX artifacts the port is held
 against were made with this library, whose overlay need not give the
 same polygons as the Python reference in booleans.py, so a failed build
-or load raises: nothing drops to the Python paths.
+or load raises: nothing drops to the Python paths (nor to the JAX
+package's device thinning).
 """
 
 from __future__ import annotations
@@ -25,19 +29,23 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "native.cpp"
+SOURCES = [Path(__file__).resolve().parent / name
+           for name in ("native.cpp", "contour_trace.cpp")]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "origami_tpu_torch"
 LIBRARY = BUILD_DIR / "liborigami_native.so"
 CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
 
 _DP = ctypes.POINTER(ctypes.c_double)
 _IP = ctypes.POINTER(ctypes.c_int)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_FP = ctypes.POINTER(ctypes.c_float)
 
 
 def build(force=False):
-    """Compile native.cpp if the library is missing or older than it."""
-    if not force and LIBRARY.exists() \
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime:
+    """Compile the sources if the library is missing or older than one."""
+    if not force and LIBRARY.exists() and all(
+            LIBRARY.stat().st_mtime >= s.stat().st_mtime for s in SOURCES):
         return
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
@@ -45,11 +53,13 @@ def build(force=False):
                            "built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / ("liborigami_native.%d.so" % os.getpid())
-    out = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp), str(SOURCE)],
+    out = subprocess.run([cxx, *CXXFLAGS, "-o", str(tmp),
+                          *map(str, SOURCES)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
     if out.returncode != 0:
-        raise RuntimeError("g++ failed for %s:\n%s" % (SOURCE, out.stdout))
+        raise RuntimeError("g++ failed for %s:\n%s"
+                           % (", ".join(map(str, SOURCES)), out.stdout))
     os.replace(tmp, LIBRARY)
 
 
@@ -67,7 +77,42 @@ def library():
                                  ctypes.c_double]
     lib.douglas_peucker.restype = None
     lib.douglas_peucker.argtypes = [
-        _DP, ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_uint8)]
+        _DP, ctypes.c_int, ctypes.c_double, _U8P]
+    lib.concave_hull.restype = ctypes.c_int
+    lib.concave_hull.argtypes = [
+        _DP, ctypes.c_int, _IP, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, _IP, ctypes.c_int]
+    lib.trace_skeleton.restype = ctypes.c_int
+    lib.trace_skeleton.argtypes = [
+        _U8P, ctypes.c_int, ctypes.c_int, _I32P, ctypes.c_int, _I32P,
+        ctypes.c_int]
+    lib.thin_mask.restype = ctypes.c_int
+    lib.thin_mask.argtypes = [_U8P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int]
+    lib.chamfer_edt.restype = None
+    lib.chamfer_edt.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _FP]
+    lib.find_contours_run.restype = ctypes.c_void_p
+    lib.find_contours_run.argtypes = [
+        _U8P, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_long)]
+    lib.find_contours_copy.restype = None
+    lib.find_contours_copy.argtypes = [ctypes.c_void_p, _I32P, _I32P,
+                                       _I32P]
+    lib.find_contours_free.restype = None
+    lib.find_contours_free.argtypes = [ctypes.c_void_p]
+    lib.components8.restype = ctypes.c_int
+    lib.components8.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _I32P]
+    lib.component_stats.restype = None
+    lib.component_stats.argtypes = [_I32P, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, _I32P]
+    lib.chamfer5.restype = None
+    lib.chamfer5.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _FP, _I32P,
+                             ctypes.c_int]
+    lib.fill_poly.restype = None
+    lib.fill_poly.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _I32P,
+                              ctypes.c_int, ctypes.c_int]
+    lib.draw_line.restype = None
+    lib.draw_line.argtypes = [_U8P] + [ctypes.c_int] * 7
     return lib
 
 
@@ -151,5 +196,63 @@ def douglas_peucker_native(coords, tol):
     n = len(c)
     keep = np.empty(n, np.uint8)
     lib.douglas_peucker(c.ctypes.data_as(_DP), n, float(tol),
-                        keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+                        keep.ctypes.data_as(_U8P))
     return keep > 0
+
+
+def concave_hull_native(points, concavity, length_threshold):
+    """(N, 2) float64 points -> (M, 2) hull ring, or None when the C++
+    dig returns fewer than 3 points. The convex hull it starts from is
+    scipy's, as in the JAX binding."""
+    import scipy.spatial
+    lib = library()
+    pts = np.ascontiguousarray(points, dtype=np.float64)
+    hull = scipy.spatial.ConvexHull(pts)
+    hidx = np.ascontiguousarray(hull.vertices, dtype=np.int32)
+    max_out = len(pts) + 8
+    out = np.zeros(max_out, dtype=np.int32)
+    m = lib.concave_hull(
+        pts.ctypes.data_as(_DP), len(pts), hidx.ctypes.data_as(_IP),
+        len(hidx), float(concavity), float(length_threshold),
+        out.ctypes.data_as(_IP), max_out)
+    if m < 3:
+        return None
+    return pts[out[:m]]
+
+
+def trace_skeleton_native(skel):
+    """(H, W) bool mask -> list of (N_i,) pixel-index paths, or None when
+    the paths outgrow their buffers."""
+    lib = library()
+    sk = np.ascontiguousarray(skel, dtype=np.uint8)
+    h, w = sk.shape
+    n_px = int(sk.sum())
+    path_cap = max(16, n_px * 8 + 64)
+    off_cap = max(16, n_px + 8)
+    data = np.zeros(path_cap, dtype=np.int32)
+    offs = np.zeros(off_cap, dtype=np.int32)
+    n = lib.trace_skeleton(sk.ctypes.data_as(_U8P), h, w,
+                           data.ctypes.data_as(_I32P), path_cap,
+                           offs.ctypes.data_as(_I32P), off_cap)
+    if n < 0:
+        return None
+    return [data[offs[i]: offs[i + 1]] for i in range(n)]
+
+
+def thin_mask_native(mask, max_iter=128):
+    """Zhang-Suen thinning of a bool mask."""
+    lib = library()
+    img = (np.ascontiguousarray(mask, np.uint8) > 0).astype(np.uint8)
+    h, w = img.shape
+    lib.thin_mask(img.ctypes.data_as(_U8P), h, w, int(max_iter))
+    return img > 0
+
+
+def chamfer_edt_native(mask):
+    """City-block distance to the nearest set pixel of `mask`."""
+    lib = library()
+    src = (np.ascontiguousarray(mask, np.uint8) > 0).astype(np.uint8)
+    h, w = src.shape
+    out = np.empty((h, w), np.float32)
+    lib.chamfer_edt(src.ctypes.data_as(_U8P), h, w, out.ctypes.data_as(_FP))
+    return out

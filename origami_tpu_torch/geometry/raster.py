@@ -3,33 +3,34 @@
 Port of origami_tpu/geometry/raster.py, which fills with cv2.fillPoly,
 strokes with cv2.polylines, dilates with an elliptic cv2 kernel and traces
 with cv2.findContours. The port has no cv2, so it keeps the same frames,
-scales and operations and does each step in numpy/scipy:
+scales and operations and does each step itself:
 
-  * fill: pixel centres inside the ring (even-odd scanlines), plus the
-    pixels the ring's edges pass through, as cv2 fills integer polygons
-    with their outline;
-  * stroke: pixels within half the thickness of the polyline;
+  * fill: cv2.fillPoly's scanline algorithm with its outline, and
+    thin lines as cv2's 8-connected Bresenham lines (native C++,
+    contour_trace.cpp);
+  * thick strokes: pixels within half the thickness of the polyline;
   * dilate / erode: scipy.ndimage with cv2's MORPH_ELLIPSE kernel (erosion
     treats pixels outside the raster as set, as cv2 does);
-  * trace: the pixel-edge (crack) boundary of the mask, saddle corners
-    joined so that diagonal pixels connect (cv2's 8-connected
-    foreground), straight runs merged. The crack boundary lies half a
-    pixel outside the pixel centres cv2 traces, which is where
-    `_offset_ring` moves cv2's contour, so no offset is applied.
+  * trace: cv2's findContours (RETR_CCOMP, CHAIN_APPROX_SIMPLE) from
+    contour_trace.py, vertex for vertex, each ring moved half a pixel
+    outward by `_offset_ring` as in the JAX copy.
 
-So buffers and raster overlays agree with the JAX package's in shape to
-about a pixel of the raster, not vertex for vertex. The flow and dewarp
-stages reach this module only for buffers of polygons (text areas of
-overlapping blocks), invalid polygons and overlays the exact path rejects;
-on the fixture pages they do not reach it.
+Fill, thin lines, dilation and tracing give cv2's pixels and vertices,
+so make_valid, unions, overlays and polygon buffers equal the JAX
+package's; only strokes thicker than one pixel (raster buffers of
+linework) stay within about a raster pixel of cv2.polylines'.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 from scipy import ndimage
 
-from .poly import Polygon, MultiPolygon, GEOMETRY_EMPTY, _points_in_ring
+from .contour_trace import contour_area, find_contours
+from .native_bindings import library
+from .poly import Polygon, MultiPolygon, GEOMETRY_EMPTY
 
 # raster side-length budget for boolean ops
 _MAX_SIDE = 4096.0
@@ -78,51 +79,32 @@ class RasterFrame:
 # ---------------------------------------------------------------------------
 
 def _draw_segments(mask, pts, closed, value):
-    """Set the pixels the segments between integer points pass through
-    (one sample per pixel step along the major axis)."""
+    """cv2.polylines(mask, [pts], closed, value) with thickness 1: the
+    8-connected Bresenham line of each segment (native C++)."""
+    lib = library()
     h, w = mask.shape
     p = np.asarray(pts, dtype=np.int64)
     q = np.roll(p, -1, axis=0) if closed else p[1:]
     p = p if closed else p[:-1]
-    for (x0, y0), (x1, y1) in zip(p, q):
-        n = int(max(abs(x1 - x0), abs(y1 - y0))) + 1
-        t = np.linspace(0.0, 1.0, n)
-        xs = np.rint(x0 + t * (x1 - x0)).astype(np.int64)
-        ys = np.rint(y0 + t * (y1 - y0)).astype(np.int64)
-        ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
-        mask[ys[ok], xs[ok]] = value
+    ptr = _u8_ptr(mask)
+    for (x0, y0), (x1, y1) in zip(p.tolist(), q.tolist()):
+        lib.draw_line(ptr, h, w, x0, y0, x1, y1, int(value))
+
+
+def _u8_ptr(mask):
+    if mask.dtype != np.uint8 or not mask.flags.c_contiguous:
+        raise ValueError("a C-contiguous uint8 mask is needed")
+    return mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
 def _fill_polygon(mask, pts, value):
-    """cv2.fillPoly(mask, [pts], value) for one ring of integer points:
-    pixel centres inside (even-odd), plus the outline."""
+    """cv2.fillPoly(mask, [pts], value) for one ring of integer points
+    (native C++, contour_trace.cpp)."""
     h, w = mask.shape
-    p = np.asarray(pts, dtype=np.float64)
-    q = np.roll(p, -1, axis=0)
-    y_lo = max(int(np.floor(p[:, 1].min())), 0)
-    y_hi = min(int(np.ceil(p[:, 1].max())), h - 1)
-    if y_hi >= y_lo:
-        ys = np.arange(y_lo, y_hi + 1, dtype=np.float64)
-        x0, y0, x1, y1 = p[:, 0], p[:, 1], q[:, 0], q[:, 1]
-        # half-open crossing rule: an edge covers rows min(y) <= y < max(y)
-        cross = ((y0[:, None] <= ys) & (ys < y1[:, None])) \
-            | ((y1[:, None] <= ys) & (ys < y0[:, None]))
-        with np.errstate(divide="ignore", invalid="ignore"):
-            xc = x0[:, None] + (ys - y0[:, None]) * \
-                ((x1 - x0) / (y1 - y0))[:, None]
-        xc = np.where(cross, xc, np.inf)
-        xc.sort(axis=0)
-        n = cross.sum(axis=0)
-        for k in range(0, int(n.max(initial=0)), 2):
-            rows = np.flatnonzero(n > k + 1)
-            if not len(rows):
-                break
-            a = np.ceil(xc[k, rows]).astype(np.int64).clip(0, w)
-            b = np.floor(xc[k + 1, rows]).astype(np.int64).clip(-1, w - 1)
-            for r, xa, xb in zip(rows, a, b):
-                if xb >= xa:
-                    mask[y_lo + r, xa:xb + 1] = value
-    _draw_segments(mask, pts, True, value)
+    p = np.ascontiguousarray(pts, dtype=np.int32).reshape(-1, 2)
+    library().fill_poly(_u8_ptr(mask), h, w,
+                        p.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                        len(p), int(value))
 
 
 def _stroke(mask, pts, thickness, value):
@@ -222,110 +204,57 @@ def rasterize(geom, frame, mask=None, value=1, thickness=None):
 # tracing
 # ---------------------------------------------------------------------------
 
-# directions: 0 right, 1 down, 2 left, 3 up (x right, y down)
-_DX = np.array([1, 0, -1, 0])
-_DY = np.array([0, 1, 0, -1])
-
-
-def _crack_rings(mask):
-    """Boundary rings of a binary mask along pixel edges, each as an (n, 2)
-    array of corner points in pixel coordinates (pixel (x, y) spans
-    [x - 0.5, x + 0.5] x [y - 0.5, y + 0.5]). The set pixels lie on the
-    left of each ring when walked on the screen (y down): outer
-    boundaries run counter-clockwise on the screen, holes clockwise."""
-    m = np.pad(mask > 0, 1)
-    hh, ww = m.shape
-    cw = ww + 1                                   # corners per row
-    # horizontal cracks between m[i-1, j] and m[i, j]: on corner row i
-    i, j = np.nonzero(m[:-1] != m[1:])
-    i = i + 1
-    up_set = m[i - 1, j]
-    h_start = np.where(up_set, i * cw + j, i * cw + j + 1)
-    h_dir = np.where(up_set, 0, 2)
-    # vertical cracks between m[i, j-1] and m[i, j]: on corner column j
-    i2, j2 = np.nonzero(m[:, :-1] != m[:, 1:])
-    j2 = j2 + 1
-    right_set = m[i2, j2]
-    v_start = np.where(right_set, i2 * cw + j2, (i2 + 1) * cw + j2)
-    v_dir = np.where(right_set, 1, 3)
-    start = np.concatenate([h_start, v_start])
-    direc = np.concatenate([h_dir, v_dir])
-    n = len(start)
-    if n == 0:
-        return []
-    end = start + _DX[direc] + _DY[direc] * cw
-    # out-edges per corner (one, or two at a saddle)
-    order = np.argsort(start, kind="stable")
-    s_sorted = start[order]
-    first = np.searchsorted(s_sorted, end, side="left")
-    second = first + 1
-    has2 = (second < n) & (s_sorted[np.minimum(second, n - 1)] == end)
-    e1 = order[first]
-    e2 = order[np.minimum(second, n - 1)]
-    # at a saddle take the right turn, which keeps diagonal pixels joined
-    turn = (direc + 1) % 4
-    nxt = np.where(has2 & (direc[e2] == turn), e2, e1)
-    seen = np.zeros(n, dtype=bool)
-    rings = []
-    for e0 in range(n):
-        if seen[e0]:
-            continue
-        cyc = []
-        e = e0
-        while not seen[e]:
-            seen[e] = True
-            cyc.append(e)
-            e = nxt[e]
-        cyc = np.asarray(cyc)
-        d = direc[cyc]
-        # keep the corners where the direction changes
-        keep = d != np.roll(d, 1)
-        corners = start[cyc][keep]
-        ci, cj = np.divmod(corners, cw)
-        # corner (ci, cj) of the padded mask is the point (cj - 1.5,
-        # ci - 1.5) of the unpadded pixel grid
-        rings.append(np.c_[cj - 1.5, ci - 1.5].astype(np.float64))
-    return rings
-
-
-def _signed_area(c):
+def _offset_ring(c, d=0.5):
+    """Offset a traced pixel-center ring outward (away from the filled
+    region) by d pixels — cancels the half-pixel inward bias of contour
+    tracing. Orientation-aware, so it also works for hole rings."""
+    if len(c) < 3:
+        return c
+    seg = np.diff(np.vstack([c, c[:1]]), axis=0)
+    ln = np.linalg.norm(seg, axis=1)
+    ln[ln == 0] = 1.0
+    n = np.c_[seg[:, 1], -seg[:, 0]] / ln[:, None]
+    vn = (n + np.roll(n, 1, axis=0)) * 0.5
+    vl = np.linalg.norm(vn, axis=1)
+    vl[vl == 0] = 1.0
+    vn = vn / vl[:, None]
     x, y = c[:, 0], c[:, 1]
-    return 0.5 * float(np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y))
+    area2 = np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y)
+    s = 1.0 if area2 > 0 else -1.0
+    return c + s * vn * d
 
 
 def vectorize(mask, frame, simplify=None, min_area_px=2.0):
-    """Extract polygons (with holes) from a binary mask, in world coords."""
-    rings = _crack_rings(mask)
-    if not rings:
+    """Extract polygons (with holes) from a binary mask, in world coords:
+    cv2's borders (geometry/contour_trace.py), each moved half a pixel
+    outward."""
+    contours, hierarchy = find_contours(mask > 0)
+    if not contours:
         return GEOMETRY_EMPTY
-    # outer boundaries run counter-clockwise on the screen: negative
-    # shoelace area in (x, y-down) coordinates
-    shells, holes = [], []
-    for r in rings:
-        a = _signed_area(r)
-        if abs(a) < min_area_px:
-            continue
-        (shells if a < 0 else holes).append((abs(a), r))
-    if not shells:
-        return GEOMETRY_EMPTY
-    members = [[] for _ in shells]
-    by_size = sorted(range(len(shells)), key=lambda k: shells[k][0])
-    for _a, h in holes:
-        # a point just inside the set pixels beside the hole's first
-        # edge: the smallest shell around it is the hole's own
-        p0, p1 = h[0], h[1]
-        d = (p1 - p0) / max(np.hypot(*(p1 - p0)), 1e-12)
-        probe = ((p0 + p1) / 2 + 0.25 * np.array([d[1], -d[0]]))[None]
-        for k in by_size:
-            if _points_in_ring(probe, shells[k][1])[0]:
-                members[k].append(h)
-                break
+    hierarchy = hierarchy[0]
     polys = []
-    for (_a, s), hs in zip(shells, members):
-        p = Polygon(frame.to_world(s), [frame.to_world(h) for h in hs])
-        if simplify:
-            p = p.simplify(simplify)
-        polys.append(p)
+    for i, cnt in enumerate(contours):
+        if hierarchy[i][3] != -1:
+            continue  # hole; attached below
+        if contour_area(cnt) < min_area_px:
+            continue
+        shell = frame.to_world(
+            _offset_ring(cnt.reshape(-1, 2).astype(np.float64)))
+        holes = []
+        child = hierarchy[i][2]
+        while child != -1:
+            hc = contours[child]
+            if contour_area(hc) >= min_area_px:
+                holes.append(frame.to_world(
+                    _offset_ring(hc.reshape(-1, 2).astype(np.float64))))
+            child = hierarchy[child][0]
+        if len(shell) >= 3:
+            p = Polygon(shell, holes)
+            if simplify:
+                p = p.simplify(simplify)
+            polys.append(p)
+    if not polys:
+        return GEOMETRY_EMPTY
     if len(polys) == 1:
         return polys[0]
     return MultiPolygon(polys)

@@ -1,7 +1,7 @@
-"""Device binarization: Sauvola (a hand-written CUDA kernel) and Otsu.
+"""Device binarization: Sauvola (a hand-written CUDA kernel), Otsu, and
+the layout stage's Sauvola with separators whitened.
 
-Port of origami_tpu/ops/binarize.py (the page-level functions; the
-separator-whitening variants belong to the layout stage).
+Port of origami_tpu/ops/binarize.py.
 
 `sauvola` and `sauvola_packed` wrap the kernel of csrc/sauvola.cu, which
 replaces the Pallas kernel `sauvola_pallas`
@@ -187,3 +187,84 @@ def sauvola_packed(image, window_size=15, k=0.2, r=128.0, border="clamp"):
         return sauvola_packed_plain(image, window_size, k, r, border)
     return _sauvola_launch("sauvola_packed", image, window_size, k, r,
                            border, True)
+
+
+# ---------------------------------------------------------------------------
+# the layout stage: Sauvola with the separator pixels whitened
+# ---------------------------------------------------------------------------
+#
+# The JAX stage's three routes (ops/binarize.py:169-236 there) binarize the
+# page with Sauvola and OR in the separator label mask, moved from the
+# warped page's label space onto the binarized page, thresholded and
+# dilated by a 3x3 box. They are composed here from PyTorch ops around the
+# Sauvola kernel (sauvola_packed) and, for the dewarped page, the remap
+# kernel (ops.remap.remap): nothing is fused into a kernel. `sep_mask` is
+# the (lh, lw) bool label mask on the page's device; each function returns
+# the (H, ceil(W/8)) u8 packed mask, True = paper or separator.
+
+# jax.image.resize(..., "linear") antialiases where it shrinks, by
+# default: that is the port's "area" method
+_JAX_LINEAR = "area"
+
+
+def _whiten(packed, sep):
+    """packed | pack(3x3 max of sep > 0.5) for a float (H, W) map."""
+    d = torch.nn.functional.max_pool2d(sep[None, None], 3, stride=1,
+                                       padding=1)[0, 0]
+    return packed | pack_bits(d > 0.5)
+
+
+def binarize_sep_dewarped_packed(image, window_size, sep_mask, hv, res,
+                                 warp_h, warp_w):
+    """The dewarped page `image` (u8, (H, W)), grid `hv` ((gh, gw, 2)
+    f32, gh*res = H, gw*res = W): the mask is resized onto the warped
+    page (warp_h, warp_w), dewarped through the grid by the remap kernel
+    (taps outside the warped page read 0) and thresholded at 0.2 (the
+    JAX function: binarize_sep_banded_packed, which dewarps by its banded
+    two-pass route)."""
+    from origami_tpu_torch.ops.remap import _upsample_grid, remap
+    from origami_tpu_torch.ops.resize import resize
+    packed = sauvola_packed(image, window_size)
+    sep = resize(sep_mask.float(), (warp_h, warp_w), _JAX_LINEAR)
+    mx, my = _upsample_grid(hv.float(), int(res))
+    sepd = remap(sep.contiguous(), torch.stack([mx, my], dim=-1), fill=0.0)
+    return _whiten(packed, (sepd > 0.2).float())
+
+
+def binarize_sep_resized_packed(image, window_size, sep_mask):
+    """No grid: the mask is only resized onto the page, then thresholded
+    at 0.2 (binarize_sep_resized_packed)."""
+    from origami_tpu_torch.ops.resize import resize
+    packed = sauvola_packed(image, window_size)
+    sep = resize(sep_mask.float(), tuple(image.shape), _JAX_LINEAR)
+    return _whiten(packed, (sep > 0.2).float())
+
+
+def binarize_with_separators_packed(image, window_size, sep_mask, hv, res,
+                                    warp_h, warp_w):
+    """A grid the JAX stage has no banded plan for: each dewarped pixel
+    maps through the grid (bilinear in the sample lattice, clamped to it)
+    into the label mask, nearest sample (binarize_with_separators)."""
+    packed = sauvola_packed(image, window_size)
+    h, w = image.shape
+    gh, gw = hv.shape[:2]
+    lh, lw = sep_mask.shape
+    dev = image.device
+    hv = hv.float()
+    gy = _div(torch.arange(h, dtype=torch.float32, device=dev), res) \
+        .clamp(0.0, gh - 1 - 1e-6)
+    gx = _div(torch.arange(w, dtype=torch.float32, device=dev), res) \
+        .clamp(0.0, gw - 1 - 1e-6)
+    y0, x0 = torch.floor(gy).long(), torch.floor(gx).long()
+    ty = (gy - y0)[:, None]
+    tx = (gx - x0)[None, :]
+
+    def interp(g):
+        top = g[y0][:, x0] * (1 - tx) + g[y0][:, x0 + 1] * tx
+        bot = g[y0 + 1][:, x0] * (1 - tx) + g[y0 + 1][:, x0 + 1] * tx
+        return top * (1 - ty) + bot * ty
+
+    wx, wy = interp(hv[..., 0]), interp(hv[..., 1])
+    mi = torch.round(wy * (lh / warp_h)).long().clamp(0, lh - 1)
+    mj = torch.round(wx * (lw / warp_w)).long().clamp(0, lw - 1)
+    return _whiten(packed, sep_mask.float()[mi, mj])

@@ -146,7 +146,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 banned = ("jax", "flax", "optax", "orbax", "origami_tpu", "PIL", "click",
-          "msgpack", "cv2")
+          "msgpack", "cv2", "networkx")
 print(json.dumps({"modules": names,
                   "banned": sorted(m for m in sys.modules
                                    if m.split(".")[0] in banned)}))
@@ -164,7 +164,12 @@ print(json.dumps({"modules": names,
                  "batch.detect.dewarp", "core.baselines", "core.flow",
                  "core.separate", "ops.gather", "ops.grid", "geometry",
                  "geometry.booleans", "geometry.native_bindings",
-                 "geometry.raster", "geometry.wkt"):
+                 "geometry.raster", "geometry.wkt",
+                 "geometry.contour_trace", "core.graph", "core.polyline",
+                 "core.skeleton", "core.contours", "batch.detect.contours",
+                 "core.neighbors", "core.xycut", "core.hull",
+                 "core.geometry_ops", "custom.layouts.bbz",
+                 "custom.layouts.default", "batch.detect.layout"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
