@@ -64,7 +64,30 @@ Phases (any failure exits non-zero before the result line):
      windows are printed;
   10. time the contours and layout stages in process, warm, for pages/s,
      with the device time by kernel and the busy share of one profiled
-     pass.
+     pass;
+  11. run the lines CLI on the JAX stages' artifacts (contours.3.zip and
+     lines.3.zip against the fixture's: the JAX keys, vertex counts and
+     meta.json, within CONTOUR_PX and LINES_PX, evidence within
+     LINE_CONF; one launch of dewarp_u8 and of sauvola_packed a page),
+     the order CLI on the JAX artifacts (order.json equal to
+     tests/data/torch_compose's), the compose CLI on the JAX order.json
+     and single-model ocr.zip (page.txt byte-equal; with --page-xml,
+     page.xml equal apart from its timestamps), and the chain lines ->
+     order -> ocr -> compose from the JAX contours.2.zip (page.txt:
+     MIN_IDENTICAL of the JAX chain's lines, CER <= MAX_CER); then time
+     the lines, order and compose stages as phase 10 does;
+  12. run the port alone from the page images through PipelinedRunner
+     (all nine stages in process, waves of one page), once on the main
+     path (the students in bf16, banded strips: every page COMPLETED in
+     every stage, the "*" order ranks every region of contours.3.zip
+     that the stage ranks, page.txt within PORT_CHAIN_MAX_CER of the JAX
+     chain's) and once with `-m heuristic` and gather strips (every page
+     COMPLETED), the launch counts set to 0 just before each run and
+     read just after it, each kernel's launches per page as
+     WHOLE_CHAIN_LAUNCHES says (so the two runs launch every kernel that
+     phases 3, 5, 7 and 9 launch); print each stage's seconds and each
+     kernel's launches. The kernels line gives each kernel's launches in
+     the run of its own path (OTHER_PATH_KERNELS from the second run).
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -164,10 +187,28 @@ FLOW_STAGE = "origami_tpu.batch.detect.flow"
 DEWARP_STAGE = "origami_tpu.batch.detect.dewarp"
 CONTOURS_STAGE = "origami_tpu.batch.detect.contours"
 LAYOUT_STAGE = "origami_tpu.batch.detect.layout"
+LINES_STAGE = "origami_tpu.batch.detect.lines"
+ORDER_STAGE = "origami_tpu.batch.detect.order"
+OCR_STAGE = "origami_tpu.batch.detect.ocr"
+COMPOSE_STAGE = "origami_tpu.batch.detect.compose"
 STAGE_KEYS = {"segment": SEG_STAGE, "contours": CONTOURS_STAGE,
               "flow": FLOW_STAGE, "dewarp": DEWARP_STAGE,
-              "layout": LAYOUT_STAGE}
+              "layout": LAYOUT_STAGE, "lines": LINES_STAGE,
+              "order": ORDER_STAGE, "ocr": OCR_STAGE,
+              "compose": COMPOSE_STAGE}
 LAYOUT_REF = ROOT / "tests" / "data" / "torch_layout"
+# the JAX order stage's order.json and the JAX compose stage's
+# compose.zip (page.txt; compose_xml.zip with page.xml) over the fixture
+# (scripts/make_torch_compose_fixture.py)
+COMPOSE_REF = ROOT / "tests" / "data" / "torch_compose"
+# the lines stage on the JAX inputs (phase 11): its lines follow the
+# Sauvola mask of the dewarped page, whose exact integer sums may set a
+# few pixels otherwise than JAX's float32 integral images
+LINE_CONF = 1e-3
+# the port alone from the page images (phase 12): CER of page.txt
+# against the JAX chain's; the bf16 label maps move the layout by up to
+# a label pixel (phase 9), which may move a line's strip
+PORT_CHAIN_MAX_CER = 0.02
 # the chain from the port's own bf16 label maps (phase 9): they differ
 # from the JAX stage's on ~0.013 % of the pixels (phase 5), which moves a
 # region's vertices by up to a label pixel (1.05 page px across)
@@ -175,7 +216,8 @@ CHAIN_PX = 2.5
 # each stage's launches per page: the Sauvola prefetch (packed, window
 # 15) in segment, flow and dewarp; the dewarp kernel and both grid scans
 # in dewarp; the layout stage's Sauvola at its own window, the dewarp of
-# its page and the remap of its separator mask; nothing else
+# its page and the remap of its separator mask; the lines stage's
+# dewarp of its page and Sauvola (window 15) on it; nothing else
 STAGE_LAUNCHES = {
     "segment": {"sauvola_packed": 1},
     "contours": {},
@@ -183,7 +225,30 @@ STAGE_LAUNCHES = {
     "dewarp": {"sauvola_packed": 1, "dewarp_u8": 1, "grid_scan_h": 1,
                "grid_scan_v": 1},
     "layout": {"sauvola_packed": 1, "dewarp_u8": 1, "remap": 1},
+    "lines": {"sauvola_packed": 1, "dewarp_u8": 1},
+    "order": {},
+    "compose": {},
 }
+# each kernel's launches per page in the whole chain (phase 12): one
+# process, so the stages share a page's cache. The packed Sauvola runs
+# on the warped page (window 15; segment, flow and dewarp read it), on
+# the dewarped page at the layout stage's window and at window 15 for
+# the lines stage; the dewarp stage's dewarped page serves layout, lines
+# and ocr. The banded OCR run launches strips_through_grid at most once
+# a page (lines past the banded profiles: WHOLE_CHAIN_AT_MOST).
+WHOLE_CHAIN_LAUNCHES = {
+    "banded": {"sauvola_packed": 3, "sauvola": 0, "dewarp_u8": 1,
+               "remap": 1, "grid_scan_h": 1, "grid_scan_v": 1,
+               "strips_dewarped": 1, "strips_through_grid": 1},
+    "gather": {"sauvola_packed": 3, "sauvola": 1, "dewarp_u8": 1,
+               "remap": 1, "grid_scan_h": 1, "grid_scan_v": 1,
+               "strips_dewarped": 0, "strips_through_grid": 1},
+}
+WHOLE_CHAIN_AT_MOST = {("banded", "strips_through_grid")}
+# the kernels line takes each kernel's launches from the phase-12 run of
+# its own path: the heuristic segmenter's mask and the gather strips
+# from the second run, every other kernel from the main path's
+OTHER_PATH_KERNELS = ("sauvola", "strips_through_grid")
 # what the grid scans need at least: per sample of a field evaluation
 # 2 subtractions, 2 multiplications and 1 addition for d2, the softening
 # addition, 1 division and 3 accumulations with 2 multiplications; per
@@ -2388,6 +2453,409 @@ def log_throughput(stage, r):
     log(r["profile"])
 
 
+# ---------------------------------------------------------------- phase 11
+
+def lines_corpus(dst, stems=None):
+    """The lines stage's JAX inputs: the fixture's PNG, segment.zip,
+    dewarp.zip and tables.json, tests/data/torch_flow's contours.1.zip
+    and tests/data/torch_layout's contours.2.zip."""
+    dst.mkdir(parents=True)
+    for png in sorted(FIXTURE.glob("*.png")):
+        if stems is not None and png.stem not in stems:
+            continue
+        shutil.copy(png, dst / png.name)
+        out = dst / (png.stem + ".out")
+        out.mkdir()
+        for name in ("segment.zip", "dewarp.zip", "tables.json"):
+            shutil.copy(FIXTURE / (png.stem + ".out") / name, out)
+        shutil.copy(FLOW_REF / (png.stem + ".out") / "contours.1.zip", out)
+        shutil.copy(LAYOUT_REF / (png.stem + ".out") / "contours.2.zip", out)
+    return dst
+
+
+def order_corpus(dst, stems=None):
+    """The order stage's JAX inputs: lines_corpus with the fixture's
+    contours.3.zip and lines.3.zip."""
+    lines_corpus(dst, stems)
+    for png in sorted(dst.glob("*.png")):
+        for name in ("contours.3.zip", "lines.3.zip"):
+            shutil.copy(FIXTURE / (png.stem + ".out") / name,
+                        dst / (png.stem + ".out"))
+    return dst
+
+
+def compose_corpus(dst, stems=None):
+    """The compose stage's JAX inputs: order_corpus with the JAX
+    order.json and the JAX single-model ocr.zip."""
+    order_corpus(dst, stems)
+    for png in sorted(dst.glob("*.png")):
+        out = dst / (png.stem + ".out")
+        shutil.copy(COMPOSE_REF / (png.stem + ".out") / "order.json", out)
+        shutil.copy(FIXTURE / "ref" / (png.stem + ".single.ocr.zip"),
+                    out / "ocr.zip")
+    return dst
+
+
+def wkt_px(a, b, what):
+    """Largest vertex difference in px between two WKT texts; raises
+    PhaseError where their vertex counts differ."""
+    import numpy as np
+    from origami_tpu_torch import geometry as G
+    if a == b:
+        return 0.0
+    x, y = _coords(G.wkt.loads(a)), _coords(G.wkt.loads(b))
+    if [len(c) for c in x] != [len(c) for c in y]:
+        raise PhaseError("%s: vertex counts %s, JAX %s" % (
+            what, [len(c) for c in x], [len(c) for c in y]))
+    return max([0.0] + [float(np.abs(c1 - c2).max())
+                        for c1, c2 in zip(x, y) if len(c1)])
+
+
+def compare_lines_outputs(out, ref):
+    """Hold a page's contours.3.zip and lines.3.zip against the JAX
+    stage's: raises PhaseError on another key set, vertex count,
+    meta.json, line JSON keys or set of evidence classes; -> (largest
+    vertex (and frame) difference in px of each zip, largest evidence
+    difference, share of entries byte-equal)."""
+    import numpy as np
+    px = {"contours.3.zip": 0.0, "lines.3.zip": 0.0}
+    conf = 0.0
+    same = total = 0
+    for name in px:
+        a, b = _entries(out / name), _entries(ref / name)
+        if a.keys() != b.keys():
+            raise PhaseError("%s %s: keys differ (%s)" % (
+                out.name, name, sorted(set(a) ^ set(b))[:4]))
+        for k in b:
+            total += 1
+            same += a[k] == b[k]
+            what = "%s %s %s" % (out.name, name, k)
+            if a[k] == b[k]:
+                continue
+            if k.endswith(".wkt"):
+                px[name] = max(px[name], wkt_px(
+                    a[k].decode("utf8"), b[k].decode("utf8"), what))
+                continue
+            if k.endswith("meta.json"):
+                raise PhaseError("%s differs" % what)
+            x, y = json.loads(a[k]), json.loads(b[k])
+            cx, cy = x["confidence"], y["confidence"]
+            if list(x) != list(y) or type(cx) is not type(cy) or (
+                    isinstance(cy, dict) and cx.keys() != cy.keys()):
+                raise PhaseError("%s: JSON keys differ" % what)
+            for f in ("p", "right", "up"):
+                px[name] = max(px[name], float(
+                    np.abs(np.subtract(x[f], y[f])).max()))
+            px[name] = max(px[name], wkt_px(x["wkt"], y["wkt"], what))
+            conf = max([conf] + ([abs(cx[c] - cy[c]) for c in cy]
+                                 if isinstance(cy, dict)
+                                 else [abs(cx - cy)]))
+    return px, conf, same / max(total, 1)
+
+
+def text_diff(got, ref):
+    """(lines of `ref` identical in `got`, lines of `ref`, character
+    errors, characters of `ref`): the two texts' lines aligned by
+    difflib; a replaced run pairs its lines in order, a line without a
+    partner counts all its characters."""
+    import difflib
+    a, b = ref.split("\n"), got.split("\n")
+    same = errs = 0
+    for op, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, a, b, autojunk=False).get_opcodes():
+        if op == "equal":
+            same += i2 - i1
+            continue
+        x, y = a[i1:i2], b[j1:j2]
+        for k in range(max(len(x), len(y))):
+            errs += levenshtein(x[k] if k < len(x) else "",
+                                y[k] if k < len(y) else "")
+    chars = sum(len(t) for t in a)
+    return same, len(a), errs, max(chars, 1)
+
+
+def page_text(path):
+    with zipfile.ZipFile(path) as zf:
+        return zf.read("page.txt").decode("utf8")
+
+
+def compare_chain_text(corpus, name, failed, min_identical, max_cer):
+    """Hold each page's composed text against the JAX chain's
+    (tests/data/torch_compose); -> (share of lines identical, CER)."""
+    same = n = errs = chars = 0
+    for png in sorted(corpus.glob("*.png")):
+        got = page_text(corpus / (png.stem + ".out") / "compose.zip")
+        ref = page_text(COMPOSE_REF / (png.stem + ".out") / "compose.zip")
+        s, k, e, c = text_diff(got, ref)
+        same, n, errs, chars = same + s, n + k, errs + e, chars + c
+    share, cer = same / max(n, 1), errs / max(chars, 1)
+    ok = share >= min_identical and cer <= max_cer
+    log("  %s: page.txt %d of %d lines identical to the JAX chain's "
+        "(%.4f), CER %.5f  %s" % (name, same, n, share, cer,
+                                  "ok" if ok else "FAIL"))
+    if not ok:
+        failed.append("%s: page.txt identical %.4f (bar %.2f), CER %.5f "
+                      "(bar %.3f)" % (name, share, min_identical, cer,
+                                      max_cer))
+    return share, cer
+
+
+def ocr_launch_errors(launches, n):
+    """Phase 3's rule for a banded OCR run: strips_dewarped once a page,
+    strips_through_grid at most once, dewarp_u8 at least once."""
+    if launches["strips_dewarped"] == n and \
+            launches["strips_through_grid"] <= n and \
+            launches["dewarp_u8"] >= n:
+        return None
+    return {k: launches[k] for k in ("strips_dewarped",
+                                     "strips_through_grid", "dewarp_u8")}
+
+
+def strip_xml_times(data):
+    import re
+    return re.sub(rb"<(Created|LastChange)>[^<]*</\1>", b"", data)
+
+
+def check_lines_order_compose(workdir, device="cuda"):
+    """Phase 11. The lines CLI on the JAX inputs (contours.3.zip and
+    lines.3.zip: the JAX keys, vertex counts and meta.json, frames and
+    vertices within LINES_PX and CONTOUR_PX, evidence within LINE_CONF);
+    the order CLI on the JAX inputs (order.json equal); the compose CLI
+    on the JAX order.json and single-model ocr.zip (page.txt byte-equal;
+    with --page-xml, page.xml equal apart from the Metadata timestamps);
+    and the chain lines -> order -> ocr (single) -> compose from the JAX
+    contours.2.zip (page.txt: MIN_IDENTICAL of the JAX chain's lines,
+    CER <= MAX_CER). -> launch counts of each run."""
+    runs, failed = {}, []
+    pages = sorted(FIXTURE.glob("*.png"))
+
+    corpus = lines_corpus(workdir / "lines_on_jax_inputs")
+    run_chain("on the JAX inputs", corpus, ("lines",), device, runs, failed)
+    worst = dict(contours_px=0.0, lines_px=0.0, conf=0.0, equal=1.0)
+    for png in pages:
+        px, conf, same = compare_lines_outputs(
+            corpus / (png.stem + ".out"), FIXTURE / (png.stem + ".out"))
+        worst = dict(
+            contours_px=max(worst["contours_px"], px["contours.3.zip"]),
+            lines_px=max(worst["lines_px"], px["lines.3.zip"]),
+            conf=max(worst["conf"], conf), equal=min(worst["equal"], same))
+    ok = worst["contours_px"] <= CONTOUR_PX and \
+        worst["lines_px"] <= LINES_PX and worst["conf"] <= LINE_CONF
+    log("  lines on the JAX inputs vs the JAX stage: entries byte-equal "
+        "%.4f (worst page), contours.3.zip within %.3g px, lines.3.zip "
+        "within %.3g px, evidence within %.3g  %s" % (
+            worst["equal"], worst["contours_px"], worst["lines_px"],
+            worst["conf"], "ok" if ok else "FAIL"))
+    if not ok:
+        failed.append("lines on the JAX inputs: %s (bars %g px, %g px, %g)"
+                      % (worst, CONTOUR_PX, LINES_PX, LINE_CONF))
+
+    corpus = order_corpus(workdir / "order_on_jax_inputs")
+    run_chain("on the JAX inputs", corpus, ("order",), device, runs, failed)
+    for png in pages:
+        same = (corpus / (png.stem + ".out") / "order.json").read_bytes() \
+            == (COMPOSE_REF / (png.stem + ".out") / "order.json").read_bytes()
+        log("  order on the JAX inputs, %s: order.json %s" % (
+            png.stem, "equal" if same else "DIFFERENT"))
+        if not same:
+            failed.append("order on the JAX inputs, %s: order.json differs"
+                          % png.stem)
+
+    corpus = compose_corpus(workdir / "compose_on_jax_inputs")
+    for args, ref in (((), "compose.zip"),
+                      (("--page-xml", "--overwrite"), "compose_xml.zip")):
+        launches, wall, stage_s = run_stage_cli("compose", corpus, device,
+                                                args)
+        runs["compose %s(on the JAX inputs)" % (
+            "--page-xml " if args else "")] = launches
+        for png in pages:
+            a = _entries(corpus / (png.stem + ".out") / "compose.zip")
+            b = _entries(COMPOSE_REF / (png.stem + ".out") / ref)
+            same = a.keys() == b.keys() and all(
+                strip_xml_times(a[k]) == strip_xml_times(b[k]) for k in b)
+            log("  compose %son the JAX inputs, %s: %s %s" % (
+                "--page-xml " if args else "", png.stem,
+                " and ".join(sorted(b)), "equal" if same else "DIFFERENT"))
+            if not same:
+                failed.append("compose %s, %s: %s differ" % (
+                    " ".join(args), png.stem, sorted(b)))
+
+    corpus = lines_corpus(workdir / "chain_from_jax_layout")
+    run_chain("from the JAX contours.2.zip", corpus, ("lines", "order"),
+              device, runs, failed)
+    launches, wall, stage_s = run_stage_cli(
+        "ocr", corpus, device, MODES["single"])
+    runs["ocr (from the JAX contours.2.zip)"] = launches
+    bad = ocr_launch_errors(launches, len(pages)) \
+        if str(device) != "cpu" else None
+    log("  ocr (from the JAX contours.2.zip) %d pages: launches %s  stage "
+        "%.2f s  %s" % (len(pages), json.dumps(
+            {k: v for k, v in launches.items() if v}), stage_s,
+            "ok" if not bad else "FAIL"))
+    if bad:
+        failed.append("ocr (from the JAX contours.2.zip): launches %s"
+                      % bad)
+    run_chain("from the JAX contours.2.zip", corpus, ("compose",), device,
+              runs, failed)
+    compare_chain_text(corpus, "chain lines -> order -> ocr -> compose from "
+                       "the JAX contours.2.zip", failed, MIN_IDENTICAL,
+                       MAX_CER)
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return runs
+
+
+# ---------------------------------------------------------------- phase 12
+
+def reset_launches():
+    from origami_tpu_torch.ops import binarize, gather, grid, remap
+    for counts in (remap.launches, binarize.launches, gather.launches,
+                   grid.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def chain_stages(device, segmenter, extract_mode):
+    """The nine detect stages of the port, in chain order, for
+    PipelinedRunner."""
+    from origami_tpu_torch.batch.detect.compose import ComposeProcessor
+    from origami_tpu_torch.batch.detect.contours import ContoursProcessor
+    from origami_tpu_torch.batch.detect.dewarp import DewarpProcessor
+    from origami_tpu_torch.batch.detect.flow import FlowDetectionProcessor
+    from origami_tpu_torch.batch.detect.layout import \
+        LayoutDetectionProcessor
+    from origami_tpu_torch.batch.detect.lines import LineDetectionProcessor
+    from origami_tpu_torch.batch.detect.ocr import OCRProcessor
+    from origami_tpu_torch.batch.detect.order import ReadingOrderProcessor
+    from origami_tpu_torch.batch.detect.segment import SegmentationProcessor
+    opts = dict(lock_strategy="NONE", plain=True, device=str(device))
+    return [
+        ("segment", SegmentationProcessor(segmenter, dict(opts))),
+        ("contours", ContoursProcessor(dict(opts))),
+        ("flow", FlowDetectionProcessor(dict(opts))),
+        ("dewarp", DewarpProcessor(dict(opts))),
+        ("layout", LayoutDetectionProcessor(dict(opts, layout="bbz"))),
+        ("lines", LineDetectionProcessor(dict(opts))),
+        ("order", ReadingOrderProcessor(dict(opts))),
+        ("ocr", OCRProcessor(dict(
+            opts, model=str(ROOT / "models_pretrained" / "recognizer"),
+            extract_mode=extract_mode))),
+        ("compose", ComposeProcessor(dict(opts))),
+    ]
+
+
+def unordered_regions(out):
+    """The regions of a page's contours.3.zip that the order stage ranks
+    (not ILLUSTRATION, at least its least area) and the "*" order of
+    order.json leaves out."""
+    from origami_tpu_torch import geometry as G
+    from origami_tpu_torch.core.dewarp import Grid
+    from origami_tpu_torch.core.math import Geometry
+    grid = Grid.open(out / "dewarp.zip")
+    h, w = grid._hv.shape[:2]
+    min_area = Geometry(int(w * grid.resolution), int(
+        h * grid.resolution)).rel_area(0.0025)
+    star = json.loads((out / "order.json").read_text())["orders"]["*"]
+    ranked = set("/".join(e.split("/")[:3]) for e in star)
+    areas = {}
+    for k, v in _entries(out / "contours.3.zip").items():
+        parts = k[:-4].split("/")
+        if not k.endswith(".wkt") or parts[0] != "regions" \
+                or parts[1] == "ILLUSTRATION":
+            continue
+        base = "/".join(parts[:2] + [parts[2].split(".")[0]])
+        areas.setdefault(base, []).append(G.wkt.loads(v.decode("utf8")))
+    return sorted(b for b, gs in areas.items()
+                  if b not in ranked and G.unary_union(gs).area >= min_area)
+
+
+def whole_chain_launch_errors(mode, launches, n, device):
+    """{kernel: (got, expected per page)} where a whole-chain run's
+    launches differ from WHOLE_CHAIN_LAUNCHES; on the CPU nothing
+    launches."""
+    if str(device) == "cpu":
+        want = {k: 0 for k in WHOLE_CHAIN_LAUNCHES[mode]}
+    else:
+        want = WHOLE_CHAIN_LAUNCHES[mode]
+    bad = {}
+    for k, per_page in want.items():
+        ok = launches[k] <= per_page * n \
+            if (mode, k) in WHOLE_CHAIN_AT_MOST and str(device) != "cpu" \
+            else launches[k] == per_page * n
+        if not ok:
+            bad[k] = (launches[k], per_page)
+    return bad
+
+
+def check_whole_chain(workdir, device="cuda"):
+    """Phase 12: the port alone from the page images through
+    PipelinedRunner (waves of one page, so that segment, the host stages
+    and ocr + compose of neighbouring pages overlap), twice, the launch
+    counts set to 0 just before each run and read just after it: the
+    main path (the students in bf16, banded strips), gated: every page
+    COMPLETED in every stage, each kernel's launches per page as
+    WHOLE_CHAIN_LAUNCHES says, the "*" order ranks every region of
+    contours.3.zip that the stage ranks, page.txt within
+    PORT_CHAIN_MAX_CER of the JAX chain's; then `-m heuristic` with
+    gather strips, which must complete with its launches per page.
+    Between them the two runs launch every kernel of phases 3, 5, 7 and
+    9. Prints each stage's seconds and each kernel's launches.
+    -> {"banded": launches, "gather": launches}."""
+    import torch
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
+    from origami_tpu_torch.batch.runner import PipelinedRunner
+    runs, failed = {}, []
+    for name, segmenter, mode in (
+            ("students, banded", str(ROOT / STUDENTS), "banded"),
+            ("heuristic, gather", "heuristic", "gather")):
+        corpus = chain_corpus(workdir / ("whole_chain_" + mode), False)
+        stages = chain_stages(device, segmenter, mode)
+        reset_launches()
+        t0 = time.perf_counter()
+        PipelinedRunner(stages, wave_size=1).run(corpus)
+        if str(device) != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        runs[mode] = launches
+        seconds = {}
+        for png in sorted(corpus.glob("*.png")):
+            rt = json.loads((corpus / (png.stem + ".out") / "runtime.json")
+                            .read_text())
+            for stage, _ in stages:
+                entry = rt.get(STAGE_KEYS[stage], {})
+                if entry.get("status") != "COMPLETED":
+                    failed.append("whole chain (%s), %s on %s: %s" % (
+                        name, stage, png.name,
+                        entry.get("traceback", entry)))
+                    continue
+                seconds[stage] = seconds.get(stage, 0.0) + entry["elapsed"]
+        n = len(list(corpus.glob("*.png")))
+        bad = whole_chain_launch_errors(mode, launches, n, device)
+        log("  whole chain (%s) %d pages: %.2f s wall; stage seconds %s; "
+            "launches %s  %s" % (name, n, wall, json.dumps(seconds),
+                                 json.dumps({k: v for k, v in
+                                             launches.items() if v}),
+                                 "ok" if not bad else "FAIL"))
+        if bad:
+            failed.append("whole chain (%s): launches (got, expected per "
+                          "page) %s" % (name, bad))
+        if failed:
+            break
+        if mode != "banded":
+            continue
+        for png in sorted(corpus.glob("*.png")):
+            missing = unordered_regions(corpus / (png.stem + ".out"))
+            if missing:
+                failed.append("whole chain (%s), %s: the \"*\" order "
+                              "leaves out %s" % (name, png.stem, missing))
+        compare_chain_text(corpus, "whole chain (%s)" % name, failed, 0.0,
+                           PORT_CHAIN_MAX_CER)
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return runs
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -2397,11 +2865,12 @@ def main():
         return 1
     if not (ROOT / "origami_tpu_torch").is_dir() or not FIXTURE.is_dir() \
             or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
-            or not LAYOUT_REF.is_dir():
+            or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
-              "tests/data/torch_segment/, tests/data/torch_flow/ or "
-              "tests/data/torch_layout/ missing)", file=sys.stderr)
+              "tests/data/torch_segment/, tests/data/torch_flow/, "
+              "tests/data/torch_layout/ or tests/data/torch_compose/ "
+              "missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     torch.backends.cudnn.allow_tf32 = False
@@ -2416,7 +2885,6 @@ def main():
     from concurrent.futures import ThreadPoolExecutor
     from origami_tpu_torch.geometry import native_bindings
     from origami_tpu_torch.ops import _build
-    from origami_tpu_torch.ops import remap as ops
     t0 = time.time()
     # g++ builds the host geometry library while nvcc builds the kernels
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -2446,12 +2914,10 @@ def main():
     log("== phase 3: OCR CLI on the card vs the JAX references (%s)"
         % smi)
     failed = []
-    runs = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
         for mode in MODES:
             r = run_ocr_cli(mode, work)
-            runs.append(r)
             ok = r["identical"] >= MIN_IDENTICAL and r["cer"] <= MAX_CER
             # the dewarp kernel at least once per page in the banded runs;
             # a page's strips in exactly one launch of their mode: (a) in
@@ -2505,10 +2971,8 @@ def main():
 
         log("== phase 5: segment CLI on the card vs the JAX references "
             "(%s; the float32 run with TF32 off)" % smi)
-        seg_runs = []
         for mode in SEG_MODES:
             r = run_segment_cli(mode, work)
-            seg_runs.append(r)
             # the Sauvola kernel: the packed prefetch once per page in
             # every run, the u8 mask once per page in the heuristic run
             want = {"sauvola_packed": r["pages"],
@@ -2548,7 +3012,7 @@ def main():
 
         log("== phase 7: flow and dewarp CLIs on the card vs the JAX "
             "stages (%s)" % smi)
-        flow_runs = check_flow_dewarp(work)
+        check_flow_dewarp(work)
 
         log("== phase 8: flow and dewarp stage throughput, warm (%s)" % smi)
         ftp = flow_dewarp_throughput(work)
@@ -2563,9 +3027,9 @@ def main():
         log("== phase 9: the chain segment -> contours -> flow -> dewarp -> "
             "layout on the card, each stage's CLI, vs the JAX stages (%s)"
             % smi)
-        chain_runs = check_layout_on_jax_inputs(work)
-        chain_runs.update(check_chain_from_jax_segmentation(work))
-        chain_runs.update(check_port_chain(work))
+        check_layout_on_jax_inputs(work)
+        check_chain_from_jax_segmentation(work)
+        check_port_chain(work)
 
         log("== phase 10: contours and layout stage throughput, warm (%s)"
             % smi)
@@ -2579,12 +3043,27 @@ def main():
         log_throughput("layout", stage_throughput(
             work, "layout", LayoutDetectionProcessor, layout_corpus))
 
-    total = {k: sum(r["launches"][k] for r in runs) for k in ops.launches}
-    total.update({k: sum(r["launches"][k] for r in seg_runs)
-                  for k in ("sauvola", "sauvola_packed")})
-    for launches in list(flow_runs.values()) + list(chain_runs.values()):
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        log("== phase 11: lines, order and compose CLIs on the card vs the "
+            "JAX stages, and their warm throughput (%s)" % smi)
+        check_lines_order_compose(work)
+        from origami_tpu_torch.batch.detect.compose import ComposeProcessor
+        from origami_tpu_torch.batch.detect.lines import \
+            LineDetectionProcessor
+        from origami_tpu_torch.batch.detect.order import \
+            ReadingOrderProcessor
+        for stage, cls, make in (
+                ("lines", LineDetectionProcessor, lines_corpus),
+                ("order", ReadingOrderProcessor, order_corpus),
+                ("compose", ComposeProcessor, compose_corpus)):
+            log_throughput(stage, stage_throughput(work, stage, cls, make))
+
+        log("== phase 12: the whole chain from the page images through "
+            "PipelinedRunner on the card (%s)" % smi)
+        whole = check_whole_chain(work)
+
+    # each kernel's launches in the phase-12 run of its own path
+    total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
+             for k in whole["banded"]}
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

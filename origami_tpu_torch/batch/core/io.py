@@ -1,7 +1,8 @@
 """Typed artifact I/O: Stage/Artifact registry, Reader/Writer, atomic writes.
 
-Port of the parts of origami_tpu/batch/core/io.py that the segment,
-contours, flow, dewarp, layout and OCR stages use.
+Port of the parts of origami_tpu/batch/core/io.py that the nine detect
+stages use (segment, contours, flow, dewarp, layout, lines, order, OCR,
+compose).
 Per-page `<image>.out/` directories hold the stage artifacts of
 docs/formats.md; a stage declares its I/O as (name, Input/Output) pairs,
 the runtime instantiates Readers/Writers, skips pages whose inputs are
@@ -304,6 +305,29 @@ class Reader:
     def tables(self):
         return self.load_json(Artifact.TABLES)
 
+    @cached_property
+    def order(self):
+        return self.load_json(Artifact.ORDER)
+
+    @cached_property
+    def ocr(self):
+        texts = {}
+        with self._open(self.path(Artifact.OCR), "rb") as f:
+            with zipfile.ZipFile(f, "r") as zf:
+                for name in zf.namelist():
+                    texts[name] = zf.read(name).decode("utf8")
+        return texts
+
+    @property
+    def sorted_ocr(self):
+        """(path parts, text) of ocr.zip in numeric path order
+        (io.py:448-453)."""
+        def path_key(name):
+            parts = tuple(name.rsplit(".", 1)[0].split("/"))
+            return _numeric_path_key(parts), parts
+        for key, parts in sorted(path_key(n) for n in self.ocr.keys()):
+            yield parts, self.ocr["/".join(parts) + ".txt"]
+
 
 class Writer:
     def __init__(self, artifacts, stage, page_path, file_writer):
@@ -355,6 +379,12 @@ class Writer:
 
     def lines(self):
         return self.write_zip(Artifact.LINES)
+
+    def compose(self):
+        return self.write_zip(Artifact.COMPOSE)
+
+    def order(self, data):
+        self.write_json(Artifact.ORDER, data)
 
     @contextmanager
     def contours(self, copy_meta_from=None):

@@ -1,9 +1,10 @@
-"""Line extraction for the OCR stage.
+"""Reliable contours for the lines stage; line extraction for the OCR
+stage.
 
-Port of origami_tpu/batch/core/lines.py (`LineRewriter`,
-`LineExtractor`, :69-328). All strips of a page are cut by the strip
-kernel in one launch per mode, into one u8 buffer of which each
-(width bucket, profile) group is a view:
+Port of origami_tpu/batch/core/lines.py (`reliable_contours`, :26-68;
+`LineRewriter`, `LineExtractor`, :69-328). All strips of a page are cut
+by the strip kernel in one launch per mode, into one u8 buffer of which
+each (width bucket, profile) group is a view:
 
   * each line's (2, 3) frame is its BAND_PAD-framed band scaled to the
     recognizer height, with x sampled at the same magnification; lines
@@ -28,10 +29,56 @@ import logging
 import numpy as np
 import torch
 
+from origami_tpu_torch import geometry as G
 from origami_tpu_torch.batch.core.prof import span
+from origami_tpu_torch.batch.core.utils import TableRegionCombinator
 from origami_tpu_torch.core.block import BAND_PAD
 from origami_tpu_torch.models.recognizer import strip_width_bucket
 from origami_tpu_torch.ops import remap as ops
+
+
+def reliable_contours(all_blocks, free_lines, detected_lines):
+    """Shrink each region to the convex hull of its detected lines and
+    promote reclassified ("free") lines to new regions of their
+    predicted label (lines.py:26-68). `detected_lines` gains the
+    promoted lines."""
+    contours = {k: b.image_space_polygon for k, b in all_blocks.items()}
+
+    combinator = TableRegionCombinator(all_blocks.keys())
+    combined_lines = combinator.lines(detected_lines)
+    mapping = combinator.mapping
+
+    max_ids = collections.defaultdict(int)
+    for k in contours:
+        try:
+            max_ids[k[:2]] = max(max_ids[k[:2]],
+                                 int(str(k[2]).split(".")[0]))
+        except ValueError:
+            pass
+
+    for pred_path, line in free_lines:
+        new_id = max_ids[tuple(pred_path)] + 1
+        max_ids[tuple(pred_path)] = new_id
+        new_path = tuple(pred_path) + (str(new_id),)
+        contours[new_path] = line.image_space_polygon
+        detected_lines[new_path + (0,)] = line
+
+    by_block = collections.defaultdict(list)
+    for path, line in combined_lines.items():
+        by_block[tuple(path[:3])].append(line)
+
+    for path, lines in by_block.items():
+        hull = G.unary_union(
+            [l.image_space_polygon for l in lines]).convex_hull
+        for k in mapping.get(path, [path]):
+            if k not in contours:
+                continue
+            shape = contours[k].intersection(hull)
+            if shape.geom_type != "Polygon":
+                shape = shape.convex_hull
+            contours[k] = shape
+
+    return contours
 
 
 class LineRewriter:

@@ -5,7 +5,11 @@ use). A `Block` binds a region polygon to its page at a stage; a `Line`
 keeps the p/right/up frame, the detection data and the confidence of the
 lines.N.zip JSON (docs/formats.md#lineszip), its polygon (the line
 rectangle clipped to the block's text area, or the stored WKT, kept as
-text), and builds the (2, 3) strip frames the strip kernel consumes. `Lines.open` reads lines.N.zip and drops lines whose block is
+text), and builds the (2, 3) strip frames the strip kernel consumes;
+the lines stage scores a detected line with its label evidence
+(`update_confidence`, `predicted_path`, `predicted_path_error`,
+block.py:190-223) sampled on `dewarped_grid_coords` (:291-308).
+`Lines.open` reads lines.N.zip and drops lines whose block is
 not among the regions (block.py:444-460). `TextAreaFactory` carves a
 block's text area out of its neighbours and the page's separators
 (block.py:486-538).
@@ -102,6 +106,14 @@ class Line:
         return self._up
 
     @property
+    def image_space_polygon(self):
+        """The line's polygon; one read from lines.N.zip is parsed from
+        its WKT at first use."""
+        if self._polygon is None:
+            self._polygon = G.wkt.loads(self._wkt)
+        return self._polygon
+
+    @property
     def baseline(self):
         bl = self._data.get("baseline")
         if bl is None:
@@ -132,10 +144,11 @@ class Line:
             p=[float(v) for v in self._p],
             right=[float(v) for v in self._right],
             up=[float(v) for v in self._up],
-            wkt=self._wkt if self._polygon is None else self._polygon.wkt,
+            wkt=self._wkt or self._polygon.wkt,
             confidence=self._confidence,
             tesseract_data=_jsonable(self._data))
 
+    # -- confidence: a number, or {"pred/CLASS": evidence} ---------------
     @property
     def confidence(self):
         if isinstance(self._confidence, dict):
@@ -143,6 +156,30 @@ class Line:
                     if not k.endswith("/BACKGROUND")]
             return max(vals) if vals else 0.0
         return float(self._confidence)
+
+    def update_confidence(self, confidence):
+        self._confidence = confidence
+
+    def _best_evidence(self):
+        if not isinstance(self._confidence, dict):
+            return None
+        items = [(k, v) for k, v in self._confidence.items()
+                 if not k.endswith("/BACKGROUND")]
+        if not items:
+            return None
+        return max(items, key=lambda kv: kv[1])
+
+    @property
+    def predicted_path(self):
+        best = self._best_evidence()
+        return None if best is None else tuple(best[0].split("/"))
+
+    def predicted_path_error(self, path):
+        """How much more evidence the best class has than `path`'s."""
+        best = self._best_evidence()
+        if best is None or tuple(best[0].split("/")) == tuple(path):
+            return 0.0
+        return best[1] - self._confidence.get("/".join(path), 0.0)
 
     def _column_extent(self, column):
         """(p0, right) clipped to a table column's x range."""
@@ -179,6 +216,17 @@ class Line:
         frame = np.array([[dx[0], dy[0], origin[0]],
                           [dx[1], dy[1], origin[1]]], np.float32)
         return frame, width
+
+    def dewarped_grid_coords(self, target_height, xres=1.0):
+        """Dewarped-space sample grid (target_height, W, 2) of the line:
+        rows from its top (p + up) down to p, columns along `right`."""
+        p0, right, up = self._p, self._right, self._up
+        width = max(2, int(math.ceil(np.linalg.norm(right) * xres)))
+        xs = np.linspace(0.0, 1.0, width)
+        ys = np.linspace(1.0, 0.0, target_height)
+        return (p0[None, None, :]
+                + ys[:, None, None] * up[None, None, :]
+                + xs[None, :, None] * right[None, None, :])
 
 
 def _jsonable(d):

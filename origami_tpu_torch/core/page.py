@@ -6,7 +6,7 @@ PIL's convert("L")), upload to the page's device once as u8, dewarp
 there through the dewarp kernel and binarize there through the Sauvola
 kernel. Process-wide LRUs keyed by (path, mtime) keep every stage of a
 process from decoding, uploading, dewarping or binarizing a page twice
-(page.py:39-117).
+(page.py:39-117); `set_cache_budget` sizes them for a pipelined runner.
 """
 
 from __future__ import annotations
@@ -27,7 +27,17 @@ _PIXELS_LRU = collections.OrderedDict()        # decoded host pixels
 _DEVICE_PIXELS_LRU = collections.OrderedDict()  # u8 page on its device
 _DEWARPED_LRU = collections.OrderedDict()      # u8 dewarped page
 _BINARIZED_LRU = collections.OrderedDict()     # bool host masks
-_CAP = 24
+# pages each cache holds; the binarized cache holds two spaces (warped
+# and dewarped) a page. A runner that keeps several waves of pages alive
+# raises it (set_cache_budget), so that no page is derived twice.
+_PAGES = 24
+
+
+def set_cache_budget(pages_in_flight):
+    """Hold pages_in_flight + 4 pages in each cache (page.py:75-87); the
+    caches never shrink below their defaults."""
+    global _PAGES
+    _PAGES = max(_PAGES, int(pages_in_flight) + 4)
 
 
 def find_image_path(path):
@@ -57,7 +67,7 @@ def _lru_put(lru, key, value):
     if key is None:
         return
     lru[key] = value
-    while len(lru) > _CAP:
+    while len(lru) > (2 * _PAGES if lru is _BINARIZED_LRU else _PAGES):
         lru.popitem(last=False)
 
 

@@ -822,10 +822,21 @@ def _sign(v):
     return int(v > 0) - int(v < 0)
 
 
-def _sklansky(px, py, order, start, end, nsign, sign2):
-    """OpenCV's Sklansky_ over the (x, y)-sorted point order, float32
-    differences and double cross products; returns the hull chain as
-    positions in `order`."""
+def _unit(x, y):
+    """OpenCV's normalize() of a difference vector taken in float32: the
+    norm and the scaling in double, each component rounded to float32."""
+    xd, yd = float(np.float32(x)), float(np.float32(y))
+    n = math.sqrt(xd * xd + yd * yd)
+    inv = 1.0 / n if n != 0 else 0.0
+    return float(np.float32(xd * inv)), float(np.float32(yd * inv))
+
+
+def _sklansky(px, py, order, start, end, nsign, sign2, is_float):
+    """OpenCV's Sklansky_ over the (x, y)-sorted point order; returns the
+    hull chain as positions in `order`. Integer points take exact
+    differences and products; float32 points (cv2 >= 5) take the float32
+    differences, normalize both to unit length and take the double cross
+    product of the normalized vectors."""
     incr = 1 if end > start else -1
     pprev, pcur, pnext = start, start + incr, start + 2 * incr
     a, b = order[start], order[end]
@@ -836,12 +847,15 @@ def _sklansky(px, py, order, start, end, nsign, sign2):
     while pnext != end:
         cury = py[order[pcur]]
         nexty = py[order[pnext]]
-        by = np.float32(nexty - cury)
+        by = nexty - cury
         if _sign(by) != nsign:
-            ax = np.float32(px[order[pcur]] - px[order[pprev]])
-            bx = np.float32(px[order[pnext]] - px[order[pcur]])
-            ay = np.float32(cury - py[order[pprev]])
-            convexity = float(ay) * float(bx) - float(ax) * float(by)
+            ax = px[order[pcur]] - px[order[pprev]]
+            bx = px[order[pnext]] - px[order[pcur]]
+            ay = cury - py[order[pprev]]
+            if is_float:
+                ax, ay = _unit(ax, ay)
+                bx, by = _unit(bx, by)
+            convexity = ay * bx - ax * by
             if _sign(convexity) == sign2 and (ax != 0 or ay != 0):
                 pprev, pcur = pcur, pnext
                 pnext += incr
@@ -863,19 +877,27 @@ def _sklansky(px, py, order, start, end, nsign, sign2):
 
 
 def convex_hull_indices(points):
-    """Indices of the convex hull of (n, 2) points taken as float32, in
-    the order cv2.convexHull(points) (clockwise=False) returns them:
-    Sklansky's scan over the x-sorted points, then the cyclic shift that
-    makes the indices ascend or descend where it can. Equal to cv2 on
-    general and integer-lattice point sets; on points collinear to within
-    float32 rounding it may keep or drop a middle point where cv2 does
-    the other (tests/test_torch_geometry.py)."""
-    pts = np.asarray(points, dtype=np.float32).reshape(-1, 2)
+    """Indices of the convex hull of (n, 2) points, in the order
+    cv2.convexHull(points) (clockwise=False) returns them: Sklansky's
+    scan over the x-sorted points, then the cyclic shift that makes the
+    indices ascend or descend where it can. Integer points are taken as
+    int32 (exact arithmetic, as cv2 takes an int32 contour), all others as
+    float32 (cv2's normalized float scan), so near-collinear sets keep the
+    points cv2 keeps (tests/test_torch_geometry.py)."""
+    pts = np.asarray(points)
+    is_float = not np.issubdtype(pts.dtype, np.integer)
+    pts = pts.astype(np.float32 if is_float else np.int32).reshape(-1, 2)
     total = len(pts)
     if total == 0:
         return []
-    px, py = pts[:, 0], pts[:, 1]
-    order = np.lexsort((py, px)).tolist()
+    # python scalars: float32 differences are exact in double, integer
+    # differences and products exact as python ints
+    if is_float:
+        px = pts[:, 0].astype(np.float64).tolist()
+        py = pts[:, 1].astype(np.float64).tolist()
+    else:
+        px, py = pts[:, 0].tolist(), pts[:, 1].tolist()
+    order = np.lexsort((pts[:, 1], pts[:, 0])).tolist()
     miny = maxy = 0
     for i in range(1, total):
         y = py[order[i]]
@@ -887,13 +909,13 @@ def convex_hull_indices(points):
     if px[first] == px[last] and py[first] == py[last]:
         return [first]
     # upper half, counter-clockwise: the right chain first
-    tr = _sklansky(px, py, order, 0, maxy, -1, 1)
-    tl = _sklansky(px, py, order, total - 1, maxy, -1, -1)
+    tr = _sklansky(px, py, order, 0, maxy, -1, 1, is_float)
+    tl = _sklansky(px, py, order, total - 1, maxy, -1, -1, is_float)
     hull = [order[s] for s in tl[:-1]] + [order[s] for s in tr[:0:-1]]
     stop = tr[1] if len(tr) > 2 else (tl[-2] if len(tl) > 2 else -1)
     # lower half
-    bl = _sklansky(px, py, order, 0, miny, 1, -1)
-    br = _sklansky(px, py, order, total - 1, miny, 1, 1)
+    bl = _sklansky(px, py, order, 0, miny, 1, -1, is_float)
+    br = _sklansky(px, py, order, total - 1, miny, 1, 1, is_float)
     if stop >= 0:
         check = bl[1] if len(bl) > 2 else (
             br[2 - len(bl)] if len(bl) + len(br) > 2 else -1)

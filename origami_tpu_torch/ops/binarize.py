@@ -33,10 +33,10 @@ from __future__ import annotations
 
 import torch
 
-from origami_tpu_torch.ops.remap import (_check, _device_of, _div, _launch,
-                                          _ptr)
+from origami_tpu_torch.ops.remap import (LaunchCounts, _check, _device_of,
+                                         _div, _launch, _ptr)
 
-launches = {"sauvola": 0, "sauvola_packed": 0}
+launches = LaunchCounts(sauvola=0, sauvola_packed=0)
 
 _BORDERS = {"zero": 0, "clamp": 1}
 
@@ -168,7 +168,7 @@ def _sauvola_launch(name, image, window_size, k, r, border, packed):
     if out.numel():
         _launch("origami_sauvola_u8", _ptr(image), h, w, window_size,
                 float(k), float(r), _BORDERS[border], int(packed), _ptr(out))
-        launches[name] += 1
+        launches.add(name)
     return out
 
 

@@ -23,9 +23,10 @@ from __future__ import annotations
 
 import torch
 
-from origami_tpu_torch.ops.remap import _check, _device_of, _launch, _ptr
+from origami_tpu_torch.ops.remap import (LaunchCounts, _check, _device_of,
+                                         _launch, _ptr)
 
-launches = {"take_along_axis_lane": 0, "take_along_axis_sublane": 0}
+launches = LaunchCounts(take_along_axis_lane=0, take_along_axis_sublane=0)
 
 
 def _check_args(src, idx, axis):
@@ -60,6 +61,6 @@ def take_along_axis(src, idx, axis):
     if out.numel():
         _launch("origami_take_along_axis_f32", _ptr(src), src.shape[axis],
                 _ptr(idx), r, c, axis, _ptr(out))
-        launches["take_along_axis_lane" if axis == 1
-                 else "take_along_axis_sublane"] += 1
+        launches.add("take_along_axis_lane" if axis == 1
+                     else "take_along_axis_sublane")
     return out

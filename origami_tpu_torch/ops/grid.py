@@ -24,9 +24,10 @@ import math
 import torch
 
 from origami_tpu_torch.ops import gather
-from origami_tpu_torch.ops.remap import _check, _device_of, _launch, _ptr
+from origami_tpu_torch.ops.remap import (LaunchCounts, _check, _device_of,
+                                         _launch, _ptr)
 
-launches = {"grid_scan_h": 0, "grid_scan_v": 0}
+launches = LaunchCounts(grid_scan_h=0, grid_scan_v=0)
 
 # the most dynamic shared memory a block may use on sm_90
 _SHARED_BYTES = 232448
@@ -186,9 +187,9 @@ def grid_scan(h_xy, h_phi, h_mask, v_xy, v_phi, v_mask, n_gy, n_gx, res,
     out = torch.empty((n_gy, n_gx, 2), dtype=torch.float32, device=dev)
     _launch("origami_grid_scan_h", _ptr(h_xy), _ptr(h_phi), _ptr(h_mask),
             n_h, n_gy, n_gx, res_f, -pad_cells * res_f, _ptr(grid_h))
-    launches["grid_scan_h"] += 1
+    launches.add("grid_scan_h")
     _launch("origami_grid_scan_v", _ptr(grid_h), _ptr(v_xy), _ptr(v_phi),
             _ptr(v_mask), n_v, n_gy, n_gx, res_f, _ptr(out),
             None if best is None else _ptr(best))
-    launches["grid_scan_v"] += 1
+    launches.add("grid_scan_v")
     return out

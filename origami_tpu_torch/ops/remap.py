@@ -22,13 +22,27 @@ raises — it never falls back. `launches[name]` counts kernel launches.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 from origami_tpu_torch.ops import _build
 
-launches = {"remap": 0, "dewarp_u8": 0, "strips_dewarped": 0,
-            "strips_through_grid": 0}
+
+class LaunchCounts(dict):
+    """Launch counts by kernel name. `add` holds a lock: the pipelined
+    runner launches kernels from several threads at once."""
+
+    _lock = threading.Lock()
+
+    def add(self, name):
+        with self._lock:
+            self[name] += 1
+
+
+launches = LaunchCounts(remap=0, dewarp_u8=0, strips_dewarped=0,
+                        strips_through_grid=0)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +352,7 @@ def remap(image, map_xy, fill=0.0):
         h, w = image.shape
         _launch("origami_remap_f32", _ptr(image), h, w, _ptr(map_xy), oh, ow,
                 float(fill), _ptr(out))
-        launches["remap"] += 1
+        launches.add("remap")
     return out
 
 
@@ -367,7 +381,7 @@ def dewarp_u8(page_u8, hv, res, fill=255.0, staged_tiles=None):
         _launch("origami_dewarp_u8", _ptr(page_u8), h, w, _ptr(hv), gh, gw,
                 res, float(fill), _ptr(out),
                 None if staged_tiles is None else _ptr(staged_tiles))
-        launches["dewarp_u8"] += 1
+        launches.add("dewarp_u8")
     return out
 
 
@@ -414,7 +428,7 @@ def strips_dewarped(dew_u8, frames, widths, out_h, out_w, fill=255.0):
         _launch("origami_strips_dewarped", _ptr(dew_u8), h, w, _ptr(frames),
                 _ptr(widths), None, n, int(out_h), int(out_w), float(fill),
                 _ptr(out), out.numel())
-        launches["strips_dewarped"] += 1
+        launches.add("strips_dewarped")
     return out
 
 
@@ -438,7 +452,7 @@ def strips_dewarped_page(dew_u8, frames, widths, desc, out, out_h, max_w,
         _launch("origami_strips_dewarped", _ptr(dew_u8), h, w, _ptr(frames),
                 _ptr(widths), _ptr(desc), n, int(out_h), int(max_w),
                 float(fill), _ptr(out), out.numel())
-        launches["strips_dewarped"] += 1
+        launches.add("strips_dewarped")
     return out
 
 
@@ -461,7 +475,7 @@ def strips_through_grid(page_u8, hv, res, frames, widths, out_h, out_w,
         _launch("origami_strips_through_grid", _ptr(page_u8), h, w, _ptr(hv),
                 gh, gw, float(res), _ptr(frames), _ptr(widths), None, n,
                 int(out_h), int(out_w), float(fill), _ptr(out), out.numel())
-        launches["strips_through_grid"] += 1
+        launches.add("strips_through_grid")
     return out
 
 
@@ -487,5 +501,5 @@ def strips_through_grid_page(page_u8, hv, res, frames, widths, desc, out,
                 gh, gw, float(res), _ptr(frames), _ptr(widths), _ptr(desc),
                 n, int(out_h), int(max_w), float(fill), _ptr(out),
                 out.numel())
-        launches["strips_through_grid"] += 1
+        launches.add("strips_through_grid")
     return out

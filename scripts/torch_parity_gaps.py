@@ -13,13 +13,22 @@ C): numbers the parity tests only bound.
   4. the dewarp grid build (ops/grid.build_grid_plain) vs build_grid_device
      on seeded sample sets, at 400x300 and at the fixture's 1312x1920;
   5. the port's convex hull vs cv2.convexHull on point sets collinear to
-     within float32 rounding.
+     within float32 rounding, and on the corners of a text block's tilted
+     line rectangles;
+  6. what the dewarp's hard page edge (ROADMAP C3) costs the composed
+     text: the port's OCR stage (single model) and compose stage on the
+     JAX inputs of the fixture, once as they run and once with the
+     dewarped page replaced by the JAX banded route's; page.txt lines
+     that differ from the JAX chain's in the first run only come from
+     the edge, the rest from bf16 convolution rounding (ROADMAP C2).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import sys
+import tempfile
 from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -163,20 +172,83 @@ def grid_drift():
               "max |diff| %.2e px" % (w, h, np.abs(got - ref).max()))
 
 
-def hull_collinear(n_sets=2000):
+def hull_collinear(n_sets=2000, n_blocks=1000):
     import cv2
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_geometry import _text_block
     from origami_tpu_torch.geometry.poly import convex_hull_f32
     print("5. convex hull vs cv2.convexHull, near-collinear point sets")
     rng = np.random.default_rng(1)
-    differ = 0
+    sets = []
     for _ in range(n_sets):
         u = rng.uniform(0, 1, int(rng.integers(3, 15)))
-        p = np.c_[3 + 7 * u, 2 + 5 * u].astype(np.float32)
-        want = cv2.convexHull(p).reshape(-1, 2).astype(np.float64)
-        got = convex_hull_f32(p)
-        differ += got.shape != want.shape or not np.array_equal(got, want)
-    print("   %d of %d sets differ (a middle point kept or dropped)"
-          % (differ, n_sets))
+        sets.append(np.c_[3 + 7 * u, 2 + 5 * u].astype(np.float32))
+    rng = np.random.default_rng(3)
+    blocks = [_text_block(rng).astype(np.float32) for _ in range(n_blocks)]
+    for name, group in (("collinear", sets), ("text-block", blocks)):
+        differ = 0
+        for p in group:
+            want = cv2.convexHull(p).reshape(-1, 2).astype(np.float64)
+            got = convex_hull_f32(p)
+            differ += got.shape != want.shape or not np.array_equal(got,
+                                                                    want)
+        print("   %s: %d of %d sets differ" % (name, differ, len(group)))
+
+
+def composed_edge_cost(tmp):
+    """Item 6: page.txt lines that differ from the JAX chain's, with the
+    port's dewarped page and with the JAX banded route's."""
+    import chip_smoke
+    from origami_tpu.core.page import Page as JaxPage
+    from origami_tpu_torch.batch.detect.compose import ComposeProcessor
+    from origami_tpu_torch.batch.detect.ocr import OCRProcessor
+    from origami_tpu_torch.core import page as port_page
+    print("6. composed text vs the JAX chain's: the dewarp's page edge "
+          "(C3) against bf16 rounding (C2)")
+    opts = dict(device="cpu", lock_strategy="NONE", plain=True)
+    model = str(ROOT / "models_pretrained" / "recognizer")
+    own = port_page.Page.dewarped_dev
+    banded = {}
+
+    def jax_dewarped(self):
+        key = self.path.name
+        if key not in banded:
+            banded[key] = torch.from_numpy(np.array(JaxPage(
+                self.path, JaxGrid.open(self.path.with_suffix(".out")
+                                        / "dewarp.zip")).dewarped))
+        return banded[key]
+
+    differing = {}
+    for route in ("port", "jax_banded"):
+        corpus = chip_smoke.order_corpus(Path(tmp) / route)
+        for png in corpus.glob("*.png"):
+            shutil.copy(chip_smoke.COMPOSE_REF / (png.stem + ".out")
+                        / "order.json", corpus / (png.stem + ".out"))
+        port_page.Page.dewarped_dev = own if route == "port" \
+            else property(jax_dewarped)
+        try:
+            OCRProcessor(dict(opts, model=model)).traverse(str(corpus))
+        finally:
+            port_page.Page.dewarped_dev = own
+        ComposeProcessor(dict(opts)).traverse(str(corpus))
+        lines = set()
+        for png in sorted(corpus.glob("*.png")):
+            got = chip_smoke.page_text(corpus / (png.stem + ".out")
+                                       / "compose.zip").split("\n")
+            ref = chip_smoke.page_text(chip_smoke.COMPOSE_REF / (
+                png.stem + ".out") / "compose.zip").split("\n")
+            same, n, errs, chars = chip_smoke.text_diff("\n".join(got),
+                                                        "\n".join(ref))
+            lines |= {(png.stem, t) for t in ref if t not in got}
+            print("   %-10s %s: %d of %d page.txt lines identical, CER "
+                  "%.5f" % (route, png.stem, same, n, errs / chars))
+        differing[route] = lines
+    edge = differing["port"] - differing["jax_banded"]
+    print("   differing lines from the page edge (C3): %d %s" % (
+        len(edge), sorted(edge)))
+    print("   differing lines either way (bf16 rounding, C2): %d %s" % (
+        len(differing["port"] & differing["jax_banded"]),
+        sorted(differing["port"] & differing["jax_banded"])))
 
 
 def main():
@@ -187,6 +259,8 @@ def main():
     remap_offlattice(crop)
     grid_drift()
     hull_collinear()
+    with tempfile.TemporaryDirectory() as tmp:
+        composed_edge_cost(tmp)
 
 
 if __name__ == "__main__":

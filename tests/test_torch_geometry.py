@@ -8,10 +8,10 @@ Tolerances, each with its reason:
     exact miter offset) and make_valid of a valid polygon: exact
     coordinates — the same arithmetic in the same order;
   * the convex hull: the same points in cv2's order, exactly, for points
-    in general position and on integer lattices (the port repeats
-    cv2.convexHull's Sklansky scan; on points collinear to within
-    float32 rounding it may keep or drop a middle point where cv2 does
-    the other);
+    in general position, on integer lattices, clustered, collinear to
+    within float32 rounding, and on the corners of a text block's tilted
+    line rectangles (the port repeats cv2.convexHull's Sklansky scan,
+    with cv2 5's unit-length difference vectors for float32 points);
   * polygon buffers and make_valid of an invalid polygon go through the
     raster bridge, whose fill and contour tracer are the port's own
     (cv2's in the JAX copy): the symmetric difference of the two results
@@ -186,17 +186,45 @@ def test_ellipse_kernel_is_cv2s():
                                       (2 * r + 1, 2 * r + 1)))
 
 
-@pytest.mark.parametrize("kind", ["uniform", "lattice", "clustered"])
+def _text_block(rng):
+    """Corners of 3-40 line rectangles of a text block, tilted by up to
+    3e-3 rad: their left and right edges are near-collinear sets."""
+    n = int(rng.integers(3, 41))
+    th = rng.uniform(-3e-3, 3e-3)
+    x0, y0 = rng.uniform(50, 1200, 2)
+    w, h = rng.uniform(200, 600), rng.uniform(10, 16)
+    c, s = np.cos(th), np.sin(th)
+    pts = []
+    for i in range(n):
+        wl = w * rng.uniform(0.85, 1.0) if i == n - 1 or rng.random() < 0.3 \
+            else w
+        xs, ys = x0 + rng.uniform(-0.5, 0.5), y0 + i * h * 1.5
+        for dx, dy in ((0, 0), (wl, 0), (wl, h), (0, h)):
+            x, y = xs + dx - x0, ys + dy - y0
+            pts.append((x0 + x * c - y * s, y0 + x * s + y * c))
+    return np.array(pts)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "lattice", "clustered",
+                                  "collinear", "text_block"])
 def test_convex_hull_is_cv2s(kind):
-    rng = np.random.default_rng({"uniform": 0, "lattice": 1,
-                                 "clustered": 2}[kind])
-    for _ in range(300):
-        k = int(rng.integers(1, 30))
+    rng = np.random.default_rng({"uniform": 0, "lattice": 1, "clustered": 2,
+                                 "collinear": 1, "text_block": 3}[kind])
+    # collinear: the 2,000 sets of scripts/torch_parity_gaps.py::hull_collinear
+    n_sets = {"collinear": 2000, "text_block": 1000}.get(kind, 300)
+    for _ in range(n_sets):
+        if kind == "collinear":
+            u = rng.uniform(0, 1, int(rng.integers(3, 15)))
+            p = np.c_[3 + 7 * u, 2 + 5 * u]
+        elif kind == "text_block":
+            p = _text_block(rng)
+        else:
+            k = int(rng.integers(1, 30))
         if kind == "uniform":
             p = rng.uniform(0, 1000, (k, 2))
         elif kind == "lattice":
             p = rng.integers(0, 6, (k, 2)).astype(float)
-        else:
+        elif kind == "clustered":
             base = rng.uniform(0, 1000, (4, 2))
             p = base[rng.integers(0, 4, k)] \
                 + rng.integers(0, 2, (k, 2)) * 0.25
@@ -204,6 +232,12 @@ def test_convex_hull_is_cv2s(kind):
         np.testing.assert_array_equal(
             poly.convex_hull_f32(p),
             cv2.convexHull(p).reshape(-1, 2).astype(np.float64))
+        if kind in ("lattice", "clustered"):
+            # integer points take cv2's exact integer scan
+            q = np.round(p).astype(np.int32)
+            np.testing.assert_array_equal(
+                q[poly.convex_hull_indices(q)].reshape(-1, 2),
+                cv2.convexHull(q).reshape(-1, 2))
 
 
 @pytest.fixture(scope="module")

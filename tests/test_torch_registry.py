@@ -146,7 +146,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 banned = ("jax", "flax", "optax", "orbax", "origami_tpu", "PIL", "click",
-          "msgpack", "cv2", "networkx")
+          "msgpack", "cv2", "networkx", "lxml")
 print(json.dumps({"modules": names,
                   "banned": sorted(m for m in sys.modules
                                    if m.split(".")[0] in banned)}))
@@ -169,7 +169,10 @@ print(json.dumps({"modules": names,
                  "core.skeleton", "core.contours", "batch.detect.contours",
                  "core.neighbors", "core.xycut", "core.hull",
                  "core.geometry_ops", "custom.layouts.bbz",
-                 "custom.layouts.default", "batch.detect.layout"):
+                 "custom.layouts.default", "batch.detect.layout",
+                 "batch.core.utils", "batch.detect.lines",
+                 "batch.detect.order", "batch.detect.compose",
+                 "batch.runner", "pagexml", "pagexml.pagexml"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
@@ -244,3 +247,24 @@ def test_flow_and_dewarp_entry_points_need_cuda_unless_told_cpu(stage):
     assert getattr(mod, proc)({"device": "cpu"}).device.type == "cpu"
     assert GridFactory((100, 100), empty, empty,
                        device="cpu")().points("sample").shape == (16, 16, 2)
+
+
+@pytest.mark.parametrize("stage", ["lines", "order", "compose"])
+def test_lines_order_compose_entry_points_need_cuda_unless_told_cpu(stage):
+    """The lines, order and compose CLIs and their processors run on the
+    card by default and raise without one; --device cpu / device="cpu"
+    runs them on the CPU."""
+    import importlib
+    mod = importlib.import_module("origami_tpu_torch.batch.detect." + stage)
+    proc = {"lines": "LineDetectionProcessor",
+            "order": "ReadingOrderProcessor",
+            "compose": "ComposeProcessor"}[stage]
+    assert mod.parser().parse_args(["x"]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a card")
+    for make in (lambda: getattr(mod, proc)({}),
+                 lambda: getattr(mod, proc)({"device": None}),
+                 lambda: mod.main(["--lock-strategy", "NONE", "."])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert getattr(mod, proc)({"device": "cpu"}).device.type == "cpu"
