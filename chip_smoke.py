@@ -88,6 +88,24 @@ Phases (any failure exits non-zero before the result line):
      phases 3, 5, 7 and 9 launch); print each stage's seconds and each
      kernel's launches. The kernels line gives each kernel's launches in
      the run of its own path (OTHER_PATH_KERNELS from the second run).
+  13. the rest of the inference surface: (a) the OCR CLI with
+     `--binarize sauvola` (the host strip path: every strip binarized by
+     one `sauvola` launch) against the JAX stage's ocr.zip
+     (tests/data/torch_ocr/full/ref/*.binarize.ocr.zip; MIN_IDENTICAL,
+     MAX_CER), then in process, warm, its pages/s and the share of the
+     per-strip Sauvola round trips; (b) the segment CLI with
+     `-m auto:models_pretrained/students` on the real 1872 scan (mode
+     "trained", TABULAR <= 1 %, TEXT >= 50 %) and the fixture pages (the
+     JAX auto mode's modes, label maps at the bf16 bar against
+     tests/data/torch_segment/ref/*.auto.segment.zip), and the heuristic
+     fallback forced by trained maps without text (one `sauvola`
+     launch, the heuristic maps); (c) PagePipeline with the students and
+     the recognizer over the page images, sequential and overlapped
+     (every page composed, page.txt within PORT_CHAIN_MAX_CER of the JAX
+     chain's, wall time); (d) export.lines (one PNG per OCR line, each
+     the OCR path's strip, gray and binarized) and export.pagexml (one
+     TextLine per line of lines.0.zip). Each run's launch counts are
+     set to 0 just before it and printed after it.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -144,9 +162,20 @@ MODES = {
     "gather": ["-m", "models_pretrained/recognizer",
                "--extract-mode", "gather"],
 }
+# phase 13: the host strip path, each strip binarized on its own
+BINARIZE_MODE = ["-m", "models_pretrained/recognizer",
+                 "--binarize", "sauvola"]
 # acceptance per OCR run against its JAX reference
 MIN_IDENTICAL = 0.99
 MAX_CER = 0.005
+# phase 3: the least number of the 513 lines identical to the JAX
+# reference, per mode: since the dewarp takes the JAX banded route's
+# border (ROADMAP C3) only the bf16 lines of ROADMAP C2 may differ
+MIN_IDENTICAL_LINES = {"single": 511, "ensemble": 511, "gather": 512}
+# phase 11: the least number of the 606 page.txt lines of the chain from
+# the JAX contours.2.zip identical to the JAX chain's (the two bf16
+# lines of ROADMAP C2 may differ)
+CHAIN_MIN_IDENTICAL_LINES = 604
 # segment runs: CLI arguments, the JAX reference of a page, the least
 # share of equal pixels per predictor. float32 and heuristic: the bar of
 # the CPU tests; bf16: cuDNN and XLA round bf16 convolutions at other
@@ -195,7 +224,9 @@ STAGE_KEYS = {"segment": SEG_STAGE, "contours": CONTOURS_STAGE,
               "flow": FLOW_STAGE, "dewarp": DEWARP_STAGE,
               "layout": LAYOUT_STAGE, "lines": LINES_STAGE,
               "order": ORDER_STAGE, "ocr": OCR_STAGE,
-              "compose": COMPOSE_STAGE}
+              "compose": COMPOSE_STAGE,
+              "export.lines": "origami_tpu.batch.export.lines",
+              "export.pagexml": "origami_tpu.batch.export.pagexml"}
 LAYOUT_REF = ROOT / "tests" / "data" / "torch_layout"
 # the JAX order stage's order.json and the JAX compose stage's
 # compose.zip (page.txt; compose_xml.zip with page.xml) over the fixture
@@ -489,10 +520,17 @@ def dewarp_grids(hv, h, w, res):
     tile reads its taps through the read-only cache) and "sheared" (1 px
     per px along x, 0.5 along y, with a wave: windows of about 224 x 153
     bytes, over the 32 KB budget inside the page and under it where the
-    page clamps them, so the tiles take both routes)."""
+    page clamps them, so the tiles take both routes) and "past_edge" (a
+    separable stretch of the page that samples 0.7 to 1.5 px past each
+    of its edges, where the fill_taps border blends the page with the
+    fill)."""
     import numpy as np
     import torch
     gh, gw = hv.shape[:2]
+    u, v = np.linspace(0, 1, gw), np.linspace(0, 1, gh)
+    past_edge = np.stack(np.meshgrid(
+        -0.7 + u * (w - 1 + 0.7 + 1.5) + 3.0 * np.sin(np.pi * u),
+        -1.5 + v * (h - 1 + 1.5 + 1.1) + 2.0 * np.sin(np.pi * v)), -1)
     rng = np.random.default_rng(11)
     scrambled = np.stack([rng.uniform(0, w - 1, (gh, gw)),
                           rng.uniform(0, h - 1, (gh, gw))], -1)
@@ -501,7 +539,8 @@ def dewarp_grids(hv, h, w, res):
         -600.0 + res * jj + 1.0 * res * ii + 3.1 * np.sin(ii / 2.3),
         -400.0 + res * ii + 0.5 * res * jj + 2.7 * np.cos(jj / 3.1)], -1)
     return {k: torch.from_numpy(v.astype(np.float32)).to(hv.device)
-            for k, v in (("scrambled", scrambled), ("sheared", sheared))}
+            for k, v in (("scrambled", scrambled), ("sheared", sheared),
+                         ("past_edge", past_edge))}
 
 
 def strip_fns(name, src, grid=None):
@@ -869,12 +908,14 @@ def check_kernels(device):
             row[k] = None if row[k] is None or t[k] is None \
                 else row[k] + t[k]
 
-    def dewarp_only(label, page, grid, res, want_route):
-        """dewarp_u8 against its plain version (bit-equal) on a grid off
-        the main path, with the count of tiles that staged a window."""
+    def dewarp_only(label, page, grid, res, want_route, border):
+        """dewarp_u8 against its plain version (bit-equal) at one border
+        on a grid off the main path, with the count of tiles that staged
+        a window."""
         staged = torch.zeros(1, dtype=torch.int32, device=device)
-        got = ops.dewarp_u8(page, grid, res, staged_tiles=staged)
-        want = ops.dewarp_u8_plain(page, grid, res)
+        got = ops.dewarp_u8(page, grid, res, 255.0, border,
+                            staged_tiles=staged)
+        want = ops.dewarp_u8_plain(page, grid, res, 255.0, border)
         torch.cuda.synchronize()
         err = float((got.int() - want.int()).abs().max())
         gh, gw = grid.shape[:2]
@@ -884,13 +925,16 @@ def check_kernels(device):
                     "any": True}[want_route]
         log("  %-20s %-30s max|diff| %g (tol 0) %s  tiles %d: %d staged, "
             "%d read through __ldg  kernel %.4f ms  plain %.4f ms" % (
-                "dewarp_u8", "%s %dx%d" % ((label,) + tuple(page.shape)),
+                "dewarp_u8", "%s %s %dx%d" % ((label, border)
+                                              + tuple(page.shape)),
                 err, "ok" if err == 0 and route_ok else "FAIL", tiles,
                 n_staged, tiles - n_staged,
-                time_cuda(lambda: ops.dewarp_u8(page, grid, res)),
-                time_cuda(lambda: ops.dewarp_u8_plain(page, grid, res))))
+                time_cuda(lambda: ops.dewarp_u8(page, grid, res, 255.0,
+                                                border)),
+                time_cuda(lambda: ops.dewarp_u8_plain(page, grid, res,
+                                                      255.0, border))))
         if err != 0 or not route_ok:
-            failures.append("dewarp_u8 %s" % label)
+            failures.append("dewarp_u8 %s %s" % (label, border))
         return n_staged, tiles
 
     for i, png in enumerate(pages):
@@ -903,38 +947,60 @@ def check_kernels(device):
         res = page.grid.resolution
         gh, gw = hv.shape[:2]
 
-        # dewarp_u8 (the dewarp kernel on the main path): bit-equal
-        got = ops.dewarp_u8(px, hv, res)
-        want = ops.dewarp_u8_plain(px, hv, res)
-        torch.cuda.synchronize()
+        # dewarp_u8 (the dewarp kernel on the main path): bit-equal, at
+        # the border the page's grid takes there (the JAX banded route's
+        # "fill_taps" where the grid has a banded plan: the fixture
+        # pages), and at the other border ("hard") beside it
+        main_border = "fill_taps" if page.grid.has_banded_plan((h, w)) \
+            else "hard"
         mx, my = ops._upsample_grid(hv, res)
-        inb = (mx >= 0) & (mx <= w - 1) & (my >= 0) & (my <= h - 1)
         grid = _norm_grid(mx, my, w, h)[None]
         pxf = px.float()[None, None]
-        report("dewarp_u8", got, want, 0,
-               lambda: ops.dewarp_u8(px, hv, res),
-               lambda: ops.dewarp_u8_plain(px, hv, res),
-               tapped_pixels(mx, my, inb, h, w) + hv.numel() * 4
-               + got.numel(),
-               lambda: F.grid_sample(pxf, grid, mode="bilinear",
-                                     padding_mode="zeros",
-                                     align_corners=True),
-               "%dx%d -> %dx%d" % (h, w, gh * res, gw * res))
-        dew = got
+        for name, border in (
+                ("dewarp_u8", main_border),
+                ("dewarp_u8_" + ("hard" if main_border == "fill_taps"
+                                 else "fill_taps"),
+                 "hard" if main_border == "fill_taps" else "fill_taps")):
+            got = ops.dewarp_u8(px, hv, res, 255.0, border)
+            want = ops.dewarp_u8_plain(px, hv, res, 255.0, border)
+            torch.cuda.synchronize()
+            if border == "hard":
+                inb = (mx >= 0) & (mx <= w - 1) & (my >= 0) & (my <= h - 1)
+                tx, ty = mx, my
+            else:
+                inb = torch.ones_like(mx, dtype=torch.bool)
+                tx, ty = mx.clamp(-2.0, w + 1.0), my.clamp(-2.0, h + 1.0)
+            report(name, got, want, 0,
+                   lambda: ops.dewarp_u8(px, hv, res, 255.0, border),
+                   lambda: ops.dewarp_u8_plain(px, hv, res, 255.0, border),
+                   tapped_pixels(tx, ty, inb, h, w) + hv.numel() * 4
+                   + got.numel(),
+                   lambda: F.grid_sample(pxf, grid, mode="bilinear",
+                                         padding_mode="zeros",
+                                         align_corners=True),
+                   "%s %dx%d -> %dx%d" % (border, h, w, gh * res, gw * res))
+            if name == "dewarp_u8":
+                dew = got
         images.append((px, dew))
-        # both tile routes: the page's own grid stages every tile's
-        # window, the scrambled grid none; the sheared grid mixes them;
-        # a ragged crop (rows not 16-byte aligned) stages with byte loads
-        dewarp_only("own grid", px, hv, res, "staged")
-        if i == 0:
-            extra = dewarp_grids(hv, h, w, res)
-            dewarp_only("scrambled grid", px, extra["scrambled"], res,
-                        "direct")
-            dewarp_only("sheared grid", px, extra["sheared"], res, "any")
-            crop = px[100:297, 60:311].contiguous()
-            shift = torch.tensor([60.0, 100.0], device=device)
-            dewarp_only("ragged crop", crop, (hv - shift).contiguous(), res,
-                        "any")
+        # both tile routes at both borders: the page's own grid stages
+        # every tile's window, the scrambled grid none; the sheared grid
+        # mixes them; a ragged crop (rows not 16-byte aligned) stages
+        # with byte loads; a grid that samples 0.7-1.5 px past every edge
+        # stages the ring of fill
+        for border in ("fill_taps", "hard"):
+            dewarp_only("own grid", px, hv, res, "staged", border)
+            if i == 0:
+                extra = dewarp_grids(hv, h, w, res)
+                dewarp_only("scrambled grid", px, extra["scrambled"], res,
+                            "direct", border)
+                dewarp_only("sheared grid", px, extra["sheared"], res,
+                            "any", border)
+                dewarp_only("past-edge grid", px, extra["past_edge"], res,
+                            "staged", border)
+                crop = px[100:297, 60:311].contiguous()
+                shift = torch.tensor([60.0, 100.0], device=device)
+                dewarp_only("ragged crop", crop, (hv - shift).contiguous(),
+                            res, "any", border)
 
         # remap (remap_pallas' function, f32, fill 0): on the layout
         # stage's path it dewarps the separator mask, resized onto the
@@ -1657,8 +1723,9 @@ def host_path_ab(device):
 def run_ocr_cli(mode, workdir, device="cuda"):
     corpus = workdir / mode
     shutil.copytree(FIXTURE, corpus, ignore=shutil.ignore_patterns("ref"))
+    args = BINARIZE_MODE if mode == "binarize" else MODES[mode]
     cmd = [sys.executable, "-m", "origami_tpu_torch.batch.detect.ocr",
-           *MODES[mode], "--lock-strategy", "NONE", "--plain",
+           *args, "--lock-strategy", "NONE", "--plain",
            "--device", str(device), str(corpus)]
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
@@ -2024,7 +2091,9 @@ def run_stage_cli(stage, corpus, device="cuda", args=()):
     """Run `python -m origami_tpu_torch.batch.detect.<stage> [args]`
     over `corpus`; raise unless every page COMPLETED; -> (launch counts,
     process seconds, summed stage seconds)."""
-    cmd = [sys.executable, "-m", "origami_tpu_torch.batch.detect." + stage,
+    module = "origami_tpu_torch.batch." + (
+        stage if stage.startswith("export.") else "detect." + stage)
+    cmd = [sys.executable, "-m", module,
            *args, "--lock-strategy", "NONE", "--plain", "--device",
            str(device), str(corpus)]
     t0 = time.time()
@@ -2579,9 +2648,12 @@ def page_text(path):
         return zf.read("page.txt").decode("utf8")
 
 
-def compare_chain_text(corpus, name, failed, min_identical, max_cer):
+def compare_chain_text(corpus, name, failed, min_identical, max_cer,
+                       min_lines=0):
     """Hold each page's composed text against the JAX chain's
-    (tests/data/torch_compose); -> (share of lines identical, CER)."""
+    (tests/data/torch_compose): at least `min_identical` of its lines and
+    `min_lines` lines identical, CER <= `max_cer`; -> (share of lines
+    identical, CER)."""
     same = n = errs = chars = 0
     for png in sorted(corpus.glob("*.png")):
         got = page_text(corpus / (png.stem + ".out") / "compose.zip")
@@ -2589,14 +2661,14 @@ def compare_chain_text(corpus, name, failed, min_identical, max_cer):
         s, k, e, c = text_diff(got, ref)
         same, n, errs, chars = same + s, n + k, errs + e, chars + c
     share, cer = same / max(n, 1), errs / max(chars, 1)
-    ok = share >= min_identical and cer <= max_cer
+    ok = share >= min_identical and cer <= max_cer and same >= min_lines
     log("  %s: page.txt %d of %d lines identical to the JAX chain's "
         "(%.4f), CER %.5f  %s" % (name, same, n, share, cer,
                                   "ok" if ok else "FAIL"))
     if not ok:
-        failed.append("%s: page.txt identical %.4f (bar %.2f), CER %.5f "
-                      "(bar %.3f)" % (name, share, min_identical, cer,
-                                      max_cer))
+        failed.append("%s: page.txt identical %d, %.4f (bars %d, %.2f), "
+                      "CER %.5f (bar %.3f)" % (name, same, share, min_lines,
+                                               min_identical, cer, max_cer))
     return share, cer
 
 
@@ -2699,7 +2771,7 @@ def check_lines_order_compose(workdir, device="cuda"):
               runs, failed)
     compare_chain_text(corpus, "chain lines -> order -> ocr -> compose from "
                        "the JAX contours.2.zip", failed, MIN_IDENTICAL,
-                       MAX_CER)
+                       MAX_CER, CHAIN_MIN_IDENTICAL_LINES)
     if failed:
         raise PhaseError("; ".join(failed))
     return runs
@@ -2856,6 +2928,311 @@ def check_whole_chain(workdir, device="cuda"):
     return runs
 
 
+# ---------------------------------------------------------------- phase 13
+
+REAL_SCAN = ROOT / "tests" / "data" / "real_scan_1872.png"
+# the real 1872 scan under -m auto: (tests/test_pretrained.py:104-127):
+# the students keep the page, the sanitization clears the TABULAR that
+# they hallucinate over its text columns
+REAL_SCAN_MAX_TABULAR = 0.01
+REAL_SCAN_MIN_TEXT = 0.5
+
+
+def _sync(device):
+    import torch
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+
+
+def check_binarize_ocr(workdir, device, failed):
+    """Phase 13 (a): the OCR CLI with --binarize sauvola on the fixture,
+    single model, against the JAX stage's --binarize ocr.zip; every strip
+    comes to the host and takes one Sauvola launch, a page's strips one
+    strips_dewarped launch. Then the stage in process, warm: pages/s and
+    the share of its time spent in the per-strip Sauvola round trips."""
+    from origami_tpu_torch.batch.detect.ocr import OCRProcessor
+    from origami_tpu_torch.core import binarize as core_binarize
+    r = run_ocr_cli("binarize", workdir, device)
+    got, n = r["launches"], r["pages"]
+    # on the CPU the plain versions run: no launch to count
+    want = {} if str(device) == "cpu" else {"sauvola": r["lines"],
+                                            "strips_dewarped": n}
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if got["strips_through_grid"] > n:
+        bad["strips_through_grid"] = (got["strips_through_grid"], n)
+    ok = r["identical"] >= MIN_IDENTICAL and r["cer"] <= MAX_CER
+    log("  ocr --binarize sauvola %d pages %d lines: identical %.4f  CER "
+        "%.5f  launches %s  %s" % (
+            n, r["lines"], r["identical"], r["cer"],
+            json.dumps({k: v for k, v in got.items() if v}),
+            "ok" if ok and not bad else "FAIL"))
+    if not ok:
+        failed.append("ocr --binarize: identical %.4f or CER %.5f"
+                      % (r["identical"], r["cer"]))
+    if bad:
+        failed.append("ocr --binarize: launches (got, expected) %s" % bad)
+    if str(device) == "cpu":
+        return
+    # in process, warm: time the binarizer's calls (each a page-strip
+    # upload, one Sauvola launch and the mask's copy back)
+    real = core_binarize.from_string
+    spent = [0.0, 0]
+
+    def timed_from_string(spec, dev=None):
+        fn = real(spec, dev)
+
+        def run(strip):
+            t0 = time.perf_counter()
+            out = fn(strip)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+        return run
+
+    opts = dict(model=str(ROOT / "models_pretrained" / "recognizer"),
+                binarize="sauvola", lock_strategy="NONE", plain=True,
+                device=str(device))
+    proc = OCRProcessor(opts)
+    times = []
+    core_binarize.from_string = timed_from_string
+    try:
+        for rep in range(3):
+            corpus = workdir / ("binarize_warm_%d" % rep)
+            shutil.copytree(FIXTURE, corpus,
+                            ignore=shutil.ignore_patterns("ref"))
+            spent[:] = [0.0, 0]
+            _sync(device)
+            t0 = time.perf_counter()
+            proc.traverse(str(corpus))
+            _sync(device)
+            times.append((time.perf_counter() - t0, spent[0], spent[1]))
+    finally:
+        core_binarize.from_string = real
+    wall, sauv, calls = sorted(times[1:])[0]
+    log("  ocr --binarize sauvola in process, warm (best of 2 after one "
+        "warm-up): %.3f s for %d pages, %.3f pages/s; %d per-strip "
+        "Sauvola round trips took %.3f s, %.1f %% of the pass (%s)" % (
+            wall, n, n / wall, calls, sauv, 100.0 * sauv / wall,
+            smi_line()))
+
+
+def check_auto_segment(workdir, device, failed):
+    """Phase 13 (b): the segment CLI with -m auto:<students> on the real
+    1872 scan (mode "trained", TABULAR and TEXT within the bounds of
+    tests/test_pretrained.py) and on the fixture pages (the JAX auto
+    mode's modes, label maps at the bf16 bar against
+    tests/data/torch_segment/ref/*.auto.segment.zip); then one fixture
+    page whose trained maps are replaced by maps without text, which
+    must fall back to the heuristic maps with one `sauvola` launch."""
+    import numpy as np
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core.predict import (
+        AutoSegmentationPredictor, HeuristicSegmentationPredictor)
+    from origami_tpu_torch.core.segment import Prediction, Segmentation
+    modes = json.loads((SEG_REF / "auto_modes.json").read_text())
+    corpus = copy_pages(workdir / "seg_auto")
+    shutil.copy(REAL_SCAN, corpus / REAL_SCAN.name)
+    reset_launches()
+    # one page a batch, as the references were made: a batch pads its
+    # pages to one canvas, which a page of another size would change
+    launches, wall, stage_s = run_stage_cli(
+        "segment", corpus, device,
+        ["-m", "auto:" + str(ROOT / STUDENTS), "-b", "1"])
+    for png in sorted(corpus.glob("*.png")):
+        out = corpus / (png.stem + ".out")
+        entry = json.loads((out / "runtime.json").read_text()).get(
+            SEG_STAGE, {})
+        if entry.get("status") != "COMPLETED":
+            failed.append("segment auto on %s: %s" % (
+                png.name, entry.get("traceback", entry)))
+            continue
+        mode = entry.get("segmentation_mode")
+        seg = Segmentation.open(out / "segment.zip")
+        reg = seg.by_name("regions")
+        if png.stem == REAL_SCAN.stem:
+            frac = {k: float(reg.class_mask(k).mean())
+                    for k in ("TEXT", "TABULAR")}
+            ok = mode == "trained" \
+                and frac["TABULAR"] <= REAL_SCAN_MAX_TABULAR \
+                and frac["TEXT"] >= REAL_SCAN_MIN_TEXT
+            log("  segment auto %s: mode %s, TEXT %.4f, TABULAR %.4f  %s"
+                % (png.stem, mode, frac["TEXT"], frac["TABULAR"],
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                failed.append("segment auto %s: mode %s, %s" % (
+                    png.stem, mode, frac))
+            continue
+        ref = Segmentation.open(SEG_REF / (png.stem + ".auto.segment.zip"))
+        equal = {k: float((seg.by_name(k).labels == ref.by_name(k).labels)
+                          .mean()) for k in ("regions", "separators")}
+        want = modes[png.stem]["bf16"]
+        ok = mode == want and min(equal.values()) >= \
+            SEG_MODES["students_bf16"][2]
+        log("  segment auto %s: mode %s (JAX %s), equal pixels %s  %s" % (
+            png.stem, mode, want, json.dumps(equal),
+            "ok" if ok else "FAIL"))
+        if not ok:
+            failed.append("segment auto %s: mode %s (JAX %s), equal %s"
+                          % (png.stem, mode, want, equal))
+    log("  segment auto: 3 pages, stage %.2f s, launches %s" % (
+        stage_s, json.dumps({k: v for k, v in launches.items() if v})))
+
+    class NoText:
+        def predict_batch(self, pages):
+            return [Segmentation([
+                Prediction("REGION", "regions",
+                           np.full((64, 48), 3, np.uint8), REGION_CLASSES),
+                Prediction("SEPARATOR", "separators",
+                           np.full((64, 48), 3, np.uint8), SEP_CLASSES)])
+                for _ in pages]
+
+    from origami_tpu_torch.ops.binarize import launches as sauvola_counts
+    png = sorted(FIXTURE.glob("*.png"))[-1]
+    auto = AutoSegmentationPredictor(
+        trained=NoText(), heuristic=HeuristicSegmentationPredictor(
+            device=device), device=device)
+    reset_launches()
+    seg = auto.predict_batch([_png.read_gray(png)])[0]
+    _sync(device)
+    n_sauvola = sauvola_counts["sauvola"]
+    ref = Segmentation.open(SEG_REF / (png.stem + ".heuristic.segment.zip"))
+    equal = {k: float((seg.by_name(k).labels == ref.by_name(k).labels)
+                      .mean()) for k in ("regions", "separators")}
+    # on the CPU the plain version runs: no launch
+    ok = auto.last_modes == ["heuristic"] \
+        and n_sauvola == (0 if str(device) == "cpu" else 1) \
+        and min(equal.values()) >= SEG_MODES["heuristic"][2]
+    log("  auto with a trained map without text, %s: mode %s, sauvola "
+        "launches %d, equal pixels to the JAX heuristic maps %s  %s" % (
+            png.stem, auto.last_modes, n_sauvola, json.dumps(equal),
+            "ok" if ok else "FAIL"))
+    if not ok:
+        failed.append("auto fallback on %s: modes %s, sauvola %d, equal %s"
+                      % (png.stem, auto.last_modes, n_sauvola, equal))
+
+
+def check_page_pipeline(workdir, device, failed):
+    """Phase 13 (c): PagePipeline with the students and the recognizer
+    over the fixture's two page images, sequential and overlapped: every
+    page composed, page.txt within PORT_CHAIN_MAX_CER of the JAX chain's;
+    each run's wall time and launches."""
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.pipeline import PagePipeline
+    pages = sorted(FIXTURE.glob("*.png"))
+    images = [_png.read_gray(p) for p in pages]
+    names = [p.stem for p in pages]
+    pipe = PagePipeline(
+        segmentation_model=str(ROOT / STUDENTS),
+        ocr_model=str(ROOT / "models_pretrained" / "recognizer"),
+        page_xml=True, device=str(device))
+    for overlap in (False, True):
+        reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        results = pipe.process_batch(images, names=names, overlap=overlap)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        from origami_tpu_torch.batch.detect.flow import kernel_launches
+        same = n = errs = chars = 0
+        for name, res in zip(names, results):
+            if not res.text or not res.page_xml:
+                failed.append("PagePipeline (overlap %s): %s not composed"
+                              % (overlap, name))
+                continue
+            ref = page_text(COMPOSE_REF / (name + ".out") / "compose.zip")
+            s, k, e, c = text_diff(res.text, ref)
+            same, n, errs, chars = same + s, n + k, errs + e, chars + c
+        cer = errs / max(chars, 1)
+        ok = cer <= PORT_CHAIN_MAX_CER and n > 0
+        log("  PagePipeline (students, recognizer, overlap %s) %d pages: "
+            "%.2f s wall, page.txt %d of %d lines identical to the JAX "
+            "chain's, CER %.5f  launches %s  %s" % (
+                overlap, len(pages), wall, same, n, cer,
+                json.dumps({k: v for k, v in kernel_launches().items()
+                            if v}), "ok" if ok else "FAIL"))
+        if not ok:
+            failed.append("PagePipeline (overlap %s): CER %.5f" % (overlap,
+                                                                   cer))
+
+
+def check_exports(workdir, device, failed):
+    """Phase 13 (d): export.lines on the fixture corpus (one PNG per OCR
+    line, each equal to the OCR path's strip for that line; with
+    --binarize sauvola to its binarized strip) and export.pagexml (the
+    XML parses, one TextLine per line of lines.0.zip)."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    from origami_tpu_torch.batch.core.lines import LineExtractor
+    from origami_tpu_torch.core import _png
+    for binarize in ("", "sauvola"):
+        corpus = workdir / ("export_lines_%s" % (binarize or "gray"))
+        shutil.copytree(FIXTURE, corpus, ignore=shutil.ignore_patterns("ref"))
+        out = workdir / ("export_lines_out_%s" % (binarize or "gray"))
+        reset_launches()
+        run_stage_cli("export.lines", corpus, device,
+                      ["-o", str(out)] + (["--binarize", binarize]
+                                          if binarize else []))
+        bad = []
+        n_png = 0
+        for png in sorted(corpus.glob("*.png")):
+            reader = Input(Artifact.LINES, Artifact.TABLES,
+                           stage=Stage.RELIABLE).instantiate(
+                png, device=device)
+            ext = LineExtractor(reader.tables, 48, dict(
+                binarize=binarize, device=str(device)),
+                min_confidence=reader.lines.min_confidence)
+            strips = dict(ext(reader.lines.by_path))
+            ocr = read_zip(FIXTURE / "ref" / (png.stem + ".single.ocr.zip"))
+            files = sorted((out / png.stem / "dw1-ds1-h48").glob("*.png"))
+            n_png += len(files)
+            if len(files) != len(ocr):
+                bad.append("%s: %d PNGs for %d OCR lines" % (
+                    png.stem, len(files), len(ocr)))
+            for path, strip in strips.items():
+                f = out / png.stem / "dw1-ds1-h48" / (
+                    "-".join(map(str, path)).replace("/", "-") + ".png")
+                if not f.exists() or not np.array_equal(
+                        _png.read_gray(f), strip):
+                    bad.append("%s: %s" % (png.stem, f.name))
+        log("  export.lines%s: %d PNGs, each the OCR path's strip  %s" % (
+            " --binarize " + binarize if binarize else "", n_png,
+            "ok" if not bad else "FAIL %s" % bad[:5]))
+        if bad:
+            failed.append("export.lines %s: %s" % (binarize, bad[:5]))
+    corpus = flow_corpus(workdir / "export_pagexml")
+    for png in sorted(corpus.glob("*.png")):
+        shutil.copy(FLOW_REF / (png.stem + ".out") / "lines.0.zip",
+                    corpus / (png.stem + ".out"))
+    out = workdir / "export_pagexml_out"
+    run_stage_cli("export.pagexml", corpus, device, ["-o", str(out)])
+    for png in sorted(corpus.glob("*.png")):
+        root = ET.parse(out / (png.stem + ".xml")).getroot()
+        n_lines = sum(1 for e in root.iter() if e.tag.endswith("TextLine"))
+        want = sum(1 for k in read_zip(corpus / (png.stem + ".out")
+                                       / "lines.0.zip")
+                   if k.endswith(".json") and k != "meta.json")
+        ok = n_lines == want
+        log("  export.pagexml %s: %d TextLine elements for %d lines  %s"
+            % (png.stem, n_lines, want, "ok" if ok else "FAIL"))
+        if not ok:
+            failed.append("export.pagexml %s: %d TextLines, %d lines"
+                          % (png.stem, n_lines, want))
+
+
+def check_inference_surface(workdir, device="cuda"):
+    """Phase 13: the rest of the inference surface, (a) to (d)."""
+    failed = []
+    for check in (check_binarize_ocr, check_auto_segment,
+                  check_page_pipeline, check_exports):
+        t0 = time.time()
+        check(workdir, device, failed)
+        log("  (%s: %.1f s)" % (check.__name__, time.time() - t0))
+    if failed:
+        raise PhaseError("; ".join(failed))
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -2918,7 +3295,9 @@ def main():
         work = Path(tmp)
         for mode in MODES:
             r = run_ocr_cli(mode, work)
-            ok = r["identical"] >= MIN_IDENTICAL and r["cer"] <= MAX_CER
+            same = round(r["identical"] * r["lines"])
+            ok = r["identical"] >= MIN_IDENTICAL and r["cer"] <= MAX_CER \
+                and same >= MIN_IDENTICAL_LINES[mode]
             # the dewarp kernel at least once per page in the banded runs;
             # a page's strips in exactly one launch of their mode: (a) in
             # the banded runs (and (b) at most once, for lines past the
@@ -2939,17 +3318,20 @@ def main():
                                    {k: got[k] for k in ("strips_dewarped",
                                                         "strips_through_grid")},
                                    n))
-            log("  %-8s %d pages %d lines: identical %.4f  CER %.5f  "
-                "launches %s  stage %.2f s (%.2f pages/s, %.1f lines/s, "
-                "cold process)  %s" % (
-                    mode, r["pages"], r["lines"], r["identical"], r["cer"],
+            log("  %-8s %d pages %d lines: identical %d (%.4f; gate %d)  "
+                "CER %.5f  launches %s  stage %.2f s (%.2f pages/s, %.1f "
+                "lines/s, cold process)  %s" % (
+                    mode, r["pages"], r["lines"], same, r["identical"],
+                    MIN_IDENTICAL_LINES[mode], r["cer"],
                     json.dumps(r["launches"]), r["stage_s"],
                     r["pages"] / r["stage_s"], r["lines"] / r["stage_s"],
                     "ok" if ok and not starved else "FAIL"))
             if not ok:
-                failed.append("%s: identical %.4f < %.2f or CER %.5f > %.3f"
-                              % (mode, r["identical"], MIN_IDENTICAL,
-                                 r["cer"], MAX_CER))
+                failed.append("%s: identical %d (%.4f; gates %d, %.2f) or "
+                              "CER %.5f > %.3f" % (
+                                  mode, same, r["identical"],
+                                  MIN_IDENTICAL_LINES[mode], MIN_IDENTICAL,
+                                  r["cer"], MAX_CER))
             if starved:
                 failed.append("%s: launch counts: %s" % (mode, starved))
         if failed:
@@ -3060,6 +3442,10 @@ def main():
         log("== phase 12: the whole chain from the page images through "
             "PipelinedRunner on the card (%s)" % smi)
         whole = check_whole_chain(work)
+
+        log("== phase 13: OCR --binarize, -m auto:, PagePipeline and the "
+            "export CLIs on the card (%s)" % smi)
+        check_inference_surface(work)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]

@@ -15,6 +15,7 @@ dewarps on it.
 from __future__ import annotations
 
 import enum
+import io as _io
 import json
 import os
 import tempfile
@@ -99,6 +100,73 @@ class AtomicFileWriter:
 
     def __call__(self, path, mode="wb"):
         return atomic_write(path, mode, overwrite=self.overwrite)
+
+
+class TrackChangeWriter:
+    """Writes only when the content differs (a zip: its members) and
+    leaves `<stem>.checked` (new) or `<stem>.changed` (differs) markers
+    holding `tag`, so a corpus-wide regression diff is a file listing
+    (origami_tpu/batch/core/io.py:143-181)."""
+
+    overwrite = True
+
+    def __init__(self, tag="changed"):
+        self._tag = tag
+
+    @staticmethod
+    def _zips_equal(old, new):
+        try:
+            with zipfile.ZipFile(_io.BytesIO(old)) as z1, \
+                    zipfile.ZipFile(_io.BytesIO(new)) as z2:
+                if z1.namelist() != z2.namelist():
+                    return False
+                return all(z1.read(n) == z2.read(n) for n in z1.namelist())
+        except zipfile.BadZipFile:
+            return False
+
+    @contextmanager
+    def __call__(self, path, mode="wb"):
+        path = Path(path)
+        old = path.read_bytes() if path.exists() else None
+        tmp = path.parent / (path.stem + ".tmp")
+        with open(tmp, mode) as f:
+            yield f
+        new = tmp.read_bytes()
+        if old is None:
+            changed = True
+            (path.parent / (path.stem + ".checked")).write_text(self._tag)
+        elif path.suffix == ".zip":
+            changed = not self._zips_equal(old, new)
+        else:
+            changed = old != new
+        if changed and old is not None:
+            (path.parent / (path.stem + ".changed")).write_text(self._tag)
+        if changed:
+            os.replace(tmp, path)
+        else:
+            os.remove(tmp)
+
+
+class DebuggingFileWriter:
+    """Prints each write's path, mode and size around `inner`'s write."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    @property
+    def overwrite(self):
+        return self._inner.overwrite
+
+    @contextmanager
+    def __call__(self, path, mode="wb"):
+        print("write: opening %s (%s)" % (path, mode))
+        with self._inner(path, mode) as f:
+            yield f
+        try:
+            size = Path(path).stat().st_size
+            print("write: %s written, %d bytes" % (path, size))
+        except OSError:
+            print("write: %s write failed to stat" % path)
 
 
 # ---------------------------------------------------------------------------

@@ -138,16 +138,17 @@ class LineExtractor:
         self._min_confidence = min_confidence
         self._max_width = max_width
         self._rewriter = LineRewriter(tables)
-        if options.get("binarize", "").strip():
-            raise NotImplementedError(
-                "--binarize runs on the host strip path of the OCR stage "
-                "(origami_tpu/batch/detect/ocr.py:536-560), which is not "
-                "ported yet (ROADMAP.md, queue A)")
+        spec = options.get("binarize", "").strip()
+        if spec:
+            from origami_tpu_torch.core.binarize import from_string
+            self._binarizer = from_string(spec, options.get("device"))
+        else:
+            self._binarizer = None
 
     @staticmethod
     def add_arguments(parser):
         parser.add_argument("--binarize", type=str, default="",
-                            help="line binarization (not ported)")
+                            help="line binarization (e.g. otsu, sauvola)")
         parser.add_argument("--do-not-dewarp", action="store_true")
         parser.add_argument("--do-not-deskew", action="store_true")
         parser.add_argument("--extract-mode", choices=["banded", "gather"],
@@ -323,3 +324,25 @@ class LineExtractor:
         if not self._max_width:
             return None
         return strip_width_bucket(self._max_width, cap=None)
+
+    @property
+    def binarizer(self):
+        """The --binarize spec's callable (u8 strip -> u8, 255 = paper),
+        or None."""
+        return self._binarizer
+
+    def __call__(self, lines, ignored=None):
+        return self.extract(self.parts(lines, ignored=ignored))
+
+    def extract(self, parts):
+        """parts: [(path, line, column)] -> [(path, strip u8 numpy)],
+        each strip binarized when a binarizer is set."""
+        out = []
+        for paths, dev, widths, _ in self.device_groups(parts):
+            strips = dev.cpu().numpy()
+            for i, path in enumerate(paths):
+                strip = strips[i, :, : widths[i]]
+                if self._binarizer is not None:
+                    strip = self._binarizer(strip)
+                out.append((path, strip))
+        return out

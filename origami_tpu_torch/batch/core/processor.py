@@ -8,7 +8,12 @@ captured with its traceback and the batch loop keeps going.
 
 Every processor carries a `torch.device` (the `device` option, "cuda"
 unless the caller asks for "cpu"); the JAX runtime's multihost sharding,
-compile cache, cProfile hook and process pool stay out.
+compile cache and process pool stay out. `--profile` runs cProfile (the
+30 largest cumulative entries printed at the end) and torch.profiler,
+whose Chrome trace goes to `<corpus>/torch-trace/` (the JAX runtime's
+`jax.profiler.trace` into `<corpus>/jax-trace`); `--track-changes TAG`
+and `--debug-write` choose the file writer as the JAX runtime does
+(:225-231).
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from pathlib import Path
 
 from origami_tpu_torch.batch.core import mutex as _mutex
 from origami_tpu_torch.batch.core.io import (
-    AtomicFileWriter, Artifact, find_data_path)
+    AtomicFileWriter, Artifact, DebuggingFileWriter, TrackChangeWriter,
+    find_data_path)
 from origami_tpu_torch.core.page import is_image
 from origami_tpu_torch.device import resolve
 
@@ -47,11 +53,11 @@ class Processor:
         self._max_lock_age = options.get("max_lock_age", 600)
         self._lock_database = options.get("lock_database")
         self._plain = options.get("plain", False)
-        for name in ("profile", "debug_write", "track_changes"):
-            if options.get(name):
-                raise NotImplementedError(
-                    "--%s is not ported (ROADMAP.md, queue A)"
-                    % name.replace("_", "-"))
+        self._debug_write = options.get("debug_write", False)
+        self._track_changes = options.get("track_changes", "")
+        self._profile = options.get("profile", False)
+        if self._profile:
+            self._overwrite = True
         self.device = resolve(options.get("device"))
         self._mutex = None
 
@@ -78,13 +84,15 @@ class Processor:
                             help="Recompute and overwrite existing "
                                  "artifacts.")
         parser.add_argument("--profile", action="store_true",
-                            help="(not ported)")
+                            help="Profile processing (cProfile and a "
+                                 "torch.profiler trace); overwrites.")
         parser.add_argument("--plain", action="store_true",
                             help="Pipe-friendly plain output.")
         parser.add_argument("--debug-write", action="store_true",
-                            help="(not ported)")
+                            help="Print every artifact write.")
         parser.add_argument("--track-changes", type=str, default="",
-                            help="(not ported)")
+                            help="Recompute artifacts, marking changed "
+                                 "ones.")
         parser.add_argument("--device", type=str, default="cuda",
                             help="torch device: cuda (default) or cpu")
 
@@ -101,9 +109,17 @@ class Processor:
         return True
 
     # -- queue construction ------------------------------------------------
+    def _file_writer(self):
+        if self._track_changes:
+            return TrackChangeWriter(self._track_changes)
+        w = AtomicFileWriter(overwrite=self._overwrite)
+        if self._debug_write:
+            w = DebuggingFileWriter(w)
+        return w
+
     def prepare_process(self, page_path):
         kwargs = {}
-        writer = AtomicFileWriter(overwrite=self._overwrite)
+        writer = self._file_writer()
         for arg, spec in self.artifacts():
             f = spec.instantiate(page_path=page_path, processor=self,
                                  file_writer=writer)
@@ -179,10 +195,34 @@ class Processor:
             print("running %s." % self.processor_name, flush=True)
         queued = self._build_queue(path)
         self._mutex = self._make_mutex(path)
+        profiler = device_trace = None
+        if self._profile:
+            import cProfile
+
+            import torch.profiler
+            p0 = Path(path[0]) if isinstance(path, (list, tuple)) \
+                else Path(path)
+            trace_dir = (p0 if p0.is_dir() else p0.parent) / "torch-trace"
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            device_trace = torch.profiler.profile(activities=activities)
+            profiler = cProfile.Profile()
+            device_trace.__enter__()
+            profiler.enable()
         try:
             self._process_queue(queued)
         finally:
             self._mutex = None
+            if profiler is not None:
+                import pstats
+                profiler.disable()
+                device_trace.__exit__(None, None, None)
+                trace_dir.mkdir(parents=True, exist_ok=True)
+                device_trace.export_chrome_trace(
+                    str(trace_dir / ("%s.json" % self.processor_name)))
+                pstats.Stats(profiler).sort_stats(
+                    "cumulative").print_stats(30)
 
     def _process_queue(self, queued):
         raise NotImplementedError

@@ -5,9 +5,11 @@ Port of origami_tpu/batch/detect/contours.py: segment.zip ->
 contours.0.zip. Region masks run through the polygon pipeline (border
 following, Decompose, area filter, frame noise filter); separator masks
 through thinning and skeleton polyline estimation. Label-space shapes are
-scaled to page coordinates before writing. All of it is host work (the
-port's geometry and the C++ of geometry/native.cpp and
-contour_trace.cpp); the stage launches no kernel.
+scaled to page coordinates before writing; `--export-images` also
+stores each region's crop of the page as a gray PNG beside its WKT. All
+of it is host work (the port's geometry and the C++ of
+geometry/native.cpp and contour_trace.cpp); the stage launches no
+kernel.
 
     python -m origami_tpu_torch.batch.detect.contours CORPUS [--device cpu]
 """
@@ -23,7 +25,9 @@ from origami_tpu_torch.batch.core.io import Artifact, Input, Output, Stage
 from origami_tpu_torch.batch.core.processor import (BatchedProcessor,
                                                     Processor)
 from origami_tpu_torch.batch.detect.flow import kernel_launches
+from origami_tpu_torch.core import _png
 from origami_tpu_torch.core import contours as C
+from origami_tpu_torch.core.mask import Mask
 from origami_tpu_torch.core.math import Geometry
 from origami_tpu_torch.core.page import Page
 from origami_tpu_torch.core.segment import PredictorType
@@ -38,10 +42,6 @@ class ContoursProcessor(BatchedProcessor):
 
     def __init__(self, options):
         super().__init__(options, batch_size=1)
-        if options.get("export_images"):
-            raise NotImplementedError(
-                "--export-images is not ported (it needs PIL and "
-                "core/mask.py; ROADMAP.md, queue A)")
         self._opt = options
 
     @property
@@ -66,7 +66,8 @@ class ContoursProcessor(BatchedProcessor):
 
     def process(self, p, input, output):
         seg = input.segmentation
-        page_size = Page(p, device=self.device).size()
+        page = Page(p, device=self.device)
+        page_size = page.size()
 
         opt = self._opt
         with output.contours() as zf:
@@ -87,9 +88,19 @@ class ContoursProcessor(BatchedProcessor):
                         lambda label: pipe, list(pred.classes))
                     for cls, shapes in build(pred.labels).items():
                         for i, poly in enumerate(shapes):
+                            page_poly = to_page(poly)
                             zf.writestr(
                                 "%s/%s/%d.wkt" % (pred.name, cls.name, i),
-                                to_page(poly).wkt)
+                                page_poly.wkt)
+                            if opt.get("export_images"):
+                                # the region's crop of the page, as a
+                                # gray PNG beside its WKT
+                                crop, _ = Mask(page_poly).extract_image(
+                                    page.warped)
+                                zf.writestr(
+                                    "%s/%s/%d.png"
+                                    % (pred.name, cls.name, i),
+                                    _png.encode_gray(crop))
                 else:
                     tol = label_geom.rel_length(
                         opt.get("separator_threshold", 4 / 1000))
@@ -120,8 +131,7 @@ def parser():
         prog="python -m origami_tpu_torch.batch.detect.contours",
         description="Extract contours for all pages in DATA_PATH.")
     p.add_argument("--export-images", action="store_true",
-                   help="Also store region crops in the zip (not ported: "
-                        "raises).")
+                   help="Also store region crops in the zip.")
     p.add_argument("--region-area", type=float, default=0.0025,
                    help="Ignore regions below this relative area.")
     p.add_argument("--margin-distance", type=float, default=0.01,

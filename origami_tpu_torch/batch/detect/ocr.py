@@ -362,6 +362,15 @@ class OCRProcessor(BatchedProcessor):
                     logging.info("would OCR %s", "/".join(map(str, path)))
                 infos[page_path] = dict(n_lines=len(parts), dry=True)
                 continue
+            if extractor.binarizer is not None:
+                # every strip comes to the host, is binarized (Sauvola:
+                # one kernel launch a strip) and goes through predict,
+                # as ocr.py:536-560 of the JAX stage does
+                with span("ocr.host_strips"):
+                    host_strips.extend(
+                        (page_path, path, strip)
+                        for path, strip in extractor.extract(parts))
+                continue
             device_ok = hasattr(predictor, "predict_device_deferred_multi")
             with span("ocr.collect_groups"):
                 groups = list(extractor.device_groups(parts))
@@ -440,12 +449,13 @@ def main(argv=None):
     if not Path(args.data_path).exists():
         raise SystemExit("no such path: %s" % args.data_path)
     from origami_tpu_torch.batch.core import prof
-    from origami_tpu_torch.ops.remap import launches
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
     OCRProcessor(vars(args)).traverse(args.data_path)
     if prof.enabled:
         prof.report()
-    # one JSON line: how often each kernel ran (read by chip_smoke.py)
-    print(json.dumps({"kernel_launches": dict(launches)}), flush=True)
+    # one JSON line: how often each kernel ran (read by chip_smoke.py;
+    # with --binarize the Sauvola kernel runs too)
+    print(json.dumps({"kernel_launches": kernel_launches()}), flush=True)
 
 
 if __name__ == "__main__":

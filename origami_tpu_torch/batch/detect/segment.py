@@ -4,7 +4,9 @@ Port of origami_tpu/batch/detect/segment.py: image -> segment.zip
 (paletted label PNGs + class JSONs) plus the stage's runtime.json entry.
 A whole lock-chunk of pages goes through the region and separator
 ensembles in one device batch; `--model heuristic` uses the model-free
-device segmenter. Every batch also prefetches each page's Sauvola mask
+device segmenter, `--model auto:<dir>` the ensembles with a per-page
+heuristic fallback (runtime.json records each page's
+`segmentation_mode`). Every batch also prefetches each page's Sauvola mask
 (the CUDA kernel of csrc/sauvola.cu) into the process-wide LRU that
 flow, layout and lines read.
 
@@ -35,10 +37,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class SegmentationProcessor(BatchedProcessor):
     def __init__(self, model, options):
         super().__init__(options, batch_size=options.get("batch_size", 8))
-        if str(model).lower().startswith("auto:"):
-            raise NotImplementedError(
-                "-m auto:<dir> (trained models with a per-page heuristic "
-                "fallback) is not ported yet (ROADMAP.md, queue A)")
         self._model_path = model
         self._target = options.get("target", "quality")
         self._dtype = _DTYPES[options.get("dtype", "bfloat16")]
@@ -59,6 +57,13 @@ class SegmentationProcessor(BatchedProcessor):
                     HeuristicSegmentationPredictor
                 self._predictor = HeuristicSegmentationPredictor(
                     device=self.device)
+            elif spec.lower().startswith("auto:"):
+                # trained students with a per-page heuristic fallback
+                from origami_tpu_torch.core.predict import \
+                    AutoSegmentationPredictor
+                self._predictor = AutoSegmentationPredictor(
+                    spec[len("auto:"):], target=self._target,
+                    device=self.device, dtype=self._dtype)
             else:
                 from origami_tpu_torch.core.predict import \
                     SegmentationPredictor
@@ -86,6 +91,12 @@ class SegmentationProcessor(BatchedProcessor):
         # batch
         for pg in page_objs:
             pg.binarized
+        # auto mode: each page's trained/heuristic decision goes into
+        # runtime.json, as the JAX stage records it
+        modes = getattr(predictor, "last_modes", None)
+        if modes:
+            return {p: {"segmentation_mode": m}
+                    for (p, _), m in zip(pages, modes)}
         return {}
 
 
@@ -94,8 +105,10 @@ def parser():
         prog="python -m origami_tpu_torch.batch.detect.segment",
         description="Segment all document images in DATA_PATH.")
     p.add_argument("-m", "--model", required=True, type=str,
-                   help="models directory, or 'heuristic' for the "
-                        "model-free device segmenter")
+                   help="models directory, 'heuristic' for the "
+                        "model-free device segmenter, or 'auto:<dir>' "
+                        "for trained models with a per-page heuristic "
+                        "fallback on domain collapse")
     p.add_argument("-t", "--target", type=str, default="quality",
                    help="speed (1 model per net) vs quality (full "
                         "ensembles)")

@@ -154,6 +154,31 @@ def encode_paletted(indices, palette, level=1):
         _chunk(b"IEND", b"")])
 
 
+_GRAY_LEVEL = 6  # zlib's default level
+
+
+def encode_gray(pixels):
+    """uint8 (H, W) gray pixels -> PNG bytes: colour type 0, 8 bits,
+    every row with filter 0, zlib level `_GRAY_LEVEL`. (PIL writes
+    other bytes for the same pixels; both decode to them.)"""
+    px = np.ascontiguousarray(pixels, np.uint8)
+    if px.ndim != 2:
+        raise ValueError("pixels must be (H, W)")
+    h, w = px.shape
+    rows = np.zeros((h, w + 1), np.uint8)
+    rows[:, 1:] = px
+    return b"".join([
+        _SIG,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), _GRAY_LEVEL)),
+        _chunk(b"IEND", b"")])
+
+
+def write_gray(path, pixels):
+    with open(path, "wb") as f:
+        f.write(encode_gray(pixels))
+
+
 def to_gray(px):
     """PIL `convert("L")`: L = (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
     if px.ndim == 2:

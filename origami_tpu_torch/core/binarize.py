@@ -26,8 +26,13 @@ def _runner(fn, device):
 
 
 def sauvola(window_size=15, k=0.2, device=None):
+    """The JAX package reaches this through ops/binarize.sauvola (XLA),
+    whose box is 2 * (w // 2) + 1 pixels wide: an even window takes the
+    next odd one here (ROADMAP C10); the kernel itself takes odd windows
+    only."""
     from origami_tpu_torch.ops.binarize import sauvola as _sauvola
-    return _runner(lambda px: _sauvola(px, int(window_size), k), device)
+    window = int(window_size) | 1
+    return _runner(lambda px: _sauvola(px, window, k), device)
 
 
 def otsu(device=None):

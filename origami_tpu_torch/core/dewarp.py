@@ -262,8 +262,15 @@ class Dewarper:
 
     @cached_property
     def dewarped_dev(self):
-        """The dewarped page, u8 (gh*res, gw*res), on the page's device."""
+        """The dewarped page, u8 (gh*res, gw*res), on the page's device,
+        by the JAX Dewarper's route (core/dewarp.py:504-520): the banded
+        route's border (taps off the page read the fill) where the grid
+        has a banded plan for the page, else the dense route's hard
+        edge."""
         from origami_tpu_torch.ops.remap import dewarp_u8
         hv = torch.from_numpy(self._grid.points("sample")).to(
             self._image.device)
-        return dewarp_u8(self._image, hv, self._grid.resolution, 255.0)
+        border = "fill_taps" if self._grid.has_banded_plan(
+            tuple(self._image.shape)) else "hard"
+        return dewarp_u8(self._image, hv, self._grid.resolution, 255.0,
+                         border)

@@ -10,7 +10,8 @@ again updating its data in place, `edges()` yielding each edge once from
 the end that came first, components found by breadth-first search from
 each unseen node in insertion order, and Dijkstra's algorithm with the
 same heap entries (distance, push count, node) and the same predecessor
-rule.
+rule: from one source for distances, from both ends in turn for the
+path between two nodes.
 """
 
 from __future__ import annotations
@@ -91,10 +92,10 @@ def connected_components(g):
         yield comp
 
 
-def _dijkstra(g, source, weight, target=None):
+def single_source_dijkstra_path_length(g, source, weight):
+    """{node: distance} in the order the nodes were settled."""
     dist = {}
     seen = {source: 0}
-    pred = {}
     c = count()
     fringe = [(0, next(c), source)]
     while fringe:
@@ -102,8 +103,6 @@ def _dijkstra(g, source, weight, target=None):
         if v in dist:
             continue
         dist[v] = d
-        if v == target:
-            break
         for u, e in g[v].items():
             vu = d + weight(v, u, e)
             if u in dist:
@@ -113,23 +112,52 @@ def _dijkstra(g, source, weight, target=None):
             elif u not in seen or vu < seen[u]:
                 seen[u] = vu
                 heapq.heappush(fringe, (vu, next(c), u))
-                pred[u] = v
-    return dist, pred
-
-
-def single_source_dijkstra_path_length(g, source, weight):
-    """{node: distance} in the order the nodes were settled."""
-    return _dijkstra(g, source, weight)[0]
+    return dist
 
 
 def dijkstra_path(g, source, target, weight):
-    """Node list of a shortest path (networkx.shortest_path with a weight
-    function); raises NoPath."""
-    dist, pred = _dijkstra(g, source, weight, target)
-    if target not in dist:
-        raise NoPath((source, target))
-    path = [target]
-    while path[-1] in pred:
-        path.append(pred[path[-1]])
-    path.reverse()
-    return path
+    """Node list of a shortest path, as networkx.shortest_path with a
+    weight function finds it: networkx.bidirectional_dijkstra, which
+    searches from both ends in turn and so breaks ties between equal
+    paths otherwise than a search from the source alone. Raises NoPath."""
+    if source == target:
+        return [source]
+    dists = [{}, {}]
+    preds = [{source: None}, {target: None}]
+    seen = [{source: 0}, {target: 0}]
+    c = count()
+    fringe = [[(0, next(c), source)], [(0, next(c), target)]]
+    finaldist = meet = None
+    direction = 1
+    while fringe[0] and fringe[1]:
+        direction = 1 - direction
+        d, _, v = heapq.heappop(fringe[direction])
+        if v in dists[direction]:
+            continue
+        dists[direction][v] = d
+        if v in dists[1 - direction]:
+            path, n = [], meet
+            while n is not None:
+                path.append(n)
+                n = preds[0][n]
+            path.reverse()
+            n = preds[1][meet]
+            while n is not None:
+                path.append(n)
+                n = preds[1][n]
+            return path
+        for u, e in g[v].items():
+            vu = d + (weight(v, u, e) if direction == 0 else weight(u, v, e))
+            if u in dists[direction]:
+                if vu < dists[direction][u]:
+                    raise ValueError("Contradictory paths found: "
+                                     "negative weights?")
+            elif u not in seen[direction] or vu < seen[direction][u]:
+                seen[direction][u] = vu
+                heapq.heappush(fringe[direction], (vu, next(c), u))
+                preds[direction][u] = v
+                if u in seen[1 - direction]:
+                    total = vu + seen[1 - direction][u]
+                    if finaldist is None or finaldist > total:
+                        finaldist, meet = total, u
+    raise NoPath((source, target))

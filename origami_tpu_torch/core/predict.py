@@ -14,7 +14,11 @@ Two predictor families:
                           model-free device segmentation (Sauvola
                           binarization through the CUDA kernel + oriented
                           morphology), which lets the whole pipeline run
-                          without trained weights.
+                          without trained weights;
+  AutoSegmentationPredictor
+                          the trained ensembles with a per-page fallback
+                          to the heuristic one where they collapse
+                          (`-m auto:<dir>`).
 """
 
 from __future__ import annotations
@@ -247,3 +251,123 @@ class HeuristicSegmentationPredictor:
 
     def predict_batch(self, pages):
         return [self(p) for p in pages]
+
+
+def _resize_nearest(mask, shape):
+    """cv2.resize(mask, (w, h), interpolation=INTER_NEAREST): source
+    index min(floor(i * (1 / (dst / src))), src - 1) per axis, in
+    float64 as resizeNN computes it."""
+    h, w = shape
+    sh, sw = mask.shape
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))), sh - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))), sw - 1)
+    return mask[ys.astype(np.intp)[:, None], xs.astype(np.intp)[None, :]]
+
+
+class AutoSegmentationPredictor:
+    """Trained students with a per-page heuristic fallback on domain
+    collapse (origami_tpu/core/predict.py:295-444): after the trained
+    forward pass, TABULAR components without table-column (T) separator
+    support become TEXT; then, if the TEXT/TABULAR regions cover less
+    than `min_ink_coverage` of the page's ink, the page is segmented
+    again by the heuristic predictor. `last_modes` holds the decision
+    ("trained" / "heuristic") per page of the latest batch. The ink
+    mask, the resize and the dilation are cv2's, done on the host in
+    numpy; the components are geometry/contour_trace's."""
+
+    def __init__(self, models_path=None, target="quality", device=None,
+                 dtype=torch.bfloat16, min_ink_coverage=0.45,
+                 min_t_density=0.012, trained=None, heuristic=None):
+        if trained is None:
+            trained = SegmentationPredictor(models_path, target=target,
+                                            device=device, dtype=dtype)
+        self._trained = trained
+        self._heuristic = heuristic or HeuristicSegmentationPredictor(
+            device=device)
+        self._min_cover = float(min_ink_coverage)
+        self._min_t_density = float(min_t_density)
+        self.last_modes = []
+
+    @staticmethod
+    def _ink_mask(gray):
+        """cv2.threshold(gray[::4, ::4], 0, 1, THRESH_BINARY_INV +
+        THRESH_OTSU)[1]: 1 where the pixel is at most Otsu's
+        threshold."""
+        g = np.ascontiguousarray(np.asarray(gray, np.uint8)[::4, ::4])
+        return (g <= otsu_threshold_u8(g)).astype(np.uint8)
+
+    @staticmethod
+    def ink_coverage(seg, gray):
+        """Fraction of the page's ink inside predicted text regions."""
+        from scipy import ndimage
+
+        from origami_tpu_torch.core.segment import PredictorType
+        regions = seg.by_type(PredictorType.REGION)
+        if not regions:
+            return 0.0
+        reg = regions[0]
+        ink = AutoSegmentationPredictor._ink_mask(gray)
+        n_ink = int(ink.sum())
+        if n_ink < 0.001 * ink.size:
+            return 1.0  # blank page: nothing to cover, trust the model
+        text = np.zeros(reg.labels.shape, bool)
+        for name in ("TEXT", "TABULAR"):
+            if name in reg.classes:
+                text |= reg.class_mask(name)
+        text = _resize_nearest(text, ink.shape)
+        # cv2.dilate with a 5x5 box: pixels past the border count as 0
+        text = ndimage.binary_dilation(text, np.ones((5, 5), bool))
+        return float((ink.astype(bool) & text).sum()) / float(n_ink)
+
+    @staticmethod
+    def sanitize_tabular(seg, min_t_density=0.012, min_area=500):
+        """Reclassify TABULAR components (8-connected) whose T-separator
+        density is below `min_t_density`, or whose area is below
+        `min_area`, to TEXT, in place. Returns the pixels reclassified."""
+        from origami_tpu_torch.core.segment import PredictorType
+        from origami_tpu_torch.geometry.contour_trace import \
+            CC_STAT_AREA, connected_components_with_stats
+        regions = seg.by_type(PredictorType.REGION)
+        seps = seg.by_type(PredictorType.SEPARATOR)
+        if not regions or not seps:
+            return 0
+        reg = regions[0]
+        if "TABULAR" not in reg.classes or "TEXT" not in reg.classes:
+            return 0
+        if "T" not in seps[0].classes:
+            return 0
+        tab = reg.class_mask("TABULAR")
+        if not tab.any():
+            return 0
+        if not reg.labels.flags.writeable:
+            reg.labels = reg.labels.copy()
+        t = seps[0].class_mask("T")
+        if t.shape != tab.shape:
+            t = _resize_nearest(t, tab.shape)
+        n, lab, stats = connected_components_with_stats(tab)
+        area = stats[:, CC_STAT_AREA].astype(np.int64)
+        t_px = np.bincount(lab[t], minlength=n)
+        bad = np.zeros(n, bool)
+        for i in range(1, n):
+            if area[i] and (area[i] < min_area
+                            or float(t_px[i]) / area[i] < min_t_density):
+                bad[i] = True
+        reg.labels[bad[lab]] = reg.classes["TEXT"].value
+        return int(area[bad].sum())
+
+    def predict_batch(self, pages):
+        pages = [np.asarray(p) for p in pages]
+        segs = self._trained.predict_batch(pages)
+        out, self.last_modes = [], []
+        for page, seg in zip(pages, segs):
+            self.sanitize_tabular(seg, self._min_t_density)
+            if self.ink_coverage(seg, page) < self._min_cover:
+                out.append(self._heuristic(page))
+                self.last_modes.append("heuristic")
+            else:
+                out.append(seg)
+                self.last_modes.append("trained")
+        return out
+
+    def __call__(self, page):
+        return self.predict_batch([np.asarray(page)])[0]

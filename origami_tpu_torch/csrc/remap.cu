@@ -30,13 +30,24 @@
 //   * every source point of the tile is a convex combination of those
 //     nodes, so its taps lie in the nodes' bounding box plus one pixel
 //     for the second tap (plus one of margin for rounding), clamped to
-//     the page. When that window fits kWindowBytes of shared memory, the
+//     the page (border "hard") or to the page and a ring of one pixel
+//     of `fill` around it (border "fill_taps": every tap outside the
+//     page reads `fill`, so a tap at -5 reads what one at -1 does, and
+//     the staged window holds `fill` where it leaves the page). When
+//     that window fits kWindowBytes of shared memory, the
 //     block copies it in with 16-byte `cp.async` (byte loads where the
 //     page's rows are not 16-byte aligned) and reads its taps there;
 //     otherwise (a strongly sheared or scrambled grid) the tile reads
-//     its taps through `__ldg`. The route is chosen per tile from the
-//     geometry; a tap outside the staged window (which the bounding box
-//     excludes) would also go to `__ldg`, so both give the same bytes;
+//     its taps through `__ldg`, testing each tap against the page under
+//     "fill_taps". The route is chosen per tile from the geometry; a tap
+//     outside the staged window (which the bounding box excludes) would
+//     also go to `__ldg`, so both give the same bytes;
+//   * the two borders are the two JAX routes' (core/dewarp.py:504-520):
+//     "hard" is the dense route's (the sample is `fill` outside
+//     [0, w-1] x [0, h-1], taps clamped into the page; clipped and
+//     truncated to u8, dewarp.py:477), "fill_taps" the banded route's
+//     (its passes pad the page with `fill`, ops/remap.py:189-239;
+//     rounded, then clipped, ops/remap.py:273-275);
 //   * each thread computes 4 adjacent output pixels of a row and writes
 //     them with one 4-byte store, so a warp writes 128 contiguous bytes
 //     (a tile row is 25 such quads at 25 px cells).
@@ -87,25 +98,32 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 // An inclusive pixel range [lo, hi] of one axis of the page (size n)
 // that holds every tap of source coordinates in [mn, mx]: floor, the
-// second tap, one pixel of margin each side; empty (hi < lo) for NaN.
-__device__ __forceinline__ int2 tap_range(float mn, float mx, int n) {
+// second tap, one pixel of margin each side, clamped to [0, n-1] (hard)
+// or [-1, n] (fill_taps: the ring of fill); empty (hi < lo) for NaN.
+__device__ __forceinline__ int2 tap_range(float mn, float mx, int n,
+                                          bool fill_taps) {
   if (!(mn <= mx)) return make_int2(0, -1);
-  float top = (float)(n - 1);
-  int lo = (int)fminf(fmaxf(floorf(mn) - 1.0f, 0.0f), top);
-  int hi = (int)fminf(fmaxf(floorf(mx) + 2.0f, 0.0f), top);
+  float bot = fill_taps ? -1.0f : 0.0f;
+  float top = fill_taps ? (float)n : (float)(n - 1);
+  int lo = (int)fminf(fmaxf(floorf(mn) - 1.0f, bot), top);
+  int hi = (int)fminf(fmaxf(floorf(mx) + 2.0f, bot), top);
   return make_int2(lo, hi);
 }
 
 // full[y, x] = bilinear(hv at (x / res, y / res)), clamped to the last
 // node (map_coordinates order=1, mode="nearest"), then one bilinear
-// sample of the u8 page there, hard-edged to `fill` outside
-// [0, w-1] x [0, h-1] (ops/remap.py:58-59), rounded half to even and
-// clipped to u8. Dynamic shared memory: the window (kWindowBytes), then
-// the row table (4 res x 5 float2) and the column table (4 res float4).
+// sample of the u8 page there. fill_taps == 0 ("hard"): `fill` outside
+// [0, w-1] x [0, h-1] (ops/remap.py:58-59), taps clamped into the page,
+// clipped and truncated to u8. fill_taps == 1: the coordinate clamped
+// into [-2, w+1] x [-2, h+1], each tap outside the page reads `fill`
+// (an integer in [0, 255]), rounded half to even and clipped to u8.
+// Dynamic shared memory: the window (kWindowBytes), then the row table
+// (4 res x 5 float2) and the column table (4 res float4).
 __global__ void __launch_bounds__(kDewarpThreads)
     dewarp_u8_kernel(const uint8_t* __restrict__ page, int h, int w,
                      const float* __restrict__ hv, int gh, int gw, int res,
-                     float fill, int aligned, uint8_t* __restrict__ out,
+                     float fill, int fill_taps, int aligned,
+                     uint8_t* __restrict__ out,
                      int* __restrict__ staged_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float2 nodes[kTileCells + 1][kTileCells + 1];
@@ -143,10 +161,11 @@ __global__ void __launch_bounds__(kDewarpThreads)
       mxy = fmaxf(mxy, __shfl_xor_sync(kAll, mxy, o));
     }
     if (tid == 0) {
-      int2 rx = tap_range(mnx, mxx, w), ry = tap_range(mny, mxy, h);
+      int2 rx = tap_range(mnx, mxx, w, fill_taps),
+           ry = tap_range(mny, mxy, h, fill_taps);
       if (aligned && rx.y >= rx.x) {        // whole 16-byte chunks
-        rx.x &= ~15;
-        rx.y = min((rx.y + 16) & ~15, w) - 1;
+        rx.x &= ~15;                        // -1 becomes -16
+        rx.y = min((rx.y + 16) & ~15, fill_taps ? w + 16 : w) - 1;
       }
       int bytes = (rx.y >= rx.x && ry.y >= ry.x)
                       ? (rx.y - rx.x + 1) * (ry.y - ry.x + 1)
@@ -164,20 +183,31 @@ __global__ void __launch_bounds__(kDewarpThreads)
   const bool staged = win[4];
   const int ww = wx1 - wx0 + 1;
 
+  // fill_taps: the window's cells off the page hold `fill`; with
+  // aligned rows (w % 16 == 0) a chunk is wholly on or off the page
+  const uint8_t fill_u8 = (uint8_t)fill;
   if (staged && ww > 0 && wy1 >= wy0) {
     int nrows = wy1 - wy0 + 1;
     if (aligned) {
       int chunks = ww >> 4;
+      uint4 fill16;
+      fill16.x = fill16.y = fill16.z = fill16.w = 0x01010101u * fill_u8;
       for (int i = tid; i < chunks * nrows; i += kDewarpThreads) {
         int r = i / chunks, c = (i - r * chunks) << 4;
-        cp_async16(window + r * ww + c,
-                   page + (size_t)(wy0 + r) * w + wx0 + c);
+        int gy = wy0 + r, gx = wx0 + c;
+        if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+          cp_async16(window + r * ww + c, page + (size_t)gy * w + gx);
+        else
+          *reinterpret_cast<uint4*>(window + r * ww + c) = fill16;
       }
       asm volatile("cp.async.commit_group;\n" ::);
     } else {
       for (int i = tid; i < ww * nrows; i += kDewarpThreads) {
         int r = i / ww, c = i - r * ww;
-        window[i] = __ldg(page + (size_t)(wy0 + r) * w + wx0 + c);
+        int gy = wy0 + r, gx = wx0 + c;
+        window[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
+                        ? __ldg(page + (size_t)gy * w + gx)
+                        : fill_u8;
       }
     }
   }
@@ -201,6 +231,12 @@ __global__ void __launch_bounds__(kDewarpThreads)
   __syncthreads();
 
   const float wmax = (float)(w - 1), hmax = (float)(h - 1);
+  // fill_taps: one tap, `fill` off the page; the index is first clamped
+  // into the window's ring [-1, n] (every index off the page reads fill)
+  auto tap = [&](int x, int y) -> float {
+    if (x < 0 || x >= w || y < 0 || y >= h) return fill;
+    return (float)__ldg(page + (size_t)y * w + x);
+  };
   // one output pixel of tile row `row`, column c, as its u8 value
   auto pixel = [&](const float2* row, int c) -> uint32_t {
     float4 col = cols[c];
@@ -208,6 +244,32 @@ __global__ void __launch_bounds__(kDewarpThreads)
     float2 r0 = row[lx], r1 = row[lx + 1];
     float sx = r0.x * col.y + r1.x * col.x;
     float sy = r0.y * col.y + r1.y * col.x;
+    if (fill_taps) {
+      sx = fminf(fmaxf(sx, -2.0f), (float)(w + 1));
+      sy = fminf(fmaxf(sy, -2.0f), (float)(h + 1));
+      float px = floorf(sx), py = floorf(sy);
+      float vx = sx - px, vy = sy - py;
+      int xa = min(max((int)px, -1), w), xb = min(max((int)px + 1, -1), w);
+      int ya = min(max((int)py, -1), h), yb = min(max((int)py + 1, -1), h);
+      float v00, v01, v10, v11;
+      if (staged && xa >= wx0 && xb <= wx1 && ya >= wy0 && yb <= wy1) {
+        const uint8_t* t0 = window + (ya - wy0) * ww - wx0;
+        const uint8_t* t1 = window + (yb - wy0) * ww - wx0;
+        v00 = t0[xa];
+        v01 = t0[xb];
+        v10 = t1[xa];
+        v11 = t1[xb];
+      } else {
+        v00 = tap(xa, ya);
+        v01 = tap(xb, ya);
+        v10 = tap(xa, yb);
+        v11 = tap(xb, yb);
+      }
+      float top = v00 * (1.0f - vx) + v01 * vx;
+      float bot = v10 * (1.0f - vx) + v11 * vx;
+      float val = top * (1.0f - vy) + bot * vy;
+      return (uint32_t)fminf(fmaxf(rintf(val), 0.0f), 255.0f);
+    }
     float val = fill;
     if (sx >= 0.0f && sx <= wmax && sy >= 0.0f && sy <= hmax) {
       float px = floorf(sx), py = floorf(sy);
@@ -232,7 +294,7 @@ __global__ void __launch_bounds__(kDewarpThreads)
       float bot = v10 * (1.0f - vx) + v11 * vx;
       val = top * (1.0f - vy) + bot * vy;
     }
-    return (uint32_t)fminf(fmaxf(rintf(val), 0.0f), 255.0f);
+    return (uint32_t)fminf(fmaxf(val, 0.0f), 255.0f);   // truncates
   };
 
   // quads of 4 output pixels, walked in row order without a division
@@ -286,8 +348,8 @@ extern "C" int origami_remap_f32(const float* img, int h, int w,
 // read their taps from a staged window.
 extern "C" int origami_dewarp_u8(const uint8_t* page, int h, int w,
                                  const float* hv, int gh, int gw, int res,
-                                 float fill, uint8_t* out, int* staged_tiles,
-                                 void* stream) {
+                                 float fill, int fill_taps, uint8_t* out,
+                                 int* staged_tiles, void* stream) {
   size_t bytes = kWindowBytes + (size_t)kTileCells * res *
                                     ((kTileCells + 1) * sizeof(float2) +
                                      sizeof(float4));
@@ -301,6 +363,7 @@ extern "C" int origami_dewarp_u8(const uint8_t* page, int h, int w,
   dim3 grid((gw + kTileCells - 1) / kTileCells,
             (gh + kTileCells - 1) / kTileCells);
   dewarp_u8_kernel<<<grid, kDewarpThreads, bytes, (cudaStream_t)stream>>>(
-      page, h, w, hv, gh, gw, res, fill, aligned, out, staged_tiles);
+      page, h, w, hv, gh, gw, res, fill, fill_taps, aligned, out,
+      staged_tiles);
   return (int)cudaGetLastError();
 }

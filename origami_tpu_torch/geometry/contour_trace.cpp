@@ -28,7 +28,9 @@
 // (native_bindings.py); a plain C interface for ctypes.
 
 #include <algorithm>
+#include <cfloat>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -186,11 +188,59 @@ void chamfer_passes(const uint8_t* src, int h, int w, T hv, T diag, T lng,
 }
 
 
+// clipLine(Size2l, pt1, pt2): the segment clipped to [0, sw-1] x [0, sh-1]
+bool clip_line_l(int64_t sw, int64_t sh, int64_t& x1, int64_t& y1,
+                 int64_t& x2, int64_t& y2) {
+  const int64_t right = sw - 1, bottom = sh - 1;
+  if (sw <= 0 || sh <= 0) return false;
+  int c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8;
+  int c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8;
+  if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+    int64_t a;
+    if (c1 & 12) {
+      a = c1 < 8 ? 0 : bottom;
+      x1 += (int64_t)((double)(a - y1) * (x2 - x1) / (y2 - y1));
+      y1 = a;
+      c1 = (x1 < 0) + (x1 > right) * 2;
+    }
+    if (c2 & 12) {
+      a = c2 < 8 ? 0 : bottom;
+      x2 += (int64_t)((double)(a - y2) * (x2 - x1) / (y2 - y1));
+      y2 = a;
+      c2 = (x2 < 0) + (x2 > right) * 2;
+    }
+    if ((c1 & c2) == 0 && (c1 | c2) != 0) {
+      if (c1) {
+        a = c1 == 1 ? 0 : right;
+        y1 += (int64_t)((double)(a - x1) * (y2 - y1) / (x2 - x1));
+        x1 = a;
+        c1 = 0;
+      }
+      if (c2) {
+        a = c2 == 1 ? 0 : right;
+        y2 += (int64_t)((double)(a - x2) * (y2 - y1) / (x2 - x1));
+        x2 = a;
+        c2 = 0;
+      }
+    }
+  }
+  return (c1 | c2) == 0;
+}
+
 // LineIterator(img, p0, p1, 8, leftToRight) of drawing.cpp: Bresenham from
 // the left end; pixels outside the image are skipped (the rasters here
 // hold every vertex).
 void cv_line(uint8_t* img, int h, int w, int x0, int y0, int x1, int y1,
              uint8_t value) {
+  if ((unsigned)x0 >= (unsigned)w || (unsigned)x1 >= (unsigned)w ||
+      (unsigned)y0 >= (unsigned)h || (unsigned)y1 >= (unsigned)h) {
+    int64_t a0 = x0, b0 = y0, a1 = x1, b1 = y1;
+    if (!clip_line_l(w, h, a0, b0, a1, b1)) return;
+    x0 = (int)a0;
+    y0 = (int)b0;
+    x1 = (int)a1;
+    y1 = (int)b1;
+  }
   int dx = x1 - x0, dy = y1 - y0;
   if (dx < 0) {
     dx = -dx;
@@ -228,6 +278,206 @@ struct PolyEdge {
   int64_t x, dx;
   PolyEdge* next;
 };
+
+// --- cv2.polylines with thickness > 1 (drawing.cpp, LINE_8, shift 0) ---
+// Each segment is ThickLine: its quadrilateral, offset by the rounded
+// normal in XY_SHIFT = 16 fixed point, through FillConvexPoly (outline by
+// Line2, spans between two walking edges), and its end caps as filled
+// Circles (the Bresenham circle of drawing.cpp).
+
+constexpr int kXYShift = 16;
+constexpr int64_t kXYOne = (int64_t)1 << kXYShift;
+
+inline void hline(uint8_t* img, int h, int w, int y, int x0, int x1,
+                  uint8_t v) {
+  if (y < 0 || y >= h) return;
+  x0 = std::max(x0, 0);
+  x1 = std::min(x1, w - 1);
+  if (x0 <= x1) std::memset(img + (size_t)y * w + x0, v, (size_t)(x1 - x0 + 1));
+}
+
+// Line2: a fixed-point line between two XY_SHIFT points
+void line2(uint8_t* img, int h, int w, int64_t x1, int64_t y1, int64_t x2,
+           int64_t y2, uint8_t v) {
+  if (!clip_line_l((int64_t)w << kXYShift, (int64_t)h << kXYShift, x1, y1,
+                   x2, y2))
+    return;
+  int64_t dx = x2 - x1, dy = y2 - y1;
+  const int64_t j = dx < 0 ? -1 : 0, ax = (dx ^ j) - j;
+  const int64_t i = dy < 0 ? -1 : 0, ay = (dy ^ i) - i;
+  int64_t x_step, y_step;
+  int ecount;
+  if (ax > ay) {
+    dy = (dy ^ j) - j;
+    if (j) {
+      std::swap(x1, x2);
+      std::swap(y1, y2);
+    }
+    x_step = kXYOne;
+    y_step = (dy << kXYShift) / (ax | 1);
+    ecount = (int)((x2 - x1) >> kXYShift);
+  } else {
+    dx = (dx ^ i) - i;
+    if (i) {
+      std::swap(x1, x2);
+      std::swap(y1, y2);
+    }
+    x_step = (dx << kXYShift) / (ay | 1);
+    y_step = kXYOne;
+    ecount = (int)((y2 - y1) >> kXYShift);
+  }
+  x1 += kXYOne >> 1;
+  y1 += kXYOne >> 1;
+  auto put = [&](int64_t x, int64_t y) {
+    if (0 <= x && x < w && 0 <= y && y < h) img[(size_t)y * w + x] = v;
+  };
+  put((x2 + (kXYOne >> 1)) >> kXYShift, (y2 + (kXYOne >> 1)) >> kXYShift);
+  if (ax > ay) {
+    x1 >>= kXYShift;
+    for (; ecount >= 0; --ecount) {
+      put(x1, y1 >> kXYShift);
+      x1++;
+      y1 += y_step;
+    }
+  } else {
+    y1 >>= kXYShift;
+    for (; ecount >= 0; --ecount) {
+      put(x1 >> kXYShift, y1);
+      x1 += x_step;
+      y1++;
+    }
+  }
+}
+
+// FillConvexPoly(img, v, n, color, LINE_8, XY_SHIFT)
+void fill_convex_l(uint8_t* img, int h, int w, const int64_t* vx,
+                   const int64_t* vy, int npts, uint8_t v) {
+  const int64_t delta = kXYOne >> 1;
+  int imin = 0, edges = npts;
+  int64_t xmin = vx[0], xmax = vx[0], ymin = vy[0], ymax = vy[0];
+  int64_t p0x = vx[npts - 1], p0y = vy[npts - 1];
+  for (int i = 0; i < npts; ++i) {
+    if (vy[i] < ymin) {
+      ymin = vy[i];
+      imin = i;
+    }
+    ymax = std::max(ymax, vy[i]);
+    xmax = std::max(xmax, vx[i]);
+    xmin = std::min(xmin, vx[i]);
+    line2(img, h, w, p0x, p0y, vx[i], vy[i], v);
+    p0x = vx[i];
+    p0y = vy[i];
+  }
+  xmin = (xmin + delta) >> kXYShift;
+  xmax = (xmax + delta) >> kXYShift;
+  ymin = (ymin + delta) >> kXYShift;
+  ymax = (ymax + delta) >> kXYShift;
+  if (npts < 3 || (int)xmax < 0 || (int)ymax < 0 || (int)xmin >= w ||
+      (int)ymin >= h)
+    return;
+  ymax = std::min<int64_t>(ymax, h - 1);
+  struct {
+    int idx, di;
+    int64_t x, dx;
+    int ye;
+  } edge[2];
+  edge[0].idx = edge[1].idx = imin;
+  int y = (int)ymin;
+  edge[0].ye = edge[1].ye = y;
+  edge[0].di = 1;
+  edge[1].di = npts - 1;
+  edge[0].x = edge[1].x = -kXYOne;
+  edge[0].dx = edge[1].dx = 0;
+  do {
+    for (int k = 0; k < 2; ++k) {
+      if (y >= edge[k].ye) {
+        int idx0 = edge[k].idx, di = edge[k].di;
+        int idx = idx0 + di;
+        if (idx >= npts) idx -= npts;
+        for (; edges-- > 0;) {
+          const int ty = (int)((vy[idx] + delta) >> kXYShift);
+          if (ty > y) {
+            const int64_t xs = vx[idx0], xe = vx[idx];
+            edge[k].ye = ty;
+            edge[k].dx = ((xe - xs) * 2 + ((int64_t)ty - y)) /
+                         (2 * ((int64_t)ty - y));
+            edge[k].x = xs;
+            edge[k].idx = idx;
+            break;
+          }
+          idx0 = idx;
+          idx += di;
+          if (idx >= npts) idx -= npts;
+        }
+      }
+    }
+    if (edges < 0) break;
+    if (y >= 0) {
+      int left = 0, right = 1;
+      if (edge[0].x > edge[1].x) {
+        left = 1;
+        right = 0;
+      }
+      const int xx1 = (int)((edge[left].x + delta) >> kXYShift);
+      const int xx2 = (int)((edge[right].x + delta) >> kXYShift);
+      if (xx2 >= 0 && xx1 < w) hline(img, h, w, y, xx1, xx2, v);
+    }
+    edge[0].x += edge[0].dx;
+    edge[1].x += edge[1].dx;
+  } while (++y <= (int)ymax);
+}
+
+// Circle(img, center, radius, color, fill = 1)
+void fill_circle(uint8_t* img, int h, int w, int cx, int cy, int radius,
+                 uint8_t v) {
+  int err = 0, dx = radius, dy = 0, plus = 1, minus = (radius << 1) - 1;
+  while (dx >= dy) {
+    hline(img, h, w, cy - dy, cx - dx, cx + dx, v);
+    hline(img, h, w, cy + dy, cx - dx, cx + dx, v);
+    hline(img, h, w, cy - dx, cx - dy, cx + dy, v);
+    hline(img, h, w, cy + dx, cx - dy, cx + dy, v);
+    dy++;
+    err += plus;
+    plus += 2;
+    const int mask = (err <= 0) - 1;
+    err -= minus & mask;
+    dx += mask;
+    minus -= mask & 2;
+  }
+}
+
+// ThickLine(img, p0, p1, color, thickness, LINE_8, flags, shift 0)
+void thick_line(uint8_t* img, int h, int w, int64_t p0x, int64_t p0y,
+                int64_t p1x, int64_t p1y, int thickness, int flags,
+                uint8_t v) {
+  p0x <<= kXYShift;
+  p0y <<= kXYShift;
+  p1x <<= kXYShift;
+  p1y <<= kXYShift;
+  const double inv_one = 1.0 / (double)kXYOne;
+  const double dx = (p0x - p1x) * inv_one, dy = (p1y - p0y) * inv_one;
+  double r = dx * dx + dy * dy;
+  const int odd = thickness & 1;
+  const int64_t th = (int64_t)thickness << (kXYShift - 1);
+  if (std::fabs(r) > DBL_EPSILON) {
+    r = ((double)th + odd * (double)kXYOne * 0.5) / std::sqrt(r);
+    const int64_t dpx = (int64_t)std::nearbyint(dy * r);
+    const int64_t dpy = (int64_t)std::nearbyint(dx * r);
+    const int64_t qx[4] = {p0x + dpx, p0x - dpx, p1x - dpx, p1x + dpx};
+    const int64_t qy[4] = {p0y + dpy, p0y - dpy, p1y - dpy, p1y + dpy};
+    fill_convex_l(img, h, w, qx, qy, 4, v);
+  }
+  for (int i = 0; i < 2; ++i) {
+    if (flags & (i + 1)) {
+      const int cx = (int)((p0x + (kXYOne >> 1)) >> kXYShift);
+      const int cy = (int)((p0y + (kXYOne >> 1)) >> kXYShift);
+      fill_circle(img, h, w, cx, cy, (int)((th + (kXYOne >> 1)) >> kXYShift),
+                  v);
+    }
+    p0x = p1x;
+    p0y = p1y;
+  }
+}
 
 }  // namespace
 
@@ -569,6 +819,19 @@ void fill_poly(uint8_t* img, int h, int w, const int32_t* pts, int n,
       if (last_exchange == nullptr) break;
       keep_prelast = last_exchange;
     } while (keep_prelast != head.next && keep_prelast != &head);
+  }
+}
+
+// cv2.polylines(img, [pts], False, value, thickness) for thickness > 1:
+// PolyLine of drawing.cpp, both caps on the first segment, the end cap
+// on each later one.
+void poly_line_thick(uint8_t* img, int h, int w, const int32_t* pts, int n,
+                     int thickness, int value) {
+  int flags = 3;
+  for (int i = 1; i < n; ++i) {
+    thick_line(img, h, w, pts[2 * (i - 1)], pts[2 * (i - 1) + 1], pts[2 * i],
+               pts[2 * i + 1], thickness, flags, (uint8_t)value);
+    flags = 2;
   }
 }
 

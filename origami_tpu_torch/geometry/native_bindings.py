@@ -111,6 +111,9 @@ def library():
     lib.fill_poly.restype = None
     lib.fill_poly.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _I32P,
                               ctypes.c_int, ctypes.c_int]
+    lib.poly_line_thick.restype = None
+    lib.poly_line_thick.argtypes = [_U8P, ctypes.c_int, ctypes.c_int, _I32P,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.draw_line.restype = None
     lib.draw_line.argtypes = [_U8P] + [ctypes.c_int] * 7
     return lib

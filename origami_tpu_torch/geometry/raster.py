@@ -8,17 +8,17 @@ scales and operations and does each step itself:
   * fill: cv2.fillPoly's scanline algorithm with its outline, and
     thin lines as cv2's 8-connected Bresenham lines (native C++,
     contour_trace.cpp);
-  * thick strokes: pixels within half the thickness of the polyline;
+  * thick strokes: OpenCV's ThickLine (a fixed-point quadrilateral per
+    segment through FillConvexPoly, round caps as filled circles;
+    native C++, contour_trace.cpp);
   * dilate / erode: scipy.ndimage with cv2's MORPH_ELLIPSE kernel (erosion
     treats pixels outside the raster as set, as cv2 does);
   * trace: cv2's findContours (RETR_CCOMP, CHAIN_APPROX_SIMPLE) from
     contour_trace.py, vertex for vertex, each ring moved half a pixel
     outward by `_offset_ring` as in the JAX copy.
 
-Fill, thin lines, dilation and tracing give cv2's pixels and vertices,
-so make_valid, unions, overlays and polygon buffers equal the JAX
-package's; only strokes thicker than one pixel (raster buffers of
-linework) stay within about a raster pixel of cv2.polylines'.
+Fill, lines, dilation and tracing give cv2's pixels and vertices, so
+make_valid, unions, overlays and polygon buffers equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -108,28 +108,18 @@ def _fill_polygon(mask, pts, value):
 
 
 def _stroke(mask, pts, thickness, value):
-    """cv2.polylines(mask, [pts], False, value, thickness): pixels whose
-    centre lies within thickness / 2 of the polyline."""
-    h, w = mask.shape
-    p = np.asarray(pts, dtype=np.float64)
+    """cv2.polylines(mask, [pts], False, value, thickness) for integer
+    points: thickness 1 the Bresenham lines, thicker OpenCV's ThickLine
+    (native C++, contour_trace.cpp)."""
+    p = np.asarray(pts)
     if thickness <= 1 or len(p) < 2:
         _draw_segments(mask, p.astype(np.int64), False, value)
         return
-    rad = thickness / 2.0
-    for a, b in zip(p[:-1], p[1:]):
-        x_lo = max(int(np.floor(min(a[0], b[0]) - rad)), 0)
-        x_hi = min(int(np.ceil(max(a[0], b[0]) + rad)), w - 1)
-        y_lo = max(int(np.floor(min(a[1], b[1]) - rad)), 0)
-        y_hi = min(int(np.ceil(max(a[1], b[1]) + rad)), h - 1)
-        if x_hi < x_lo or y_hi < y_lo:
-            continue
-        yy, xx = np.mgrid[y_lo:y_hi + 1, x_lo:x_hi + 1].astype(np.float64)
-        ab = b - a
-        l2 = float(ab @ ab)
-        t = np.zeros_like(xx) if l2 == 0 else np.clip(
-            ((xx - a[0]) * ab[0] + (yy - a[1]) * ab[1]) / l2, 0.0, 1.0)
-        d2 = (xx - a[0] - t * ab[0]) ** 2 + (yy - a[1] - t * ab[1]) ** 2
-        mask[y_lo:y_hi + 1, x_lo:x_hi + 1][d2 <= rad * rad] = value
+    h, w = mask.shape
+    q = np.ascontiguousarray(p, dtype=np.int32).reshape(-1, 2)
+    library().poly_line_thick(
+        _u8_ptr(mask), h, w, q.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        len(q), int(thickness), int(value))
 
 
 def ellipse_kernel(r):

@@ -39,7 +39,7 @@ _F = ctypes.c_float
 _L = ctypes.c_long
 SIGNATURES = {
     "origami_remap_f32": [_P, _I, _I, _P, _I, _I, _F, _P, _P],
-    "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P],
+    "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "origami_strips_dewarped": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P,
                                 _L, _P],
     "origami_strips_through_grid": [_P, _I, _I, _P, _I, _I, _F, _P, _P, _P,

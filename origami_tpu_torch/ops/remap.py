@@ -131,13 +131,26 @@ def _upsample_grid(hv, res):
     return planes
 
 
-def dewarp_u8_plain(page_u8, hv, res, fill=255.0):
+BORDERS = ("hard", "fill_taps")
+
+
+def dewarp_u8_plain(page_u8, hv, res, fill=255.0, border="hard"):
     """The dewarped page u8 (gh*res, gw*res): one bilinear sample of the
-    u8 page per output pixel through the upsampled grid, hard-edged to
-    `fill`, rounded and clipped."""
+    u8 page per output pixel through the upsampled grid. border "hard"
+    (the JAX dense route, core/dewarp.py:459-482): `fill` outside
+    [0, w-1] x [0, h-1], clipped and truncated. "fill_taps" (the JAX
+    banded route, whose passes pad the page with `fill`,
+    ops/remap.py:189-275): coordinates clamped into [-2, w+1] x
+    [-2, h+1], each tap off the page reads `fill`, rounded and
+    clipped."""
     mx, my = _upsample_grid(hv.float(), int(res))
-    return _to_u8_round(
-        _bilinear_hard_edge(page_u8.float(), mx, my, float(fill)))
+    img = page_u8.float()
+    if border == "hard":
+        v = _bilinear_hard_edge(img, mx, my, float(fill))
+        return torch.clamp(v, 0.0, 255.0).to(torch.uint8)
+    h, w = img.shape
+    return _to_u8_round(_bilinear_fill_taps(
+        img, mx.clamp(-2.0, w + 1.0), my.clamp(-2.0, h + 1.0), float(fill)))
 
 
 def strips_dewarped_plain(dew_u8, frames, widths, out_h, out_w, fill=255.0):
@@ -356,30 +369,38 @@ def remap(image, map_xy, fill=0.0):
     return out
 
 
-def dewarp_u8(page_u8, hv, res, fill=255.0, staged_tiles=None):
+def dewarp_u8(page_u8, hv, res, fill=255.0, border="hard",
+              staged_tiles=None):
     """u8 page (H, W), f32 grid (gh, gw, 2), int res -> u8 (gh*res,
-    gw*res) dewarped page. `staged_tiles` (CUDA only): an int32 (1,)
-    tensor to which the kernel adds the number of its 4x4-cell tiles
-    that read their taps from a window staged in shared memory (the
-    others read them through the read-only cache)."""
+    gw*res) dewarped page; `border` as dewarp_u8_plain's ("fill_taps"
+    wants an integer fill in [0, 255]). `staged_tiles` (CUDA only): an
+    int32 (1,) tensor to which the kernel adds the number of its 4x4-cell
+    tiles that read their taps from a window staged in shared memory
+    (the others read them through the read-only cache)."""
     dev = _device_of(page_u8)
     _check(page_u8, "page_u8", torch.uint8, 2, dev)
     _check(hv, "hv", torch.float32, 3, dev)
     res = int(res)
     if hv.shape[2] != 2 or res < 1:
         raise ValueError("hv must be (gh, gw, 2) and res >= 1")
+    if border not in BORDERS:
+        raise ValueError("border must be one of %s, got %r"
+                         % (BORDERS, border))
+    if border == "fill_taps" and not (0 <= fill <= 255
+                                      and float(fill).is_integer()):
+        raise ValueError("fill_taps wants an integer fill in [0, 255]")
     if staged_tiles is not None:
         _check(staged_tiles, "staged_tiles", torch.int32, 1, dev)
         if dev.type != "cuda" or staged_tiles.numel() != 1:
             raise ValueError("staged_tiles is a (1,) tensor on the card")
     if dev.type == "cpu":
-        return dewarp_u8_plain(page_u8, hv, res, fill)
+        return dewarp_u8_plain(page_u8, hv, res, fill, border)
     gh, gw = hv.shape[:2]
     out = torch.empty((gh * res, gw * res), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = page_u8.shape
         _launch("origami_dewarp_u8", _ptr(page_u8), h, w, _ptr(hv), gh, gw,
-                res, float(fill), _ptr(out),
+                res, float(fill), int(border == "fill_taps"), _ptr(out),
                 None if staged_tiles is None else _ptr(staged_tiles))
         launches.add("dewarp_u8")
     return out

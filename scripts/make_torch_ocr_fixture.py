@@ -12,7 +12,8 @@ the JAX OCR stage three ways and stores each ocr.zip as a reference:
     tests/data/torch_ocr/full/ref/<page>.<mode>.ocr.zip
         mode: single (-m models_pretrained/recognizer),
               ensemble (-m models_pretrained: recognizer{,2,3} voted),
-              gather (single, --extract-mode gather)
+              gather (single, --extract-mode gather),
+              binarize (single, --binarize sauvola: the host strip path)
 
 and `tests/data/torch_ocr/small/`: one page whose lines.3.zip is trimmed
 to about 24 lines that cover the p1, p2 and gather extraction profiles
@@ -20,6 +21,8 @@ to about 24 lines that cover the p1, p2 and gather extraction profiles
 three references.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_ocr_fixture.py
+`--only MODE [MODE ...]` reruns the JAX OCR stage for those modes on the
+fixtures as they stand and rewrites only their references.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ MODES = {
     "single": ("models_pretrained/recognizer", {}),
     "ensemble": ("models_pretrained", {}),
     "gather": ("models_pretrained/recognizer", {"extract_mode": "gather"}),
+    "binarize": ("models_pretrained/recognizer", {"binarize": "sauvola"}),
 }
 
 
@@ -185,7 +189,16 @@ def main():
     ap.add_argument("--pages", type=int, default=2)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--small-lines", type=int, default=24)
+    ap.add_argument("--only", nargs="+", choices=list(MODES),
+                    help="rerun only these modes' references")
     args = ap.parse_args()
+    if args.only:
+        out = Path(args.out)
+        with tempfile.TemporaryDirectory() as tmp:
+            for fixture in (out / "small", out / "full"):
+                for mode in args.only:
+                    run_ocr(fixture, mode, Path(tmp))
+        return
 
     from origami_tpu.train.synth import write_corpus
 

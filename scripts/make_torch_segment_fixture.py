@@ -58,7 +58,43 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--pages", default=str(ROOT / "tests/data/torch_ocr/full"))
     ap.add_argument("--out", default=str(ROOT / "tests/data/torch_segment"))
+    ap.add_argument("--only", choices=["auto"])
     args = ap.parse_args()
+    if args.only != "auto":
+        write_refs(args)
+    write_auto_refs(args)
+
+
+def write_auto_refs(args):
+    """The auto-mode label maps and per-page modes of the JAX package."""
+    import json
+
+    from origami_tpu.core.page import Page
+    from origami_tpu.core.predict import (AutoSegmentationPredictor,
+                                          SegmentationPredictor)
+    students = ROOT / "models_pretrained" / "students"
+    ref = Path(args.out) / "ref"
+    ref.mkdir(parents=True, exist_ok=True)
+    fixture = sorted(Path(args.pages).glob("*.png"))
+    pages = sorted((ROOT / "tests/data").glob("real_scan_*.png")) + fixture
+    modes = {}
+    for name, trained, which in (
+            ("f32", f32_predictor(students), pages),
+            ("bf16", SegmentationPredictor(students, target="quality"),
+             fixture)):
+        auto = AutoSegmentationPredictor(trained=trained)
+        for png in which:
+            seg = auto.predict_batch([Page(png).warped])[0]
+            modes.setdefault(png.stem, {})[name] = auto.last_modes[0]
+            suffix = ".auto.f32.segment.zip" if name == "f32" \
+                else ".auto.segment.zip"
+            seg.save(ref / (png.stem + suffix))
+    (ref / "auto_modes.json").write_text(json.dumps(modes, indent=1,
+                                                    sort_keys=True))
+    print("auto modes:", modes)
+
+
+def write_refs(args):
 
     import numpy as np
     import jax.numpy as jnp

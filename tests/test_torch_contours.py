@@ -229,14 +229,28 @@ def test_graph_keeps_networkx_orders(seed):
                                                  weight=weight)
     assert list(got.items()) == list(want.items())
     inv = lambda u, v, d: 1.0 / (1e-9 + d["weight"])    # noqa: E731
-    for target in list(want)[-3:]:
+    for target in want:
         assert graph.dijkstra_path(g, edges[0][0], target, inv) == \
             nx.shortest_path(h, edges[0][0], target, weight=inv)
     with pytest.raises(graph.NoPath):
         graph.dijkstra_path(g, 30, edges[0][0], inv)
 
 
-@pytest.mark.parametrize("name,mask", MASKS[:5], ids=[n for n, _ in MASKS[:5]])
+def bar_with_block():
+    """A 2-px rule with a block on it: the skeleton's junction cluster
+    holds paths of equal length, which networkx's two-ended Dijkstra
+    search and a search from one end break differently."""
+    m = np.zeros((20, 170), np.uint8)
+    m[5:13, 73:94] = 1
+    m[13:15, 10:160] = 1
+    return m
+
+
+SEPARATOR_MASKS = MASKS[:5] + [("bar_with_block", bar_with_block())]
+
+
+@pytest.mark.parametrize("name,mask", SEPARATOR_MASKS,
+                         ids=[n for n, _ in SEPARATOR_MASKS])
 def test_separator_polylines_equal_jax(name, mask, jax_native):
     for o, jo in ((Orientation.H, JaxOrientation.H),
                   (Orientation.V, JaxOrientation.V)):
@@ -300,10 +314,43 @@ def test_stage_matches_jax_contours_zip(tmp_path, capsys):
             assert got[name] == want[name], name
 
 
+def test_export_images_match_jax_crops(tmp_path):
+    """--export-images: the same entry names as the JAX stage's zip, and
+    every region crop (the port's gray PNG encoder; PIL's in the JAX
+    stage) the same pixels under PIL."""
+    import io
+
+    import PIL.Image
+    from origami_tpu.batch.detect.contours import \
+        ContoursProcessor as JaxContours
+    got_dir, want_dir = tmp_path / "port", tmp_path / "jax"
+    for d in (got_dir, want_dir):
+        d.mkdir()
+        c = corpus(d)
+        for png in c.glob("synth0000*"):
+            shutil.rmtree(png) if png.is_dir() else png.unlink()
+    opts = dict(lock_strategy="NONE", plain=True, export_images=True)
+    stage.ContoursProcessor(dict(opts, device="cpu")).traverse(
+        str(got_dir / "c"))
+    JaxContours(opts).traverse(str(want_dir / "c"))
+    name = "synth0001.out/contours.0.zip"
+    got, want = entries(got_dir / "c" / name), entries(want_dir / "c" / name)
+    assert sorted(got) == sorted(want)
+    pngs = [n for n in want if n.endswith(".png")]
+    assert len(pngs) >= 10
+    for n in want:
+        if not n.endswith(".png"):
+            assert got[n] == want[n], n
+            continue
+        a = np.asarray(PIL.Image.open(io.BytesIO(got[n])))
+        b = np.asarray(PIL.Image.open(io.BytesIO(want[n])))
+        assert a.dtype == b.dtype == np.uint8
+        np.testing.assert_array_equal(a, b, err_msg=n)
+
+
 def test_contours_entry_points_need_cuda_unless_told_cpu():
     assert stage.parser().parse_args(["x"]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="export-images"):
-        stage.ContoursProcessor({"device": "cpu", "export_images": True})
+    assert stage.parser().parse_args(["--export-images", "x"]).export_images
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a card")
     for make in (lambda: stage.ContoursProcessor({}),

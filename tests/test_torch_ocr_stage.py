@@ -18,6 +18,7 @@ import shutil
 import zipfile
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,6 +31,8 @@ MODES = {
     "ensemble": ["-m", str(ROOT / "models_pretrained")],
     "gather": ["-m", str(ROOT / "models_pretrained/recognizer"),
                "--extract-mode", "gather"],
+    "binarize": ["-m", str(ROOT / "models_pretrained/recognizer"),
+                 "--binarize", "sauvola"],
 }
 
 
@@ -123,13 +126,41 @@ def test_page_and_reader_without_device_need_cuda():
     assert Page(png, device="cpu").device_pixels.device.type == "cpu"
 
 
-def test_binarize_is_not_ported_yet(tmp_path):
-    corpus = tmp_path / "corpus"
-    shutil.copytree(SMALL, corpus, ignore=shutil.ignore_patterns("ref"))
-    ocr.main(["-m", "FAKE", "--device", "cpu", "--lock-strategy", "NONE",
-              "--binarize", "sauvola", str(corpus)])
-    rt = json.loads(next(corpus.glob("*.out/runtime.json")).read_text())
-    entry = rt[ocr.STAGE_NAME]
-    assert entry["status"] == "FAILED"
-    assert "NotImplementedError" in entry["traceback"]
-    assert "ROADMAP" in entry["traceback"]
+@pytest.mark.parametrize("spec", ["sauvola", "sauvola(window_size=16)",
+                                  "otsu"])
+def test_binarized_strips_match_jax_from_string(spec):
+    """The --binarize host path's strips: the port's extractor binarizes
+    each strip with its from_string; on the same strips JAX's from_string
+    (the XLA ops/binarize functions) gives the same pixels but where its
+    float32 integral images round a Sauvola sum (a few pixels a page:
+    ROADMAP C10). An even window takes the XLA route's odd box."""
+    from origami_tpu.core.binarize import from_string as jax_from_string
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    from origami_tpu_torch.batch.core.lines import LineExtractor
+    png = SMALL / "synth0000.png"
+    reader = Input(Artifact.LINES, Artifact.TABLES,
+                   stage=Stage.RELIABLE).instantiate(png, device="cpu")
+    opts = {"binarize": spec, "device": "cpu"}
+    ext = LineExtractor(reader.tables, 48, opts,
+                        min_confidence=reader.lines.min_confidence,
+                        max_width=2048)
+    plain = LineExtractor(reader.tables, 48, {"device": "cpu"},
+                          min_confidence=reader.lines.min_confidence,
+                          max_width=2048)
+    assert plain.binarizer is None and ext.binarizer is not None
+    # the first 8 of the page's 24 lines: the plain Sauvola takes about
+    # 0.2 s a strip on the CPU
+    parts = ext.parts(reader.lines.by_path)[:8]
+    got = ext.extract(parts)
+    strips = plain.extract(parts)
+    assert [p for p, _ in got] == [p for p, _ in strips]
+    assert len(got) == 8
+    jax_fn = jax_from_string(spec)
+    differ = total = 0
+    for (_, b), (_, s) in zip(got, strips):
+        want = jax_fn(s)
+        assert b.dtype == want.dtype == np.uint8 and b.shape == want.shape
+        assert set(np.unique(b)) <= {0, 255}
+        differ += int((b != want).sum())
+        total += b.size
+    assert differ <= 1e-5 * total, (differ, total)

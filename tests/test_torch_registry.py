@@ -172,7 +172,9 @@ print(json.dumps({"modules": names,
                  "custom.layouts.default", "batch.detect.layout",
                  "batch.core.utils", "batch.detect.lines",
                  "batch.detect.order", "batch.detect.compose",
-                 "batch.runner", "pagexml", "pagexml.pagexml"):
+                 "batch.runner", "pagexml", "pagexml.pagexml",
+                 "core.mask", "batch.export", "batch.export.lines",
+                 "batch.export.pagexml", "pipeline"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
@@ -202,7 +204,8 @@ def test_segment_entry_points_need_cuda_unless_told_cpu(tmp_path):
         SegmentationProcessor, parser
     from origami_tpu_torch.core import binarize as core_binarize
     from origami_tpu_torch.core.predict import (
-        HeuristicSegmentationPredictor, SegmentationPredictor)
+        AutoSegmentationPredictor, HeuristicSegmentationPredictor,
+        SegmentationPredictor)
     assert parser().parse_args(["-m", "heuristic", "x"]).device == "cuda"
     if torch.cuda.is_available():
         pytest.skip("this check is for a machine without a card")
@@ -212,6 +215,7 @@ def test_segment_entry_points_need_cuda_unless_told_cpu(tmp_path):
             lambda: SegmentationProcessor(str(students), {"device": None}),
             lambda: HeuristicSegmentationPredictor(),
             lambda: SegmentationPredictor(students),
+            lambda: AutoSegmentationPredictor(students),
             lambda: core_binarize.from_string("sauvola(window_size=15)"),
             lambda: core_binarize.otsu()):
         with pytest.raises(RuntimeError, match="no CUDA device"):

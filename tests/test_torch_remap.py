@@ -3,8 +3,9 @@ the CPU) against the JAX functions they port, on a ~200x300 crop of a
 fixture page with a seeded smooth warp grid.
 
 Tolerances, each with its reason:
-  * dewarp vs the JAX dense route: <= 1 gray level — the port rounds,
-    the dense route truncates (core/dewarp.py:477);
+  * dewarp vs the JAX dense route: <= 1 gray level — the hard border
+    truncates as the dense route does (core/dewarp.py:477); the grid is
+    upsampled by another formula, so an ulp can cross an integer;
   * dewarp vs dewarp_banded_u8: <= 1 on >= 99.9 % of interior pixels —
     the banded route is a two-pass (Catmull-Smith) approximation of the
     direct bilinear sample, exact only for separable maps;

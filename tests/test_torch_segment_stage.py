@@ -110,7 +110,7 @@ def test_heuristic_matches_stored_reference_on_fixture_page(tmp_path):
         REF / "synth0001.heuristic.segment.zip"))
 
 
-def test_failed_batch_is_recorded_and_auto_is_not_ported(tmp_path):
+def test_failed_batch_is_recorded(tmp_path):
     corpus = corpus_of(SMALL, tmp_path / "c")
     (tmp_path / "empty").mkdir()
     stage.main(["-m", str(tmp_path / "empty"), *COMMON, str(corpus)])
@@ -118,8 +118,6 @@ def test_failed_batch_is_recorded_and_auto_is_not_ported(tmp_path):
     assert entry["status"] == "FAILED"
     assert "FileNotFoundError" in entry["traceback"]
     assert not (corpus / "synth0000.out/segment.zip").exists()
-    with pytest.raises(NotImplementedError, match="auto"):
-        stage.main(["-m", "auto:" + str(tmp_path), *COMMON, str(corpus)])
     with pytest.raises(SystemExit):
         stage.main(["-m", "heuristic", *COMMON, str(tmp_path / "missing")])
 
@@ -146,3 +144,23 @@ def test_preload_feeds_batches_in_order(tmp_path):
                             batch_size=2)).traverse(str(corpus))
     assert seen == [["a", "b"], ["c"]]
     assert runtime(corpus, "c")["status"] == "COMPLETED"
+
+
+def test_auto_mode_records_each_pages_mode(tmp_path, capsys):
+    """-m auto:<dir>: the students (float32 here) with the per-page
+    heuristic fallback; runtime.json holds the page's
+    segmentation_mode, and the label maps are the JAX auto mode's
+    (tests/data/torch_segment/ref, >= 99.9 % of the pixels)."""
+    corpus = corpus_of(FULL, tmp_path / "c", names={"synth0000"})
+    stage.main(["-m", "auto:" + str(ROOT / "models_pretrained/students"),
+                "--dtype", "float32", *COMMON, str(corpus)])
+    capsys.readouterr()
+    entry = runtime(corpus, "synth0000")
+    assert entry["status"] == "COMPLETED", entry
+    modes = json.loads((REF / "auto_modes.json").read_text())
+    assert entry["segmentation_mode"] == modes["synth0000"]["f32"]
+    got = JaxSegmentation.open(corpus / "synth0000.out/segment.zip")
+    want = JaxSegmentation.open(REF / "synth0000.auto.f32.segment.zip")
+    for name in ("regions", "separators"):
+        a, b = got.by_name(name).labels, want.by_name(name).labels
+        assert (a == b).mean() >= 0.999, (name, (a == b).mean())
