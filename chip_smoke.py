@@ -106,6 +106,28 @@ Phases (any failure exits non-zero before the result line):
      the OCR path's strip, gray and binarized) and export.pagexml (one
      TextLine per line of lines.0.zip). Each run's launch counts are
      set to 0 just before it and printed after it.
+  14. training (train_corpus: the fixture pages and the two real scans
+     with the JAX f32 auto label maps): (a) remap_batch, the training
+     warp's kernel, at both borders on 2 pages of 2432x1280 f32 under a
+     field of amplitude 10 against its plain version (REMAP_F32_ERR),
+     one launch a call, timed with its plain version, its bound and
+     F.grid_sample; (b) the port's trainers in float32 (TF32 off)
+     against the JAX trainers' numbers at full width
+     (tests/data/torch_train, scripts/make_torch_train_fixture.py): the
+     students' SegmentationTrainer (region; separator with the
+     tolerance band), the Distiller and the shipped recognizer, 3 steps,
+     each loss and every leaf norm (PARITY_FIRST, PARITY_LATER); (c) the
+     main path: bootstrap.train_segmentation (2 members, 20 steps, bf16,
+     warp on: one remap_batch launch a step and no other kernel),
+     distill_students (10 steps) and train_recognizer_pool (20 steps on
+     the OCR path's strips with the JAX texts), each loss finite and
+     falling, ms a step and peak memory printed; each trained directory
+     loads and serves a page through the segment or OCR stage; (d) the
+     contours, flow, dewarp, layout and lines stages with --processes 2
+     write the --processes 1 artifacts, their workers' launches summed
+     in the parent as STAGE_LAUNCHES says, and a stalled pool is ended
+     by the watchdog. The kernels line's remap_batch launches come from
+     (c).
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -3233,6 +3255,574 @@ def check_inference_surface(workdir, device="cuda"):
         raise PhaseError("; ".join(failed))
 
 
+# ---------------------------------------------------------------- phase 14
+
+TRAIN_REF = ROOT / "tests" / "data" / "torch_train"
+# the training corpus: the fixture pages and the two real scans, each
+# with the JAX f32 auto label maps of tests/data/torch_segment/ref as
+# <page>.labels.{region,separator}.png (their class indices are
+# bootstrap.KIND_CLASSES')
+TRAIN_PAGES = (FIXTURE / "synth0000.png", FIXTURE / "synth0001.png",
+               ROOT / "tests" / "data" / "real_scan_1872.png",
+               ROOT / "tests" / "data" / "real_scan_bbz_1925.png")
+TRAIN_FULL = (1280, 2432)            # the students' canvas (W, H)
+TRAIN_CLASSES = {"region": ["TEXT", "TABULAR", "ILLUSTRATION",
+                            "BACKGROUND"],
+                 "separator": ["H", "V", "T", "BACKGROUND"]}
+# phase 14b: the JAX trainers' numbers (scripts/make_torch_train_fixture
+# .py) against the port's, float32, TF32 off, warp off. U-Nets take one
+# page a step (the corpus' pages in name order: real_scan_1872,
+# real_scan_bbz_1925, synth0000, synth0001); the recognizer 8 of its 16
+# strips (the first 8 TEXT lines of each fixture page, as the OCR path
+# extracts them, labelled with the JAX single-mode ocr.zip text)
+PARITY_RUNS = {
+    "segment_region": dict(trainer="segment", kind="region",
+                           start="models_pretrained/students/region/00",
+                           band=None, learning_rate=3e-4),
+    "segment_separator": dict(trainer="segment", kind="separator",
+                              start="models_pretrained/students/"
+                                    "separator/00",
+                              band=(3, 2, 0.15), learning_rate=3e-4),
+    "distill_region": dict(trainer="distill", kind="region",
+                           start="models_pretrained/students/region/00",
+                           learning_rate=2e-4),
+    "recognizer": dict(trainer="recognizer",
+                       start="models_pretrained/recognizer",
+                       learning_rate=1e-3),
+}
+PARITY_STEPS, PARITY_WARMUP = 20, 10         # the schedule's length
+PARITY_PAGES = ([2], [0], [3])
+PARITY_STRIPS = (list(range(8)), list(range(8, 16)), list(range(4, 12)))
+# the distiller's student: the teacher's weights plus noise, leaf by leaf
+# in sorted path order, N(0, 1) from numpy's default_rng(seed) times
+# scale times the leaf's standard deviation
+PARITY_NOISE = dict(seed=11, scale=0.05)
+# the bars: the first loss (the same weights, one forward) within
+# PARITY_FIRST; later losses and every leaf's L2 norm after every step
+# within PARITY_LATER (cuDNN's and XLA's float32 convolutions sum in other
+# orders, and Adam's first steps magnify a gradient's last bits)
+PARITY_FIRST = 1e-5
+PARITY_LATER = 1e-3
+# the recognizer's first loss: JAX's float32 CTC of these strips is
+# 1.9e-4 relative off the float64 loss of the same logits (the port's
+# 5.9e-5, on the CPU; ROADMAP C12), so PARITY_FIRST cannot hold
+# against it; it is held to PARITY_LATER
+PARITY_FIRST_CTC = PARITY_LATER
+# phase 14a/c: the warp's amplitude, the f32 remap bar
+WARP_AMPLITUDE = 10.0
+REMAP_F32_ERR = 1e-4
+# phase 14c: the main path's sizes (bootstrap's defaults where not cut)
+MAIN_SEG = dict(kind="region", members=2, steps=20, width=2.0, s2d=4,
+                full_size=TRAIN_FULL, batch=2, warp_amplitude=WARP_AMPLITUDE)
+MAIN_DISTILL_STEPS = 10
+MAIN_OCR = dict(steps=20, batch=64, height=48,
+                conv_features=(64, 128, 256), lstm_features=256)
+# phase 14d: the host stages run with --processes 2
+POOL_STAGES = ("contours", "flow", "dewarp", "layout", "lines")
+POOL_ALIVE = 24
+
+
+def train_corpus(dst):
+    """The training corpus in `dst`: TRAIN_PAGES and their label PNGs."""
+    dst.mkdir(parents=True)
+    for png in TRAIN_PAGES:
+        shutil.copy(png, dst / png.name)
+        with zipfile.ZipFile(SEG_REF / (png.stem + ".auto.f32.segment.zip")) \
+                as zf:
+            for kind, name in (("region", "regions"),
+                               ("separator", "separators")):
+                classes = json.loads(zf.read(name + ".json"))["classes"]
+                want = {c: i for i, c in enumerate(TRAIN_CLASSES[kind])}
+                if classes != want:
+                    raise PhaseError("%s %s: classes %s, expected %s"
+                                     % (png.name, name, classes, want))
+                (dst / ("%s.labels.%s.png" % (png.stem, kind))).write_bytes(
+                    zf.read(name + ".png"))
+    return dst
+
+
+def flat_leaves(tree, prefix=""):
+    """[(path, leaf)] of a nested dict, keys sorted at every level."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = prefix + "/" + k if prefix else k
+        out += flat_leaves(v, path) if isinstance(v, dict) else [(path, v)]
+    return out
+
+
+def leaf_norms(tree):
+    """{path: L2 norm in float64} of a flax param tree."""
+    import numpy as np
+    return {p: float(np.linalg.norm(np.asarray(v, np.float64)))
+            for p, v in flat_leaves(tree)}
+
+
+def noisy_tree(tree, seed=PARITY_NOISE["seed"],
+               scale=PARITY_NOISE["scale"]):
+    """PARITY_NOISE's student: a copy of `tree` (numpy float32 leaves)
+    with noise added leaf by leaf in sorted path order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    noisy = {}
+    for path, v in flat_leaves(tree):
+        v = np.asarray(v, np.float32)
+        n = rng.standard_normal(v.shape) * (scale * float(v.std()))
+        node = noisy
+        keys = path.split("/")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = (v + n).astype(np.float32)
+    return noisy
+
+
+def ocr_strips(device):
+    """Every OCR line of the fixture pages as the OCR path extracts it:
+    [(page stem, line key, strip u8 (48, w), the JAX single-mode text)]
+    in page and key order."""
+    from origami_tpu_torch.batch.core.io import Artifact, Input, Stage
+    from origami_tpu_torch.batch.core.lines import LineExtractor
+    out = []
+    for png in sorted(FIXTURE.glob("*.png")):
+        reader = Input(Artifact.LINES, Artifact.TABLES,
+                       stage=Stage.RELIABLE).instantiate(png, _Proc(device))
+        ext = LineExtractor(reader.tables, 48, {"device": str(device)},
+                            min_confidence=reader.lines.min_confidence)
+        text = read_zip(FIXTURE / "ref" / (png.stem + ".single.ocr.zip"))
+        strips = {"/".join(map(str, p)): s
+                  for p, s in ext(reader.lines.by_path)}
+        for key in sorted(strips):
+            out.append((png.stem, key, strips[key], text[key + ".txt"]))
+    return out
+
+
+def parity_pool(device, charset):
+    """The recognizer parity run's 16 strips in one width bucket:
+    (bucket, (strips u8 (16, 48, bucket), widths, labels, label_pad),
+    [(page, key)])."""
+    import numpy as np
+    from origami_tpu_torch.models.recognizer import width_buckets
+    from origami_tpu_torch.train.ocr.train import encode_labels
+    rows = []
+    for stem in ("synth0000", "synth0001"):
+        rows += [r for r in ocr_strips(device)
+                 if r[0] == stem and r[1].startswith("regions/TEXT/")][:8]
+    bucket = width_buckets([max(r[2].shape[1] for r in rows)])[0]
+    x = np.full((len(rows), 48, bucket), 255, np.uint8)
+    widths = np.zeros((len(rows),), np.float32)
+    for i, (_, _, s, _) in enumerate(rows):
+        w = min(s.shape[1], bucket)
+        x[i, :, :w] = s[:, :w]
+        widths[i] = w
+    labels, pad = encode_labels([r[3] for r in rows], charset,
+                                max_len=max(len(r[3]) for r in rows) + 1)
+    return bucket, (x, widths, labels, pad), [(r[0], r[1]) for r in rows]
+
+
+def port_parity_run(name, corpus, device):
+    """One PARITY_RUNS entry through the port's trainer, float32: ->
+    (losses, [leaf norms after each step])."""
+    import numpy as np
+    import torch
+    from origami_tpu_torch.models import registry
+    from origami_tpu_torch.train import bootstrap
+    from origami_tpu_torch.train.segment.data import class_weights
+    run = PARITY_RUNS[name]
+    tree, meta = registry.load_params(ROOT / run["start"])
+    losses, norms = [], []
+    if run["trainer"] == "recognizer":
+        from origami_tpu_torch.train.ocr.train import (OCRTrainConfig,
+                                                       RecognizerTrainer)
+        cfg = OCRTrainConfig(
+            num_symbols=len(meta["charset"]), height=meta["height"],
+            learning_rate=run["learning_rate"], steps=PARITY_STEPS,
+            warmup=PARITY_STEPS, conv_features=tuple(meta["conv_features"]),
+            lstm_features=meta["lstm_features"])
+        tr = RecognizerTrainer(cfg, device=device, dtype=torch.float32)
+        tr.model.load_state_dict(registry.params_from_flax(tree))
+        bucket, pool, _ = parity_pool(device, meta["charset"])
+        tr.attach_pool({bucket: pool})
+        for idx in PARITY_STRIPS:
+            losses.append(float(tr.train_on_bucket(bucket, idx)))
+            norms.append(leaf_norms(registry.flax_params(tr.model)))
+        return losses, norms
+    images, labels, _ = bootstrap.load_corpus_arrays(corpus, run["kind"],
+                                                     TRAIN_FULL)
+    if run["trainer"] == "segment":
+        from origami_tpu_torch.train.segment.train import (
+            SegmentationTrainer, TrainConfig)
+        cfg = TrainConfig(
+            num_classes=4, width=meta["width"], s2d=meta["s2d"],
+            tile_hw=(TRAIN_FULL[1], TRAIN_FULL[0]),
+            learning_rate=run["learning_rate"], steps=PARITY_STEPS,
+            warmup=PARITY_WARMUP,
+            class_weights=class_weights(list(labels), 4),
+            band_dontcare=run["band"])
+        tr = SegmentationTrainer(cfg, device=device, dtype=torch.float32)
+        tr.model.load_state_dict(registry.unet_params_from_flax(tree, meta))
+        tr.attach_dataset(images, labels)
+        model, step = tr.model, tr.train_on_indices
+    else:
+        from origami_tpu_torch.train.segment.distill import (DistillConfig,
+                                                             Distiller)
+        teacher = registry.build_unet(meta, dtype=torch.float32)
+        teacher.load_state_dict(registry.unet_params_from_flax(tree, meta))
+        cfg = DistillConfig(
+            num_classes=4, width=meta["width"], s2d=meta["s2d"],
+            tile_hw=(TRAIN_FULL[1], TRAIN_FULL[0]),
+            learning_rate=run["learning_rate"], steps=PARITY_STEPS,
+            warmup=PARITY_WARMUP)
+        tr = Distiller(cfg, [teacher], device=device, dtype=torch.float32)
+        tr.student.load_state_dict(registry.unet_params_from_flax(
+            noisy_tree(tree), meta))
+        tr.attach_dataset(images, labels)
+        model, step = tr.student, tr.distill_on_indices
+    for idx in PARITY_PAGES:
+        losses.append(float(step(np.asarray(idx))))
+        norms.append(leaf_norms(registry.flax_params(model)))
+    return losses, norms
+
+
+def check_train_parity(workdir, device="cuda"):
+    """Phase 14b: each PARITY_RUNS entry against the JAX trainer's numbers
+    in TRAIN_REF (3 steps): the first loss within PARITY_FIRST, the later
+    losses and every leaf's norm after every step within PARITY_LATER,
+    relative."""
+    corpus = train_corpus(workdir / "train_parity")
+    failed = []
+    for name in PARITY_RUNS:
+        ref = json.loads((TRAIN_REF / (name + ".json")).read_text())
+        t0 = time.time()
+        losses, norms = port_parity_run(name, corpus, device)
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                        ref["losses"])]
+        norm_err = 0.0
+        worst = None
+        for got, want in zip(norms, ref["leaf_norms"]):
+            if set(got) != set(want):
+                failed.append("%s: leaves %s" % (name, sorted(
+                    set(got) ^ set(want))[:5]))
+                break
+            for k, w in want.items():
+                e = abs(got[k] - w) / max(abs(w), 1e-30)
+                if e > norm_err:
+                    norm_err, worst = e, k
+        first = PARITY_FIRST_CTC \
+            if PARITY_RUNS[name]["trainer"] == "recognizer" else PARITY_FIRST
+        ok = loss_err[0] <= first and max(loss_err) <= PARITY_LATER \
+            and norm_err <= PARITY_LATER
+        log("  parity %-18s losses %s (JAX %s): relative %s; leaf norms "
+            "worst %.2e (%s); %.1f s  %s" % (
+                name, ["%.6f" % v for v in losses],
+                ["%.6f" % v for v in ref["losses"]],
+                ["%.1e" % e for e in loss_err], norm_err, worst,
+                time.time() - t0, "ok" if ok else "FAIL"))
+        if not ok:
+            failed.append("%s: loss errors %s (first <= %g, later <= %g), "
+                          "leaf norm %.2e at %s" % (
+                              name, loss_err, first, PARITY_LATER,
+                              norm_err, worst))
+    if failed:
+        raise PhaseError("; ".join(failed))
+
+
+def warp_inputs(images_u8, device, seed=5):
+    """Two pages as f32 on the card and one warp field each at
+    WARP_AMPLITUDE, as the training step draws them: (images (2, H, W),
+    map_x, map_y)."""
+    import torch
+    from origami_tpu_torch.train.segment.warp import (displacement_field,
+                                                      random_coarse)
+    imgs = torch.from_numpy(images_u8[:2]).to(device).float()
+    gen = torch.Generator().manual_seed(seed)
+    coarse = random_coarse(gen, 2, WARP_AMPLITUDE).to(device)
+    fields = displacement_field(coarse, imgs.shape[1:])
+    h, w = imgs.shape[1:]
+    ys = torch.arange(h, dtype=torch.float32, device=device)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
+    return imgs, (xs + fields[..., 0]).contiguous(), \
+        (ys + fields[..., 1]).contiguous()
+
+
+def check_train_warp(workdir, device="cuda"):
+    """Phase 14a: remap_batch on B = 2 pages of 2432 x 1280 f32 under a
+    field of amplitude WARP_AMPLITUDE, both borders, against its plain
+    version (REMAP_F32_ERR), one launch a call; its time (events and
+    device), the plain version's, the bound (every input and output byte
+    once at HBM_BYTES_PER_S) and F.grid_sample on the same map. -> the
+    kernels-line row."""
+    import torch
+    import torch.nn.functional as F
+    from origami_tpu_torch.ops import remap
+    from origami_tpu_torch.train import bootstrap
+    images, _, _ = bootstrap.load_corpus_arrays(
+        train_corpus(workdir / "train_warp"), "region", TRAIN_FULL)
+    imgs, mx, my = warp_inputs(images, device)
+    err = 0.0
+    for border in ("hard", "fill_taps"):
+        before = remap.launches["remap_batch"]
+        got = remap.remap_batch(imgs, (mx, my), 255.0, border)
+        torch.cuda.synchronize()
+        n = remap.launches["remap_batch"] - before
+        want = remap.remap_batch_plain(imgs, mx, my, 255.0, border)
+        e = float((got - want).abs().max())
+        err = max(err, e)
+        ok = e <= REMAP_F32_ERR and n == 1
+        log("  remap_batch %-9s 2 x 2432 x 1280 f32: max abs %.3g (bar "
+            "%g), %d launch  %s" % (border, e, REMAP_F32_ERR, n,
+                                    "ok" if ok else "FAIL"))
+        if not ok:
+            raise PhaseError("remap_batch %s: max abs %g, %d launches"
+                             % (border, e, n))
+
+    def kernel():
+        return remap.remap_batch(imgs, (mx, my), 255.0, "hard")
+
+    h, w = imgs.shape[1:]
+    grid = torch.stack([mx * (2.0 / (w - 1)) - 1.0,
+                        my * (2.0 / (h - 1)) - 1.0], -1)
+
+    def library():
+        return F.grid_sample(imgs[:, None], grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    ms, dev = time_cuda(kernel), device_ms(kernel)
+    plain = time_cuda(lambda: remap.remap_batch_plain(imgs, mx, my, 255.0,
+                                                      "hard"), reps=5)
+    lib, lib_dev = time_cuda(library), device_ms(library)
+    nbytes = 4 * (imgs.numel() + mx.numel() + my.numel() + imgs.numel())
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log("  remap_batch (hard) events %s, device %s; plain %s; bound %s "
+        "(%d bytes); F.grid_sample events %s, device %s" % (
+            fmt_ms(ms), fmt_ms(dev), fmt_ms(plain), fmt_ms(bound), nbytes,
+            fmt_ms(lib), fmt_ms(lib_dev)))
+    return {"remap_batch": dict(err=err, ms=ms, plain_ms=plain,
+                                bound_ms=bound, bound_by="bytes",
+                                library_ms=lib)}
+
+
+def _trend_ok(losses):
+    """Every loss finite, and (20-step runs) the mean of steps 15-19
+    below the mean of steps 1-5 (step 0 runs at learning rate 0)."""
+    import math
+    if not all(math.isfinite(v) for v in losses):
+        return False
+    if len(losses) < 20:
+        return True
+    return statistics.mean(losses[15:20]) < statistics.mean(losses[1:6])
+
+
+def check_train_main_path(workdir, device="cuda"):
+    """Phase 14c: bootstrap.train_segmentation (MAIN_SEG, bf16, warp on),
+    distill_students (MAIN_DISTILL_STEPS) and train_recognizer_pool
+    (MAIN_OCR, the OCR path's strips of the fixture pages with the JAX
+    texts), the launch counts set to 0 just before each and read just
+    after: the warp takes exactly one remap_batch launch a step; every
+    loss finite and falling (_trend_ok); each saved directory loads and
+    serves a page (the segment stage with the shipped separator student
+    beside it; the OCR stage). -> the launches of the segmentation run."""
+    import torch
+    from origami_tpu_torch.batch.detect import ocr, segment
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
+    from origami_tpu_torch.models import registry
+    from origami_tpu_torch.train import bootstrap
+    corpus = train_corpus(workdir / "train_main")
+    failed = []
+    smi = smi_line()
+
+    def run(name, fn, **kw):
+        losses, stamps = {}, {}
+
+        def on_step(kind, member, step, loss):
+            losses.setdefault(member, []).append(loss)
+            if step in (0, kw.get("steps", 0) - 1):
+                torch.cuda.synchronize()
+                stamps.setdefault(member, []).append(time.perf_counter())
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        fn(on_step=on_step, **kw)
+        torch.cuda.synchronize()
+        launched = kernel_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        for m, vals in sorted(losses.items()):
+            vals = [float(v) for v in vals]
+            t = stamps.get(m, [])
+            ms = (t[-1] - t[0]) / (len(vals) - 1) * 1e3 \
+                if len(t) == 2 and len(vals) > 1 else None
+            ok = _trend_ok(vals)
+            log("  %s member %d: %d steps, loss %.4f -> %.4f (steps 1-5 "
+                "mean %.4f, 15-19 mean %s); %s a step (after step 0); "
+                "peak %.0f MiB; %s  %s" % (
+                    name, m, len(vals), vals[0], vals[-1],
+                    statistics.mean(vals[1:6]),
+                    "%.4f" % statistics.mean(vals[15:20])
+                    if len(vals) >= 20 else "-",
+                    fmt_ms(ms), peak, smi, "ok" if ok else "FAIL"))
+            if not ok:
+                failed.append("%s member %d: losses %s" % (name, m, vals))
+        return launched
+
+    seg_kw = dict(MAIN_SEG)
+    steps = seg_kw["steps"]
+    launched = run("train_segmentation", lambda **kw: (
+        bootstrap.train_segmentation(corpus, workdir / "train_ens",
+                                     device=device, **kw)), **seg_kw)
+    want = seg_kw["members"] * steps
+    log("  train_segmentation launches %s (remap_batch %d for %d steps)"
+        % (json.dumps({k: v for k, v in launched.items() if v}),
+           launched["remap_batch"], want))
+    if launched["remap_batch"] != want or any(
+            v for k, v in launched.items() if k != "remap_batch"):
+        failed.append("train_segmentation launches %s, expected "
+                      "remap_batch %d and nothing else" % (launched, want))
+    seg_launches = launched
+    launched = run("distill_students", lambda **kw: (
+        bootstrap.distill_students(workdir / "train_ens", corpus,
+                                   workdir / "train_students",
+                                   kinds=("region",), device=device, **kw)),
+        steps=MAIN_DISTILL_STEPS)
+    if any(launched.values()):
+        failed.append("distill_students launched %s" % launched)
+    tree, meta = registry.load_params(ROOT / "models_pretrained/recognizer")
+    pool = [(s, t) for _, _, s, t in ocr_strips(device)]
+    run("train_recognizer_pool", lambda **kw: (
+        bootstrap.train_recognizer_pool(pool, workdir / "train_rec",
+                                        meta["charset"], device=device,
+                                        **kw)), **MAIN_OCR)
+    # serve: each trained directory loads and runs its stage on a page
+    sep = ROOT / STUDENTS / "separator" / "00"
+    for name, region in (("ensemble", workdir / "train_ens" / "region"),
+                         ("student", workdir / "train_students" / "region")):
+        for d in sorted(region.iterdir()):
+            registry.load_model(d, device)
+        models = workdir / ("serve_" + name)
+        shutil.copytree(region, models / "region")
+        shutil.copytree(sep, models / "separator" / "00")
+        page = workdir / ("serve_%s_page" % name)
+        page.mkdir()
+        shutil.copy(FIXTURE / "synth0000.png", page)
+        segment.main(["-m", str(models), "--lock-strategy", "NONE",
+                      "--plain", "--device", str(device), str(page)])
+        entry = json.loads((page / "synth0000.out" / "runtime.json")
+                           .read_text()).get(SEG_STAGE, {})
+        ok = entry.get("status") == "COMPLETED"
+        log("  the trained %s serves synth0000 through the segment stage  "
+            "%s" % (name, "ok" if ok else "FAIL %s" % entry))
+        if not ok:
+            failed.append("serving the trained %s: %s" % (name, entry))
+    registry.load_model(workdir / "train_rec", device)
+    page = workdir / "serve_recognizer"
+    page.mkdir()
+    shutil.copy(FIXTURE / "synth0000.png", page)
+    shutil.copytree(FIXTURE / "synth0000.out", page / "synth0000.out")
+    ocr.main(["-m", str(workdir / "train_rec"), "--lock-strategy", "NONE",
+              "--plain", "--device", str(device), str(page)])
+    entry = json.loads((page / "synth0000.out" / "runtime.json")
+                       .read_text()).get(OCR_STAGE, {})
+    ok = entry.get("status") == "COMPLETED"
+    log("  the trained recognizer serves synth0000 through the OCR stage  "
+        "%s" % ("ok" if ok else "FAIL %s" % entry))
+    if not ok:
+        failed.append("serving the trained recognizer: %s" % entry)
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return seg_launches
+
+
+def stalling_contours(options):
+    """A contours stage whose pages never end (a hung worker), for the
+    watchdog check of phase 14d; its workers build it again through
+    this function."""
+    from origami_tpu_torch.batch.detect.contours import ContoursProcessor
+
+    class StallingContours(ContoursProcessor):
+        def process(self, p, input, output):
+            time.sleep(600)
+            return {}
+
+        def spawn_factory(self):
+            return stalling_contours, (self._options,)
+
+    return StallingContours(options)
+
+
+def _out_files(corpus):
+    """{page/file: contents} of every artifact but runtime.json (zips by
+    their entries)."""
+    out = {}
+    for d in sorted(corpus.glob("*.out")):
+        for f in sorted(d.iterdir()):
+            if f.name == "runtime.json":
+                continue
+            out["%s/%s" % (d.name, f.name)] = _entries(f) \
+                if f.suffix == ".zip" else f.read_bytes()
+    return out
+
+
+def check_processes(workdir, device="cuda"):
+    """Phase 14d (ROADMAP C11): the contours, flow, dewarp, layout and
+    lines stages from the JAX segment.zip of the fixture pages, in
+    process, once with --processes 1 and once with --processes 2 (two
+    spawned workers, each with its own CUDA context): the artifacts
+    equal, and the launches per page that the workers report to the
+    parent as STAGE_LAUNCHES says; then a stalled worker is ended by the
+    watchdog after --alive seconds and its pages named."""
+    import importlib
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
+    one = chain_corpus(workdir / "pool_1", True)
+    two = chain_corpus(workdir / "pool_2", True)
+    n = len(list(one.glob("*.png")))
+    failed = []
+    common = ["--lock-strategy", "NONE", "--plain", "--device", str(device)]
+    for stage in POOL_STAGES:
+        mod = importlib.import_module("origami_tpu_torch.batch.detect."
+                                      + stage)
+        mod.main(common + ["--processes", "1", str(one)])
+        reset_launches()
+        t0 = time.time()
+        mod.main(common + ["--processes", "2", str(two)])
+        wall = time.time() - t0
+        launches = kernel_launches()
+        bad = launch_errors(stage, launches, n, device)
+        same = _out_files(one) == _out_files(two)
+        status = [json.loads((two / (p.stem + ".out") / "runtime.json")
+                             .read_text()).get(STAGE_KEYS[stage], {})
+                  .get("status") for p in sorted(two.glob("*.png"))]
+        ok = same and not bad and status == ["COMPLETED"] * n
+        log("  %-8s --processes 2: %.1f s; artifacts %s the single "
+            "process's; launches from the workers %s  %s" % (
+                stage, wall, "equal" if same else "DIFFER from",
+                json.dumps({k: v for k, v in launches.items() if v}),
+                "ok" if ok else "FAIL %s %s" % (bad, status)))
+        if not ok:
+            failed.append("--processes 2, %s: artifacts equal %s, launches "
+                          "(got, expected) %s, status %s"
+                          % (stage, same, bad, status))
+            break
+    stall = chain_corpus(workdir / "pool_stall", True)
+    stage = stalling_contours(dict(device=str(device), lock_strategy="NONE",
+                                   plain=True, processes=2,
+                                   alive=POOL_ALIVE))
+    t0 = time.time()
+    code = None
+    try:
+        stage.traverse(str(stall))
+    except SystemExit as e:
+        code = e.code
+    wall = time.time() - t0
+    stuck = sorted(Path(p).name for p, _, _ in getattr(stage, "stuck", []))
+    ok = code == 1 and stuck == sorted(p.name for p in stall.glob("*.png"))
+    log("  a stalled pool (--alive %d): ended after %.1f s, exit %s, stuck "
+        "pages %s  %s" % (POOL_ALIVE, wall, code, stuck,
+                          "ok" if ok else "FAIL"))
+    if not ok:
+        failed.append("watchdog: exit %s after %.1f s, stuck %s"
+                      % (code, wall, stuck))
+    if failed:
+        raise PhaseError("; ".join(failed))
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -3242,12 +3832,13 @@ def main():
         return 1
     if not (ROOT / "origami_tpu_torch").is_dir() or not FIXTURE.is_dir() \
             or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
-            or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir():
+            or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
+            or not TRAIN_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
-              "tests/data/torch_layout/ or tests/data/torch_compose/ "
-              "missing)", file=sys.stderr)
+              "tests/data/torch_layout/, tests/data/torch_compose/ or "
+              "tests/data/torch_train/ missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     torch.backends.cudnn.allow_tf32 = False
@@ -3447,9 +4038,20 @@ def main():
             "export CLIs on the card (%s)" % smi)
         check_inference_surface(work)
 
+        log("== phase 14: training on the card: the warp kernel, the JAX "
+            "trainers' numbers, the main path, --processes (%s)" % smi)
+        t14 = time.time()
+        rows.update(check_train_warp(work))
+        check_train_parity(work)
+        train_launches = check_train_main_path(work)
+        check_processes(work)
+        log("  (phase 14: %.1f s)" % (time.time() - t14))
+
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
              for k in whole["banded"]}
+    # the training warp's kernel: its launches in phase 14c's run
+    total["remap_batch"] = train_launches["remap_batch"]
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",
@@ -3463,6 +4065,7 @@ def main():
         "grid_scan_v": ("grid.cu", "scripts/pallas_gather_repro.py:73, "
                                    "origami_tpu/core/dewarp.py:131"),
         "remap": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
+        "remap_batch": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "take_along_axis_lane": ("gather.cu",
                                  "scripts/pallas_gather_repro.py:73"),
         "take_along_axis_sublane": ("gather.cu",

@@ -7,8 +7,14 @@ lock strategy, record each page's status in runtime.json — a failure is
 captured with its traceback and the batch loop keeps going.
 
 Every processor carries a `torch.device` (the `device` option, "cuda"
-unless the caller asks for "cpu"); the JAX runtime's multihost sharding,
-compile cache and process pool stay out. `--profile` runs cProfile (the
+unless the caller asks for "cpu"); the JAX runtime's multihost sharding
+and compile cache stay out. The host stages (`POOLED`: contours, flow,
+dewarp, layout, lines, order, compose) run in `--processes` spawned
+workers under a `Watchdog` that `--alive` times (:40-147, :442-470);
+each worker opens its own CUDA context, and the kernel launches it
+counts are added to the parent's counters. The batched stages (segment,
+OCR) run in one process, as the JAX package's do, and say so when asked
+for more. `--profile` runs cProfile (the
 30 largest cumulative entries printed at the end) and torch.profiler,
 whose Chrome trace goes to `<corpus>/torch-trace/` (the JAX runtime's
 `jax.profiler.trace` into `<corpus>/jax-trace`); `--track-changes TAG`
@@ -20,8 +26,10 @@ from __future__ import annotations
 
 import json
 import logging
+import multiprocessing
 import os
 import re
+import sys
 import threading
 import time
 import traceback
@@ -36,9 +44,120 @@ from origami_tpu_torch.core.page import is_image
 from origami_tpu_torch.device import resolve
 
 
+class Watchdog(threading.Thread):
+    """Terminates a stalled pool after `timeout` seconds without a
+    completed page; a second strike hard-exits the process.
+
+    `work_set` (a shared dict pid -> (page, since)) is the in-flight
+    work the workers register: on a stall the watchdog names the pages
+    stuck in each worker (`stuck`: [(page, pid, age)])."""
+
+    def __init__(self, pool, timeout, heartbeat, work_set=None):
+        super().__init__(daemon=True)
+        self._pool = pool
+        self._timeout = timeout
+        self._heartbeat = heartbeat
+        self._work_set = work_set
+        self._done = threading.Event()
+        self._cancelled = False
+        self._strikes = 0
+        self.stuck = []
+
+    def _report_stuck(self):
+        if self._work_set is None:
+            return
+        try:
+            now = time.time()
+            for pid, (page, since) in dict(self._work_set).items():
+                age = now - since
+                if age > self._timeout / 2:
+                    self.stuck.append((page, pid, age))
+                    logging.error("watchdog: worker %s stuck on %s for "
+                                  "%.0fs", pid, page, age)
+        except Exception:
+            logging.exception("watchdog: cannot read the work set")
+
+    def run(self):
+        while not self._done.wait(min(self._timeout / 4, 15)):
+            if time.time() - self._heartbeat.value > self._timeout:
+                self._strikes += 1
+                if self._strikes == 1:
+                    logging.error("watchdog: no progress in %ds, "
+                                  "terminating pool", self._timeout)
+                    self._report_stuck()
+                    self._cancelled = True
+                    self._pool.terminate()
+                else:
+                    logging.error("watchdog: second strike, exiting")
+                    os._exit(1)
+
+    def set_done(self):
+        self._done.set()
+
+    @property
+    def cancelled(self):
+        return self._cancelled
+
+
 def _chunks(items, n):
     for i in range(0, len(items), n):
         yield items[i:i + n]
+
+
+def _launch_counters():
+    """The kernel wrappers' launch counters, by module."""
+    from origami_tpu_torch.ops import binarize, gather, grid, remap
+    return {"remap": remap.launches, "binarize": binarize.launches,
+            "gather": gather.launches, "grid": grid.launches}
+
+
+def _launch_snapshot():
+    return {m: dict(c) for m, c in _launch_counters().items()}
+
+
+def _launch_delta(before):
+    return {m: {k: v - before[m].get(k, 0) for k, v in c.items()
+                if v != before[m].get(k, 0)}
+            for m, c in _launch_counters().items()}
+
+
+def _add_launches(delta):
+    """Add a worker's launch counts to this process's counters."""
+    counters = _launch_counters()
+    for m, counts in delta.items():
+        for k, n in counts.items():
+            counters[m].add(k, n)
+
+
+# worker globals (set per spawned worker by _worker_init)
+_worker_self = None
+_worker_heartbeat = None
+_worker_work_set = None
+
+
+def _worker_init(factory, factory_args, heartbeat, mutex, work_set=None):
+    global _worker_self, _worker_heartbeat, _worker_work_set
+    _worker_self = factory(*factory_args)
+    _worker_self._mutex = mutex
+    _worker_heartbeat = heartbeat
+    _worker_work_set = work_set
+
+
+def _worker_run_chunk(chunk):
+    """chunk: [(index, path str)]. The worker rebuilds each page's
+    readers and writers (prepare_process), so only paths cross the
+    process boundary. Returns ([(index, path str)], the kernel launches
+    the chunk made, by counter module)."""
+    before = _launch_snapshot()
+    results = []
+    for i, path in _worker_self._run_chunk_paths(
+            [(i, Path(p)) for i, p in chunk]):
+        results.append((i, str(path)))
+        if _worker_heartbeat is not None:
+            _worker_heartbeat.value = time.time()
+    if _worker_work_set is not None:
+        _worker_work_set.pop(os.getpid(), None)
+    return results, _launch_delta(before)
 
 
 class Processor:
@@ -58,17 +177,22 @@ class Processor:
         self._profile = options.get("profile", False)
         if self._profile:
             self._overwrite = True
+        self._processes = int(options.get("processes", 1) or 1)
+        self._timeout = options.get("alive", 600)
         self.device = resolve(options.get("device"))
         self._mutex = None
 
     # -- CLI ---------------------------------------------------------------
     @staticmethod
-    def add_arguments(parser):
+    def add_arguments(parser, pooled=True):
         """The JAX CLI's runtime options (names and defaults), plus
-        --device."""
+        --device. `pooled`: the stage runs --processes workers (the host
+        stages); the batched stages run in one process."""
         parser.add_argument("--processes", type=int, default=1,
-                            help="Number of parallel worker processes "
-                                 "(batched stages run in one process).")
+                            help="Number of parallel worker processes."
+                            if pooled else
+                            "Number of parallel worker processes "
+                            "(batched stages run in one process).")
         parser.add_argument("--alive", type=int, default=600,
                             help="Watchdog timeout in seconds.")
         parser.add_argument("--name", type=str, default="",
@@ -265,6 +389,9 @@ class BatchedProcessor(Processor):
     fails, inside process_batch, where the failure is recorded)."""
 
     PRELOAD_THREADS = 4
+    # True for the host stages, which run --processes workers
+    POOLED = False
+    LOCK_CHUNK_SIZE = 25
 
     def __init__(self, options=None, batch_size=8):
         super().__init__(options)
@@ -277,6 +404,73 @@ class BatchedProcessor(Processor):
         """Override: host-side IO for one page (decode)."""
         return None
 
+    def spawn_factory(self):
+        """(callable, args) rebuilding this processor in a worker."""
+        return self.__class__, (self._options,)
+
+    def _run_chunk_paths(self, chunk):
+        """Worker side: chunk = [(i, path)]. Each page is registered in
+        the shared in-flight work set while it runs, its readers and
+        writers are built here, and it runs as a batch of one under its
+        own lock. Yields (i, path) as each page ends."""
+        actor = "page" if self._lock_level == "PAGE" else self.processor_name
+        pid = os.getpid()
+        for i, p in chunk:
+            if _worker_work_set is not None:
+                _worker_work_set[pid] = (str(p), time.time())
+            kwargs = self.prepare_process(p)
+            if kwargs is not False:
+                try:
+                    kwargs["_preloaded"] = self.preload(p)
+                except Exception as e:
+                    logging.warning("preload of %s failed: %s", p, e)
+                    kwargs["_preloaded"] = None
+                self._run_batch_chunk([(i, p, kwargs)], actor)
+            yield i, p
+
+    def _process_pool(self, queued, progress):
+        """--processes > 1 (`progress(pages)` reports ended pages):
+        spawned workers (not forked: the parent may
+        hold a CUDA context, which a forked child cannot use) rebuild
+        the processor via spawn_factory and run chunks of page paths; a
+        Watchdog ends the pool when no page completes for --alive
+        seconds, and the run then exits with status 1."""
+        ctx = multiprocessing.get_context("spawn")
+        heartbeat = ctx.Value("d", time.time())
+        factory, fargs = self.spawn_factory()
+        # chunks of LOCK_CHUNK_SIZE pages, smaller where the queue is
+        # short, so that every worker gets pages
+        size = max(1, min(self.LOCK_CHUNK_SIZE,
+                          -(-len(queued) // self._processes)))
+        path_chunks = [[(i, str(p)) for i, p, _ in chunk]
+                       for chunk in _chunks(queued, size)]
+        poll = min(0.1, self._timeout / 8)
+        with ctx.Manager() as manager:
+            work_set = manager.dict()
+            with ctx.Pool(self._processes, maxtasksperchild=4,
+                          initializer=_worker_init,
+                          initargs=(factory, fargs, heartbeat, self._mutex,
+                                    work_set)) as pool:
+                watchdog = Watchdog(pool, self._timeout, heartbeat,
+                                    work_set=work_set)
+                watchdog.start()
+                results = pool.imap_unordered(_worker_run_chunk,
+                                              path_chunks)
+                left = len(path_chunks)
+                while left and not watchdog.cancelled:
+                    try:
+                        pages, launched = results.next(timeout=poll)
+                    except multiprocessing.TimeoutError:
+                        continue
+                    left -= 1
+                    heartbeat.value = time.time()
+                    _add_launches(launched)
+                    progress([p for _i, p in pages])
+                watchdog.set_done()
+                self.stuck = list(watchdog.stuck)
+        if watchdog.cancelled:
+            sys.exit(1)
+
     def _process_queue(self, queued):
         n = len(queued)
         if n == 0:
@@ -285,6 +479,25 @@ class BatchedProcessor(Processor):
             return
         done = 0
         t0 = time.time()
+
+        def progress(pages):
+            nonlocal done
+            done += len(pages)
+            if self._plain:
+                for p in pages:
+                    print("[%d/%d] %s" % (done, n, p), flush=True)
+            else:
+                rate = done / max(time.time() - t0, 1e-6)
+                print("\r[%d/%d] %.2f pages/s" % (done, n, rate),
+                      end="" if done < n else "\n", flush=True)
+
+        if self._processes > 1:
+            if self.POOLED:
+                self._process_pool(queued, progress)
+                return
+            print("%s is a batched stage: it runs in one process "
+                  "(--processes %d asked)" % (self.processor_name,
+                                              self._processes), flush=True)
         actor = "page" if self._lock_level == "PAGE" else self.processor_name
         chunks = list(_chunks(queued, self._batch_size))
         with ThreadPoolExecutor(max_workers=self.PRELOAD_THREADS) as pool:
@@ -304,14 +517,7 @@ class BatchedProcessor(Processor):
                         kw["_preloaded"] = None
                 futures = following
                 self._run_batch_chunk(chunk, actor)
-                done += len(chunk)
-                if self._plain:
-                    for _, p, _kw in chunk:
-                        print("[%d/%d] %s" % (done, n, p), flush=True)
-                else:
-                    rate = done / max(time.time() - t0, 1e-6)
-                    print("\r[%d/%d] %.2f pages/s" % (done, n, rate),
-                          end="" if done < n else "\n", flush=True)
+                progress([p for _, p, _kw in chunk])
 
     def _run_batch_chunk(self, chunk, actor):
         with self._mutex.lock(actor,

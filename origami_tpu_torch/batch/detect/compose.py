@@ -58,6 +58,8 @@ class ComposeProcessor(BatchedProcessor):
     """One page per batch: a page that fails is recorded FAILED on its
     own and the stage goes on with the next."""
 
+    POOLED = True
+
     def __init__(self, options):
         super().__init__(options, batch_size=1)
         self._opt = options

@@ -94,6 +94,8 @@ class LineDetectionProcessor(BatchedProcessor):
     """One page per batch: a page that fails is recorded FAILED on its
     own and the stage goes on with the next."""
 
+    POOLED = True
+
     def __init__(self, options):
         super().__init__(options, batch_size=1)
         self._text_regions = RegionsFilter(

@@ -439,7 +439,7 @@ def parser():
                         "frame-distribution averaging (comparison only)")
     p.add_argument("--ignored", type=str, default="regions/ILLUSTRATION")
     p.add_argument("data_path", type=str)
-    Processor.add_arguments(p)
+    Processor.add_arguments(p, pooled=False)
     LineExtractor.add_arguments(p)
     return p
 

@@ -118,7 +118,7 @@ def parser():
                    help="the convolutions' type: bfloat16 (the main path) "
                         "or float32 (parity runs; turns TF32 off)")
     p.add_argument("data_path", type=str)
-    Processor.add_arguments(p)
+    Processor.add_arguments(p, pooled=False)
     return p
 
 

@@ -27,6 +27,8 @@ from origami_tpu_torch.core import _png
 
 
 class LineExportProcessor(BatchedProcessor):
+    POOLED = True
+
     def __init__(self, options):
         super().__init__(options, batch_size=1)
         self._opt = options

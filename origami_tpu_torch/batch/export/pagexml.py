@@ -24,6 +24,8 @@ from origami_tpu_torch.batch.detect.flow import kernel_launches
 
 
 class PageXMLExportProcessor(BatchedProcessor):
+    POOLED = True
+
     def __init__(self, options):
         super().__init__(options, batch_size=1)
         self._out = Path(options["output"])

@@ -14,7 +14,10 @@
 //
 // `remap_f32` reaches the page's bytes through the read-only cache with
 // `__ldg`: one thread per output pixel, 32x8 blocks, so the stores
-// coalesce and the taps of a warp fall on one or two source rows.
+// coalesce and the taps of a warp fall on one or two source rows; the
+// grid's z axis walks a batch of images, so the training step warps its
+// whole batch (train/segment/warp.py's bilinear_sample, hard border) in
+// one launch.
 //
 // `dewarp_u8` upsamples the coarse grid inside the kernel (index-aligned,
 // nearest beyond the last node, as core/dewarp.py:436-456), so the dense
@@ -57,32 +60,66 @@
 
 namespace {
 
-// remap_pallas semantics: coordinates clamped into a fill margin
-// ([-2, w+1] x [-2, h+1]); taps outside the image read `fill`.
+// One bilinear sample per output pixel of image b of a batch: the source
+// (x, y) of output pixel o is (mx[o * stride], my[o * stride]), so an
+// interleaved (H', W', 2) map (my = mx + 1, stride 2) and separate x and
+// y planes (stride 1) take the same kernel. Two borders:
+//   hard == 0 (remap_pallas): coordinates clamped into a fill margin
+//     ([-2, w+1] x [-2, h+1]); taps outside the image read `fill`;
+//   hard == 1 (bilinear_sample_xy, origami_tpu/ops/remap.py:28-59, the
+//     training warp's): taps clamped into the image, the sample `fill`
+//     outside [0, w-1] x [0, h-1].
+// The arithmetic is the plain version's, product by product (built
+// with -fmad=false), so the two agree to the bit.
 __global__ void remap_f32_kernel(const float* __restrict__ img, int h, int w,
-                                 const float* __restrict__ map, int oh,
-                                 int ow, float fill,
+                                 const float* __restrict__ mx,
+                                 const float* __restrict__ my, int stride,
+                                 int oh, int ow, float fill, int hard,
                                  float* __restrict__ out) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= ow || y >= oh) return;
+  long plane = (long)oh * ow;
   long o = (long)y * ow + x;
-  float sx = fminf(fmaxf(__ldg(map + 2 * o), -2.0f), (float)w + 1.0f);
-  float sy = fminf(fmaxf(__ldg(map + 2 * o + 1), -2.0f), (float)h + 1.0f);
+  long mo = (blockIdx.z * plane + o) * stride;
+  img += (long)blockIdx.z * h * w;
+  out += blockIdx.z * plane;
+  float sx = __ldg(mx + mo), sy = __ldg(my + mo);
+  if (!hard) {
+    sx = fminf(fmaxf(sx, -2.0f), (float)w + 1.0f);
+    sy = fminf(fmaxf(sy, -2.0f), (float)h + 1.0f);
+  }
   float fx = floorf(sx), fy = floorf(sy);
   float tx = sx - fx, ty = sy - fy;
-  int x0 = (int)fx, y0 = (int)fy;
   float v[4];
+  if (hard) {
+    // NaN and far coordinates: the taps stay in the image, the sample
+    // is `fill` by the test below
+    int x0 = (int)fminf(fmaxf(fx, -1.0f), (float)w);
+    int y0 = (int)fminf(fmaxf(fy, -1.0f), (float)h);
+    int xa = min(max(x0, 0), w - 1), xb = min(max(x0 + 1, 0), w - 1);
+    int ya = min(max(y0, 0), h - 1), yb = min(max(y0 + 1, 0), h - 1);
+    v[0] = __ldg(img + (long)ya * w + xa);
+    v[1] = __ldg(img + (long)ya * w + xb);
+    v[2] = __ldg(img + (long)yb * w + xa);
+    v[3] = __ldg(img + (long)yb * w + xb);
+  } else {
+    int x0 = (int)fx, y0 = (int)fy;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    int yi = y0 + (k >> 1), xi = x0 + (k & 1);
-    v[k] = (xi >= 0 && xi < w && yi >= 0 && yi < h)
-               ? __ldg(img + (long)yi * w + xi)
-               : fill;
+    for (int k = 0; k < 4; ++k) {
+      int yi = y0 + (k >> 1), xi = x0 + (k & 1);
+      v[k] = (xi >= 0 && xi < w && yi >= 0 && yi < h)
+                 ? __ldg(img + (long)yi * w + xi)
+                 : fill;
+    }
   }
   float top = v[0] * (1.0f - tx) + v[1] * tx;
   float bot = v[2] * (1.0f - tx) + v[3] * tx;
-  out[o] = top * (1.0f - ty) + bot * ty;
+  float r = top * (1.0f - ty) + bot * ty;
+  if (hard && !(sx >= 0.0f && sx <= (float)(w - 1) && sy >= 0.0f &&
+                sy <= (float)(h - 1)))
+    r = fill;
+  out[o] = r;
 }
 
 constexpr int kTileCells = 4;           // a tile is 4 x 4 grid cells
@@ -334,13 +371,17 @@ __global__ void __launch_bounds__(kDewarpThreads)
 
 }  // namespace
 
-extern "C" int origami_remap_f32(const float* img, int h, int w,
-                                 const float* map, int oh, int ow, float fill,
-                                 float* out, void* stream) {
+// b images (b, h, w) through their maps (b, oh, ow): mx, my and stride
+// as remap_f32_kernel takes them; one launch for the whole batch.
+extern "C" int origami_remap_f32(const float* img, int b, int h, int w,
+                                 const float* mx, const float* my,
+                                 int stride, int oh, int ow, float fill,
+                                 int hard, float* out, void* stream) {
+  if (b > 65535) return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
-  dim3 grid((ow + 31) / 32, (oh + 7) / 8);
+  dim3 grid((ow + 31) / 32, (oh + 7) / 8, b);
   remap_f32_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      img, h, w, map, oh, ow, fill, out);
+      img, h, w, mx, my, stride, oh, ow, fill, hard, out);
   return (int)cudaGetLastError();
 }
 

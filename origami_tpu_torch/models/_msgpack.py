@@ -1,9 +1,13 @@
-"""A small msgpack reader for flax.serialization checkpoints.
+"""A small msgpack reader and writer for flax.serialization checkpoints.
 
 Reads the subset `flax.serialization.to_bytes` writes for a parameter
-tree: maps, str, bin, ints, floats, arrays, and ext type 1 (an ndarray,
-itself a msgpack array of (shape, dtype name, C-order bytes)). Anything
-else raises ValueError. Keeps the port free of the msgpack package.
+tree: maps, str, bin, ints, floats, arrays, ext type 1 (an ndarray,
+itself a msgpack array of (shape, dtype name, C-order bytes)) and ext
+type 3 (a numpy scalar, packed as a 0-d ndarray). Anything else raises
+ValueError. `packb` writes a tree of dicts and numpy arrays
+as those bytes exactly: maps in their keys' order, each number in its
+shortest msgpack form, each ndarray as ext type 1 and each numpy scalar
+as ext type 3. Keeps the port free of the msgpack package.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import struct
 import numpy as np
 
 _EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
 
 
 class _Reader:
@@ -94,9 +99,11 @@ class _Reader:
 
     def _ext(self, code, n):
         payload = bytes(self._take(n))
-        if code != _EXT_NDARRAY:
-            raise ValueError("unsupported msgpack ext type %d" % code)
-        return _ndarray(payload)
+        if code == _EXT_NDARRAY:
+            return _ndarray(payload)
+        if code == _EXT_NPSCALAR:
+            return _ndarray(payload)[()]
+        raise ValueError("unsupported msgpack ext type %d" % code)
 
 
 def _ndarray(payload):
@@ -122,3 +129,113 @@ def unpackb(data):
     if r._i != len(r._d):
         raise ValueError("trailing bytes after msgpack object")
     return out
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+def _pack_uint(n, out):
+    if n < 0x80:
+        out.append(struct.pack(">B", n))
+    elif n < 0x100:
+        out.append(struct.pack(">BB", 0xCC, n))
+    elif n < 0x10000:
+        out.append(struct.pack(">BH", 0xCD, n))
+    elif n < 0x100000000:
+        out.append(struct.pack(">BI", 0xCE, n))
+    else:
+        out.append(struct.pack(">BQ", 0xCF, n))
+
+
+def _pack_int(n, out):
+    if n >= 0:
+        _pack_uint(n, out)
+    elif n >= -32:
+        out.append(struct.pack(">b", n))
+    elif n >= -0x80:
+        out.append(struct.pack(">Bb", 0xD0, n))
+    elif n >= -0x8000:
+        out.append(struct.pack(">Bh", 0xD1, n))
+    elif n >= -0x80000000:
+        out.append(struct.pack(">Bi", 0xD2, n))
+    else:
+        out.append(struct.pack(">Bq", 0xD3, n))
+
+
+def _pack_len(n, small, fix_limit, codes, out):
+    """A length header: fixed form below `fix_limit` (small | n), else
+    the 8/16/32-bit code of `codes` (None where the format has none)."""
+    if n < fix_limit:
+        out.append(struct.pack(">B", small | n))
+    elif codes[0] is not None and n < 0x100:
+        out.append(struct.pack(">BB", codes[0], n))
+    elif n < 0x10000:
+        out.append(struct.pack(">BH", codes[1], n))
+    else:
+        out.append(struct.pack(">BI", codes[2], n))
+
+
+def _pack_ext(code, payload, out):
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if n in fixext:
+        out.append(struct.pack(">Bb", fixext[n], code))
+    elif n < 0x100:
+        out.append(struct.pack(">BBb", 0xC7, n, code))
+    elif n < 0x10000:
+        out.append(struct.pack(">BHb", 0xC8, n, code))
+    else:
+        out.append(struct.pack(">BIb", 0xC9, n, code))
+    out.append(payload)
+
+
+def _ndarray_bytes(arr):
+    """msgpack of (shape, dtype name, C-order bytes), as flax's
+    _ndarray_to_bytes packs it."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes are not supported")
+    return packb((tuple(int(d) for d in arr.shape), arr.dtype.name,
+                  arr.tobytes("C")))
+
+
+def _pack(x, out):
+    if isinstance(x, dict):
+        _pack_len(len(x), 0x80, 16, (None, 0xDE, 0xDF), out)
+        for k, v in x.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(x, (list, tuple)):
+        _pack_len(len(x), 0x90, 16, (None, 0xDC, 0xDD), out)
+        for v in x:
+            _pack(v, out)
+    elif isinstance(x, np.ndarray):
+        _pack_ext(_EXT_NDARRAY, _ndarray_bytes(x), out)
+    elif isinstance(x, np.generic):
+        _pack_ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(x)), out)
+    elif x is None:
+        out.append(b"\xc0")
+    elif x is True or x is False:
+        out.append(b"\xc3" if x else b"\xc2")
+    elif isinstance(x, int):
+        _pack_int(x, out)
+    elif isinstance(x, float):
+        out.append(struct.pack(">Bd", 0xCB, x))
+    elif isinstance(x, str):
+        b = x.encode("utf-8")
+        _pack_len(len(b), 0xA0, 32, (0xD9, 0xDA, 0xDB), out)
+        out.append(b)
+    elif isinstance(x, (bytes, bytearray, memoryview)):
+        b = bytes(x)
+        _pack_len(len(b), 0, 0, (0xC4, 0xC5, 0xC6), out)
+        out.append(b)
+    else:
+        raise ValueError("cannot pack %s" % type(x).__name__)
+
+
+def packb(tree):
+    """msgpack bytes of a tree of dicts, lists, numpy arrays and python
+    scalars: `flax.serialization.to_bytes(tree)` for a parameter tree."""
+    out = []
+    _pack(tree, out)
+    return b"".join(out)

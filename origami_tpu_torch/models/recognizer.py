@@ -80,6 +80,13 @@ class LineRecognizer(nn.Module):
         feat = h * conv_features[-1]
         self.lstm = nn.LSTM(feat, lstm_features, batch_first=True,
                             bidirectional=True, dtype=lstm_dtype)
+        # flax's cell has one bias per gate (on the recurrent kernel):
+        # torch's input bias stays 0 and out of training
+        for name in ("bias_ih_l0", "bias_ih_l0_reverse"):
+            b = getattr(self.lstm, name)
+            with torch.no_grad():
+                b.zero_()
+            b.requires_grad_(False)
         self.dense = nn.Linear(2 * lstm_features, lstm_features,
                                dtype=lstm_dtype)
         self.head = nn.Linear(lstm_features, num_symbols + 1,
@@ -124,6 +131,38 @@ class LineRecognizer(nn.Module):
         return logits, pad
 
 
+@torch.no_grad()
+def init_recognizer(model, generator):
+    """Fresh parameters from flax's default initializers (recognizer.py's
+    init_recognizer): conv and Dense kernels lecun_normal over their fan
+    in, Dense biases 0, GroupNorm scale 1 and bias 0; each LSTM gate's
+    input kernel lecun_normal, its recurrent kernel orthogonal, its bias
+    0 (OptimizedLSTMCell). Float32; draws from `generator`."""
+    from origami_tpu_torch.models.unet import lecun_normal_
+    for conv, norm in zip(model.convs, model.norms):
+        lecun_normal_(conv.weight, conv.in_channels * 9, generator)
+        norm.weight.fill_(1.0)
+        norm.bias.zero_()
+    lstm = model.lstm
+    n = lstm.hidden_size
+    for suffix in ("", "_reverse"):
+        w_ih = getattr(lstm, "weight_ih_l0" + suffix)
+        w_hh = getattr(lstm, "weight_hh_l0" + suffix)
+        for k in range(4):
+            rows = slice(k * n, (k + 1) * n)
+            # flax's (in, n) kernel is the transpose of these rows
+            lecun_normal_(w_ih[rows], lstm.input_size, generator)
+            q = torch.empty(n, n, dtype=torch.float32)
+            torch.nn.init.orthogonal_(q, generator=generator)
+            w_hh[rows] = q.t().to(w_hh.dtype)
+        getattr(lstm, "bias_ih_l0" + suffix).zero_()
+        getattr(lstm, "bias_hh_l0" + suffix).zero_()
+    for lin in (model.dense, model.head):
+        lecun_normal_(lin.weight, lin.in_features, generator)
+        lin.bias.zero_()
+    return model.float()
+
+
 STRIP_WIDTH_STEP = 256
 
 
@@ -139,3 +178,26 @@ def strip_width_ladder(cap=2048):
     """All strip_width_bucket values up to `cap`."""
     return tuple(range(STRIP_WIDTH_STEP, int(cap) + 1, STRIP_WIDTH_STEP))
 
+
+
+def width_buckets(widths, time_downsample=4, min_bucket=128,
+                  max_bucket=2048):
+    """Static bucket sizes (recognizer.py:173-192): 128, then x1.5 down
+    to a multiple of `time_downsample`, up to `max_bucket`; each width
+    goes to the first bucket that holds it (the last one else). The
+    recognizer trainer groups its strip pool by them."""
+    buckets = []
+    b = min_bucket
+    while b < max_bucket:
+        buckets.append(b)
+        b = int(b * 1.5) // time_downsample * time_downsample
+    buckets.append(max_bucket)
+    out = []
+    for w in widths:
+        for b in buckets:
+            if w <= b:
+                out.append(b)
+                break
+        else:
+            out.append(max_bucket)
+    return out

@@ -1,6 +1,6 @@
-"""Model asset registry: reads the JAX package's on-disk model dirs.
+"""Model asset registry: reads and writes the JAX package's model dirs.
 
-Port of origami_tpu/models/registry.py (read side only):
+Port of origami_tpu/models/registry.py:
 
     <model dir>/meta.json        {"kind": "recognizer", "charset", "height",
                                   "conv_features", "lstm_features", "arch",
@@ -13,8 +13,11 @@ Port of origami_tpu/models/registry.py (read side only):
 `load_params` returns the flax tree as numpy (float16 packs restored to
 float32); `params_from_flax` maps a recognizer tree onto the port's
 `LineRecognizer.state_dict()` and `unet_params_from_flax` a U-Net tree
-onto `UNet.state_dict()`; `load_model` dispatches on the meta's "kind",
-builds the module and loads it; `load_ensemble` loads sibling U-Nets.
+onto `UNet.state_dict()`; `params_to_flax` and `unet_params_to_flax` map
+them back, so weights go both ways exactly; `load_model` dispatches on
+the meta's "kind", builds the module and loads it; `load_ensemble` loads
+sibling U-Nets; `save_model` writes a directory that both packages load
+(registry.py:41-63).
 """
 
 from __future__ import annotations
@@ -34,6 +37,52 @@ from origami_tpu_torch.models import _msgpack
 RECOGNIZER_ARCH = "masked-gn+seq-lstm/2"
 
 _GATES = ("i", "f", "g", "o")   # torch.nn.LSTM's stacking order
+
+
+def _sorted_tree(tree):
+    """The tree with every dict's keys in sorted order: the order the
+    JAX save_model writes (its jax.device_get rebuilds the tree sorted)."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def flax_params(model):
+    """The flax param tree (numpy) of a port LineRecognizer or UNet."""
+    from origami_tpu_torch.models.recognizer import LineRecognizer
+    from origami_tpu_torch.models.unet import UNet
+    if isinstance(model, LineRecognizer):
+        return params_to_flax(model.state_dict())
+    if isinstance(model, UNet):
+        return unet_params_to_flax(model.state_dict())
+    raise TypeError("no flax layout for %s" % type(model).__name__)
+
+
+def save_model(path, meta, params, params_dtype=None):
+    """Write a model directory: meta.json and params.msgpack (the bytes
+    flax.serialization.to_bytes writes). `params` is a flax tree of
+    numpy arrays or a port LineRecognizer / UNet. A recognizer's meta
+    gets the architecture tag; `params_dtype="float16"` stores floating
+    leaves half-size and records it in the meta (load_params restores
+    float32)."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    if isinstance(params, torch.nn.Module):
+        params = flax_params(params)
+    if meta.get("kind") == "recognizer":
+        meta = dict(meta, arch=meta.get("arch", RECOGNIZER_ARCH))
+    params = _map_tree(params, np.asarray)
+    if params_dtype is not None:
+        dt = np.dtype(params_dtype)
+        meta = dict(meta, params_dtype=dt.name)
+        params = _map_tree(params, lambda x: x.astype(dt)
+                           if np.issubdtype(x.dtype, np.floating) else x)
+    else:
+        meta = {k: v for k, v in meta.items() if k != "params_dtype"}
+    with open(path / "meta.json", "w") as f:
+        json.dump(meta, f, indent=2)
+    with open(path / "params.msgpack", "wb") as f:
+        f.write(_msgpack.packb(_sorted_tree(params)))
 
 
 def load_meta(path):
@@ -120,6 +169,44 @@ def params_from_flax(tree):
     return sd
 
 
+def _np(t):
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def params_to_flax(sd):
+    """The inverse of params_from_flax: a LineRecognizer state_dict ->
+    the flax param tree of numpy float32 arrays. torch's two LSTM biases
+    fold into flax's one (bias_hh + bias_ih; the trainers keep bias_ih
+    at 0, so this is exact)."""
+    tree = {}
+    i = 0
+    while "convs.%d.weight" % i in sd:
+        tree["Conv_%d" % i] = {
+            "kernel": _np(sd["convs.%d.weight" % i]).transpose(2, 3, 1, 0)}
+        tree["GroupNorm_%d" % i] = {"scale": _np(sd["norms.%d.weight" % i]),
+                                    "bias": _np(sd["norms.%d.bias" % i])}
+        i += 1
+    cells = {}
+    for name, suffix in (("OptimizedLSTMCell_0", ""),
+                         ("OptimizedLSTMCell_1", "_reverse")):
+        w_ih = _np(sd["lstm.weight_ih_l0" + suffix])
+        w_hh = _np(sd["lstm.weight_hh_l0" + suffix])
+        b = _np(sd["lstm.bias_hh_l0" + suffix]
+                + sd["lstm.bias_ih_l0" + suffix])
+        n = w_hh.shape[1]
+        c = {}
+        for k, g in enumerate(_GATES):
+            rows = slice(k * n, (k + 1) * n)
+            c["i" + g] = {"kernel": w_ih[rows].T.copy()}
+            c["h" + g] = {"kernel": w_hh[rows].T.copy(), "bias": b[rows]}
+        cells[name] = c
+    tree["BiLSTM_0"] = cells
+    for j, name in enumerate(("dense", "head")):
+        tree["Dense_%d" % j] = {"kernel": _np(sd[name + ".weight"]).T.copy(),
+                                "bias": _np(sd[name + ".bias"])}
+    return _sorted_tree(tree)
+
+
 def build_recognizer(meta, conv_dtype=torch.bfloat16):
     from origami_tpu_torch.models.recognizer import LineRecognizer
     return LineRecognizer(
@@ -171,6 +258,35 @@ def unet_params_from_flax(tree, meta):
         raise ValueError("unexpected U-Net parameter groups: %s"
                          % sorted(set(tree) ^ known))
     return sd
+
+
+def unet_params_to_flax(sd):
+    """The inverse of unet_params_from_flax: a UNet state_dict -> the
+    flax param tree of numpy float32 arrays."""
+    n = sum(1 for k in sd if k.startswith("up.") and k.endswith(".weight"))
+
+    def conv(name):
+        return _np(sd[name]).transpose(2, 3, 1, 0).copy()
+
+    def block(src):
+        out = {}
+        for j in (0, 1):
+            out["Conv_%d" % j] = {"kernel": conv("%s.convs.%d.weight"
+                                                 % (src, j))}
+            out["GroupNorm_%d" % j] = {
+                "scale": _np(sd["%s.norms.%d.weight" % (src, j)]),
+                "bias": _np(sd["%s.norms.%d.bias" % (src, j)])}
+        return out
+
+    tree = {}
+    for i in range(n):
+        tree["ConvBlock_%d" % i] = block("enc.%d" % i)
+        tree["ConvBlock_%d" % (n + 1 + i)] = block("dec.%d" % i)
+        tree["Conv_%d" % i] = {"kernel": conv("up.%d.weight" % i)}
+    tree["ConvBlock_%d" % n] = block("mid")
+    tree["Conv_%d" % n] = {"kernel": conv("head.weight"),
+                           "bias": _np(sd["head.bias"])}
+    return _sorted_tree(tree)
 
 
 def build_unet(meta, dtype=torch.bfloat16):

@@ -115,6 +115,37 @@ def create_unet(num_classes, width=1.0, dtype=torch.bfloat16, s2d=1,
                 in_channels=in_channels)
 
 
+# flax's lecun_normal: a normal truncated to two standard deviations,
+# scaled so that its standard deviation is sqrt(1 / fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(weight, fan_in, generator):
+    torch.nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0,
+                                generator=generator)
+    weight.mul_((1.0 / fan_in) ** 0.5 / _TRUNC_STD)
+    return weight
+
+
+@torch.no_grad()
+def init_unet(model, generator):
+    """Fresh parameters from flax's default initializers (unet.py's
+    init_unet): every conv kernel lecun_normal over its fan in
+    (in_channels x 3 x 3, or x 1 x 1), the logits conv's bias 0,
+    GroupNorm scale 1 and bias 0. Float32; draws from `generator`."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            lecun_normal_(m.weight, fan_in, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return model.float()
+
+
 @torch.no_grad()
 def ensemble_apply(models, tiles):
     """Softmax-sum ensemble: the members run in sequence on the (T, h,

@@ -21,6 +21,7 @@ cosf, sinf, sqrtf and division stay the accurate ones PyTorch uses.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
@@ -38,7 +39,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_long
 SIGNATURES = {
-    "origami_remap_f32": [_P, _I, _I, _P, _I, _I, _F, _P, _P],
+    "origami_remap_f32": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _F, _I, _P,
+                          _P],
     "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "origami_strips_dewarped": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P,
                                 _L, _P],
@@ -62,12 +64,20 @@ def nvcc():
 def build(force=False):
     """Compile the sources if the library is missing or older than one
     of them. Returns nvcc's output (ptxas register/spill report), or ""
-    when the library was up to date."""
+    when the library was up to date. Processes that start at once (the
+    host stages' --processes workers) take a file lock in turn: the first
+    builds, the others find the library up to date."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build(force)
+
+
+def _build(force):
     sources = [CSRC / s for s in SOURCES]
     newest = max(s.stat().st_mtime for s in sources)
     if not force and LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = "%d" % os.getpid()
     cc = nvcc()
     objs, procs = [], []

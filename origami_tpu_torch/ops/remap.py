@@ -5,6 +5,9 @@ csrc/strips.cu) and sits beside its plain PyTorch version, which has the
 same signature and arithmetic:
 
     remap               ports remap_pallas (ops/pallas/remap.py:415)
+    remap_batch         the same kernel over a batch in one launch, at
+                        the training warp's border (bilinear_sample_xy,
+                        train/segment/warp.py:44)
     dewarp_u8           ports the dewarp of core/dewarp.py:504-531
     strips_dewarped     strip mode (a): extract_strips_banded's function
     strips_through_grid strip mode (b): extract_dewarped_strips' function
@@ -36,13 +39,13 @@ class LaunchCounts(dict):
 
     _lock = threading.Lock()
 
-    def add(self, name):
+    def add(self, name, n=1):
         with self._lock:
-            self[name] += 1
+            self[name] += n
 
 
-launches = LaunchCounts(remap=0, dewarp_u8=0, strips_dewarped=0,
-                        strips_through_grid=0)
+launches = LaunchCounts(remap=0, remap_batch=0, dewarp_u8=0,
+                        strips_dewarped=0, strips_through_grid=0)
 
 
 # ---------------------------------------------------------------------------
@@ -98,14 +101,31 @@ def _to_u8_round(v):
     return torch.clamp(torch.round(v), 0.0, 255.0).to(torch.uint8)
 
 
-def remap_plain(image, map_xy, fill=0.0):
-    """cv2.remap-style bilinear sample of f32 `image` (H, W) at `map_xy`
-    (H', W', 2) source (x, y); coordinates clamped into a fill margin
-    ([-2, w+1] x [-2, h+1]), out-of-image taps read `fill`. -> f32."""
+def _sample(image, x, y, fill, border):
+    """One bilinear sample of f32 `image` (H, W) at the (x, y) planes
+    under `border` (REMAP_BORDERS)."""
+    if border == "hard":
+        return _bilinear_hard_edge(image.float(), x, y, float(fill))
     h, w = image.shape
-    x = map_xy[..., 0].clamp(-2.0, w + 1.0)
-    y = map_xy[..., 1].clamp(-2.0, h + 1.0)
-    return _bilinear_fill_taps(image.float(), x, y, float(fill))
+    return _bilinear_fill_taps(image.float(), x.clamp(-2.0, w + 1.0),
+                               y.clamp(-2.0, h + 1.0), float(fill))
+
+
+def remap_plain(image, map_xy, fill=0.0, border="fill_taps"):
+    """cv2.remap-style bilinear sample of f32 `image` (H, W) at `map_xy`
+    (H', W', 2) source (x, y) -> f32. border "fill_taps"
+    (remap_pallas): coordinates clamped into a fill margin ([-2, w+1] x
+    [-2, h+1]), out-of-image taps read `fill`; "hard"
+    (bilinear_sample_xy): taps clamped into the image, the sample `fill`
+    outside [0, w-1] x [0, h-1]."""
+    return _sample(image, map_xy[..., 0], map_xy[..., 1], fill, border)
+
+
+def remap_batch_plain(images, map_x, map_y, fill=0.0, border="hard"):
+    """remap_plain of each image (B, H, W) at its planes map_x, map_y
+    (B, H', W') -> f32 (B, H', W')."""
+    return torch.stack([_sample(images[b], map_x[b], map_y[b], fill,
+                                border) for b in range(images.shape[0])])
 
 
 def _upsample_grid(hv, res):
@@ -350,22 +370,70 @@ def _device_of(t):
     return t.device
 
 
-def remap(image, map_xy, fill=0.0):
-    """f32 image (H, W), f32 map (H', W', 2) -> f32 (H', W')."""
+REMAP_BORDERS = ("fill_taps", "hard")
+
+
+def _check_border(border):
+    if border not in REMAP_BORDERS:
+        raise ValueError("border must be one of %s, got %r"
+                         % (REMAP_BORDERS, border))
+
+
+def remap(image, map_xy, fill=0.0, border="fill_taps"):
+    """f32 image (H, W), f32 map (H', W', 2) -> f32 (H', W'); `border`
+    as remap_plain's."""
     dev = _device_of(image)
     _check(image, "image", torch.float32, 2, dev)
     _check(map_xy, "map_xy", torch.float32, 3, dev)
+    _check_border(border)
     if map_xy.shape[2] != 2:
         raise ValueError("map_xy must be (H', W', 2)")
     if dev.type == "cpu":
-        return remap_plain(image, map_xy, fill)
+        return remap_plain(image, map_xy, fill, border)
     oh, ow = map_xy.shape[:2]
     out = torch.empty((oh, ow), dtype=torch.float32, device=dev)
     if out.numel():
         h, w = image.shape
-        _launch("origami_remap_f32", _ptr(image), h, w, _ptr(map_xy), oh, ow,
-                float(fill), _ptr(out))
+        p = _ptr(map_xy)
+        _launch("origami_remap_f32", _ptr(image), 1, h, w, p, p + 4, 2, oh,
+                ow, float(fill), int(border == "hard"), _ptr(out))
         launches.add("remap")
+    return out
+
+
+def remap_batch(images, maps, fill=0.0, border="hard"):
+    """B f32 images (B, H, W) through their maps in one launch: `maps`
+    is an f32 (B, H', W', 2) tensor of source (x, y), or a pair (map_x,
+    map_y) of f32 (B, H', W') planes -> f32 (B, H', W'). The default
+    border is the training warp's (bilinear_sample_xy)."""
+    dev = _device_of(images)
+    _check(images, "images", torch.float32, 3, dev)
+    _check_border(border)
+    if isinstance(maps, torch.Tensor):
+        _check(maps, "maps", torch.float32, 4, dev)
+        if maps.shape[3] != 2 or maps.shape[0] != images.shape[0]:
+            raise ValueError("maps must be (B, H', W', 2)")
+        map_x, map_y, stride = maps[..., 0], maps[..., 1], 2
+        ptrs = (_ptr(maps), _ptr(maps) + 4)
+    else:
+        map_x, map_y = maps
+        _check(map_x, "map_x", torch.float32, 3, dev)
+        _check(map_y, "map_y", torch.float32, 3, dev)
+        if map_x.shape != map_y.shape or map_x.shape[0] != images.shape[0]:
+            raise ValueError("map_x and map_y must both be (B, H', W')")
+        stride = 1
+        ptrs = (_ptr(map_x), _ptr(map_y))
+    if dev.type == "cpu":
+        return remap_batch_plain(images, map_x, map_y, fill, border)
+    b, oh, ow = map_x.shape
+    if b > 65535:
+        raise ValueError("at most 65535 images a launch, got %d" % b)
+    out = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
+    if out.numel():
+        _, h, w = images.shape
+        _launch("origami_remap_f32", _ptr(images), b, h, w, *ptrs, stride,
+                oh, ow, float(fill), int(border == "hard"), _ptr(out))
+        launches.add("remap_batch")
     return out
 
 

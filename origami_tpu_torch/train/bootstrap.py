@@ -1,0 +1,248 @@
+"""Corpus -> trained models, on the card.
+
+Port of the training half of origami_tpu/train/bootstrap.py:
+
+  * `train_segmentation` trains a k-member U-Net ensemble for one kind
+    (median-frequency class weights, k-fold exclusion, a device-resident
+    corpus warped on the card each step through the remap kernel);
+  * `distill_students` folds each kind's ensemble into one student;
+  * `train_recognizer_pool` is the pool-training half of
+    `train_recognizer_synth` (:322-362): it takes a list of (strip u8
+    (H, W), text) pairs, buckets them by width, moves the pool to the
+    card and trains the CTC recognizer. The rendering half (train.synth,
+    PIL and fonts) is not ported.
+
+Each trainer takes `device` (cuda unless "cpu") and the convolutions'
+`dtype` (bf16, the JAX trainers' numeric mode). `on_step(kind, member,
+step, loss)` is called after every step with the loss as a device tensor
+(the JAX functions log every `log_every` steps; so do these).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REGION_CLASSES = ["TEXT", "TABULAR", "ILLUSTRATION", "BACKGROUND"]
+SEP_CLASSES = ["H", "V", "T", "BACKGROUND"]
+KIND_CLASSES = dict(region=REGION_CLASSES, separator=SEP_CLASSES)
+
+log = logging.getLogger(__name__)
+
+
+def load_corpus_arrays(corpus_dir, kind, full_size):
+    """All (image, label) pages of one kind, resized to the net canvas
+    (cv2's INTER_AREA and INTER_NEAREST, train/segment/data.py).
+
+    Returns (images (N, H, W) uint8, labels (N, H, W) uint8, names)."""
+    from origami_tpu_torch.train.segment.data import load_pair, page_pairs
+    imgs, labs, names = [], [], []
+    for img_path, lab_path in page_pairs(corpus_dir, kind):
+        img, lab = load_pair(img_path, lab_path, full_size)
+        imgs.append(img)
+        labs.append(lab)
+        names.append(img_path.stem)
+    if not imgs:
+        raise FileNotFoundError(
+            "no (%s) page/label pairs under %s" % (kind, corpus_dir))
+    return np.stack(imgs), np.stack(labs), names
+
+
+def meta_for(kind, classes, full_size, width, s2d):
+    return dict(kind="unet", type=kind, classes=classes,
+                full_size=list(full_size), tile_size=list(full_size),
+                tile_beta=50, width=width, s2d=s2d, channels=1,
+                version=1)
+
+
+def train_segmentation(corpus_dir, out_dir, kind, members=5, steps=600,
+                       width=1.0, s2d=4, full_size=(1280, 2432),
+                       batch=2, learning_rate=3e-4, seed=0,
+                       warp_amplitude=10.0, log_every=50, device=None,
+                       dtype=torch.bfloat16, on_step=None):
+    """Train a k-member ensemble for one kind; returns final losses.
+    Member m is written to `out_dir/kind/%02d`."""
+    from origami_tpu_torch.train.segment.data import class_weights, k_folds
+    from origami_tpu_torch.train.segment.train import (SegmentationTrainer,
+                                                       TrainConfig)
+
+    classes = KIND_CLASSES[kind]
+    images, labels, names = load_corpus_arrays(corpus_dir, kind,
+                                               full_size)
+    cw = class_weights(list(labels), len(classes))
+    folds = k_folds(names, k=members) if members > 1 else [[]]
+    out_dir = Path(out_dir)
+    w, h = full_size
+    losses = []
+    for m in range(members):
+        excluded = set(folds[m % len(folds)]) if members > 1 else set()
+        idx = [i for i, n in enumerate(names) if n not in excluded]
+        if not idx:
+            idx = list(range(len(names)))
+        # hairline tolerance band for separators: background within 2 px
+        # of a GT separator is weighted 0.15
+        band = (classes.index("BACKGROUND"), 2, 0.15) \
+            if kind == "separator" else None
+        cfg = TrainConfig(
+            num_classes=len(classes), width=width, s2d=s2d,
+            tile_hw=(h, w), steps=steps,
+            warmup=max(10, min(100, steps // 10)),
+            learning_rate=learning_rate, class_weights=cw,
+            band_dontcare=band)
+        trainer = SegmentationTrainer(cfg, seed=seed + m, device=device,
+                                      dtype=dtype)
+        # the member's rows live on the card; each step sends indices
+        trainer.attach_dataset(images[idx], labels[idx],
+                               warp_amplitude=warp_amplitude,
+                               seed=seed + m)
+        rng = np.random.default_rng(seed + 1000 * m)
+        t0 = time.time()
+        loss = None
+        for step in range(steps):
+            sel = rng.integers(0, len(idx), size=batch)
+            loss = trainer.train_on_indices(sel)
+            if on_step is not None:
+                on_step(kind, m, step, loss)
+            if step % log_every == 0 or step == steps - 1:
+                log.info("[%s %d/%d] step %d/%d loss %.4f (%.2f s/step)",
+                         kind, m + 1, members, step, steps, float(loss),
+                         (time.time() - t0) / (step + 1))
+        trainer.save(out_dir / kind / ("%02d" % m),
+                     meta_for(kind, classes, full_size, width, s2d))
+        losses.append(float(loss))
+    return losses
+
+
+def distill_students(models_path, corpus_dir, out_dir, steps=800,
+                     batch=2, seed=0, student_cfg=None,
+                     learning_rate=2e-4, kinds=("region", "separator"),
+                     device=None, dtype=torch.bfloat16, on_step=None):
+    """Fold each trained ensemble (`models_path/<kind>/*`) into ONE
+    student per kind, written to `out_dir/<kind>/00`.
+
+    student_cfg: {kind: dict(width=..., s2d=...)}; defaults to the
+    teacher's own architecture. `kinds`: the kinds to distill (the JAX
+    function does both)."""
+    from origami_tpu_torch.device import resolve
+    from origami_tpu_torch.models import registry
+    from origami_tpu_torch.train.segment.distill import (DistillConfig,
+                                                         Distiller)
+
+    dev = resolve(device)
+    models_path = Path(models_path)
+    out_dir = Path(out_dir)
+    losses = {}
+    for kind in kinds:
+        gdir = models_path / kind
+        members = sorted(d for d in gdir.iterdir()
+                         if (d / "meta.json").exists())
+        teachers, meta = registry.load_ensemble(members, dev,
+                                                conv_dtype=dtype)
+        full_w, full_h = meta["full_size"]
+        sc = (student_cfg or {}).get(kind, {})
+        cfg = DistillConfig(
+            num_classes=len(meta["classes"]),
+            width=sc.get("width", meta.get("width", 1.0)),
+            s2d=sc.get("s2d", meta.get("s2d", 1)),
+            tile_hw=(full_h, full_w), steps=steps,
+            warmup=max(10, min(100, steps // 10)),
+            learning_rate=learning_rate)
+        distiller = Distiller(cfg, teachers, seed=seed, device=dev,
+                              dtype=dtype)
+        images, labels, _ = load_corpus_arrays(
+            corpus_dir, kind, (full_w, full_h))
+        distiller.attach_dataset(images, labels, seed=seed)
+        rng = np.random.default_rng(seed)
+        loss = None
+        t0 = time.time()
+        for step in range(steps):
+            sel = rng.integers(0, len(images), size=batch)
+            loss = distiller.distill_on_indices(sel)
+            if on_step is not None:
+                on_step(kind, 0, step, loss)
+            if step % 50 == 0 or step == steps - 1:
+                log.info("[distill %s] step %d/%d loss %.4f "
+                         "(%.2f s/step)", kind, step, steps,
+                         float(loss), (time.time() - t0) / (step + 1))
+        loss = float(loss)
+        smeta = meta_for(kind, meta["classes"],
+                         (full_w, full_h), cfg.width, cfg.s2d)
+        distiller.save(out_dir / kind / "00", smeta)
+        losses[kind] = loss
+    return losses
+
+
+def pool_buckets(pool, charset, height, max_text_len=None):
+    """Group (strip u8 (height, w), text) pairs into width buckets
+    (recognizer.width_buckets): {bucket: (strips u8 (N, height, b),
+    widths (N,), labels, label_pad)}, strips white-padded. Returns
+    (buckets, {bucket: count})."""
+    from origami_tpu_torch.models.recognizer import width_buckets
+    from origami_tpu_torch.train.ocr.train import encode_labels
+    by_bucket = {}
+    bks = width_buckets([s.shape[1] for s, _ in pool])
+    for (s, t), b in zip(pool, bks):
+        by_bucket.setdefault(b, []).append((s, t))
+    buckets = {}
+    for b, items in by_bucket.items():
+        x = np.zeros((len(items), height, b), np.uint8)
+        wds = np.zeros((len(items),), np.float32)
+        for i, (s, _) in enumerate(items):
+            sw = min(s.shape[1], b)
+            # white-padded raw strips; the step inverts on the card
+            x[i, :, :sw] = s[:, :sw]
+            x[i, :, sw:] = 255
+            wds[i] = sw
+        # labels are never truncated against a strip that shows the full
+        # text: CTC would learn to stop emitting early
+        bucket_max = max(len(t) for _, t in items) + 1
+        labels, pad = encode_labels(
+            [t for _, t in items], charset,
+            max_len=min(max_text_len, bucket_max)
+            if max_text_len else bucket_max)
+        buckets[b] = (x, wds, labels, pad)
+    return buckets, {b: len(v) for b, v in by_bucket.items()}
+
+
+def train_recognizer_pool(pool, out_dir, charset, steps=2000, batch=64,
+                          height=48, seed=0, learning_rate=1e-3,
+                          conv_features=(64, 128, 256), lstm_features=256,
+                          max_text_len=None, log_every=50, device=None,
+                          dtype=torch.bfloat16, on_step=None):
+    """Train the CTC recognizer on a pool of (strip u8 (height, w),
+    text) pairs: one width bucket a step, chosen by bucket size, `batch`
+    rows drawn from it. Saves the model to `out_dir`; returns the last
+    loss."""
+    from origami_tpu_torch.train.ocr.train import (OCRTrainConfig,
+                                                   RecognizerTrainer)
+    cfg = OCRTrainConfig(
+        num_symbols=len(charset), height=height, steps=steps,
+        warmup=max(20, min(200, steps // 10)),
+        learning_rate=learning_rate, conv_features=conv_features,
+        lstm_features=lstm_features)
+    trainer = RecognizerTrainer(cfg, seed=seed, device=device, dtype=dtype)
+    buckets, counts = pool_buckets(pool, charset, height, max_text_len)
+    trainer.attach_pool(buckets)
+    keys = sorted(buckets)
+    weights = np.array([counts[k] for k in keys], np.float64)
+    weights /= weights.sum()
+
+    rng = np.random.default_rng(seed)
+    t0 = time.time()
+    loss = None
+    for step in range(steps):
+        b = keys[rng.choice(len(keys), p=weights)]
+        sel = rng.integers(0, counts[b], size=batch)
+        loss = trainer.train_on_bucket(b, sel)
+        if on_step is not None:
+            on_step("ocr", 0, step, loss)
+        if step % log_every == 0 or step == steps - 1:
+            log.info("[ocr] step %d/%d loss %.4f (%.2f s/step)",
+                     step, steps, float(loss),
+                     (time.time() - t0) / (step + 1))
+    trainer.save(Path(out_dir), charset)
+    return float(loss)

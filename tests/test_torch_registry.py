@@ -174,7 +174,14 @@ print(json.dumps({"modules": names,
                  "batch.detect.order", "batch.detect.compose",
                  "batch.runner", "pagexml", "pagexml.pagexml",
                  "core.mask", "batch.export", "batch.export.lines",
-                 "batch.export.pagexml", "pipeline"):
+                 "batch.export.pagexml", "pipeline",
+                 "batch.core.processor", "models.ctc", "models.recognizer",
+                 "models.registry", "models._msgpack", "train",
+                 "train.checkpoint", "train.bootstrap",
+                 "train.segment.labels", "train.segment.data",
+                 "train.segment.warp", "train.segment.train",
+                 "train.segment.distill", "train.segment.main",
+                 "train.ocr.train"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
