@@ -127,7 +127,27 @@ Phases (any failure exits non-zero before the result line):
      write the --processes 1 artifacts, their workers' launches summed
      in the parent as STAGE_LAUNCHES says, and a stalled pool is ended
      by the watchdog. The kernels line's remap_batch launches come from
-     (c).
+     (c);
+ 15. the ground-truth path on the card against the JAX package's numbers
+     in tests/data/torch_gt (scripts/make_torch_gt_fixture.py), on the
+     train corpus of phase 14: (a) gen_binarized (one sauvola launch a
+     page; each bin/ page equal to JAX's on GT_BIN_EQUAL of its pixels,
+     JAX's float32 integral images missing the exact sums on the rest,
+     and equal to the exact Sauvola off its ties); (b) deskew_pair of a
+     fixture page at 0.02 rad and the 1872 scan at -0.015 (one
+     remap_affine launch a call; labels equal, the image within 1 gray
+     level); (c) the ground-truth chain on each page (gt_chain: cleaned
+     segments within 1e-6, the skew within 1e-9, master, stops and
+     regions equal); (d) Line.image on both routes, Line.ink and the
+     Deskewer on the OCR fixture's lines (strips within 1 gray level,
+     ink within 1e-6; remap_batch once a dewarped strip, remap_affine
+     once a deskewed strip, an ink and the Deskewer image); (e)
+     eval_segmentation and eval_separator_tolerant of the students in
+     float32 (every score within GT_EVAL of JAX's) and in bf16 (reports,
+     pages/s and, as a control, their distance from JAX's float32
+     scores); then each new kernel site against its plain version with
+     its times, bound and yardstick (gt_sites). The kernels line's
+     remap_affine launches come from (b) and (d).
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -169,6 +189,8 @@ import tempfile
 import time
 import zipfile
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FIXTURE = ROOT / "tests" / "data" / "torch_ocr" / "full"
@@ -3823,6 +3845,497 @@ def check_processes(workdir, device="cuda"):
         raise PhaseError("; ".join(failed))
 
 
+# ---------------------------------------------------------------- phase 15
+
+GT_REF = ROOT / "tests" / "data" / "torch_gt"
+# the ground-truth chain's parameters; the fixture (GT_REF/params.json)
+# records the ones the JAX run took and phase 15 reads them from there.
+# `classes`: the separator classes with their orientations, in the order
+# they are painted (a later class paints over an earlier one)
+GT_PARAMS = dict(max_gap=20.0, min_length=25.0, segment_thickness=1.0,
+                 segment_extend={"H": 40, "V": 60, "T": 40},
+                 close=[24, 12], min_area=400, text_class="TEXT",
+                 classes=[["H", "H"], ["V", "V"], ["T", "H"]])
+# phase 15b: deskew_pair's cases (page, angle in radians); the fixture
+# holds JAX's image and labels for each
+DESKEW_CASES = (("synth0000", 0.02), ("real_scan_1872", -0.015))
+# phase 15 bars: gen_binarized's pages equal to JAX's on this share of
+# pixels (ROADMAP C10: the float32 integral images of JAX's Sauvola,
+# which on a whole page miss the exact sums on up to 7.4e-5 of the
+# pixels);
+# deskew_pair's image within 1 gray level on every pixel and equal on
+# this share; segments within GT_COORD; the skew within GT_SKEW; the
+# strips of Line.image within 1 gray level, Line.ink within GT_INK;
+# every score of the float32 evaluation within GT_EVAL of JAX's
+GT_BIN_EQUAL = 0.9999
+# phase 15a also holds each page to the exact Sauvola (integer window
+# sums, the threshold in float64) on every pixel farther than this many
+# gray levels from its threshold (the kernel's threshold is float32)
+GT_BIN_TIE = 0.01
+GT_DESKEW_EQUAL = 0.999
+GT_COORD = 1e-6
+GT_SKEW = 1e-9
+GT_INK = 1e-6
+GT_EVAL = 1e-4
+
+
+def gt_modules():
+    """The port's modules that gt_chain and line_results call, by name
+    (the fixture script passes the JAX package's under the same names)."""
+    from origami_tpu_torch.batch.core import deskew, io
+    from origami_tpu_torch.core import math
+    from origami_tpu_torch.train.segment import (annotations, labels,
+                                                 regions, segments)
+    return dict(annotations=annotations, segments=segments,
+                regions=regions, labels=labels, math=math, io=io,
+                deskew=deskew)
+
+
+def gt_chain(mods, png, params):
+    """The ground-truth chain on one corpus page: its annotations, the H,
+    V and T separators cleaned with the region TEXT pixels as obstacles,
+    the deskewed master and stops rasters, and the regions grown from
+    the deskewed TEXT pixels with the separators' extended strokes as
+    barriers (their strokes painted alone, so a stroke of index 0 over
+    TEXT = 0 still bars). -> dict of numpy results."""
+    ann = mods["annotations"].load_page_annotations(png)
+    region = ann.labels("region")
+    sep = ann.labels("separator")
+    label_set = mods["labels"].LabelSet(mods["labels"].DEFAULT_BBZ_SPEC)
+    orient = mods["math"].Orientation
+    text_idx = label_set.label("region", params["text_class"]).index
+    text = region == text_idx
+    segs = {}
+    for cls, o in params["classes"]:
+        idx = label_set.label("separator", cls).index
+        segs[cls] = mods["segments"].clean_separators(
+            sep == idx, orient[o], max_gap=params["max_gap"],
+            min_length=params["min_length"], obstacles=text)
+    gen = mods["regions"].AnnotationsGenerator(
+        label_set, region, segs, segment_thickness=params[
+            "segment_thickness"], segment_extend=params["segment_extend"])
+    strokes = mods["regions"].AnnotationsGenerator(
+        label_set, np.full(region.shape, 255, np.uint8), segs,
+        segment_thickness=params["segment_thickness"],
+        segment_extend=params["segment_extend"]).stops != 255
+    text_d = gen.deskewing.pixels(text.astype(np.uint8))
+    out = dict(skew=np.float64(gen.skew), master=gen.master,
+               stops=gen.stops,
+               regions=mods["regions"].generate_regions(
+                   text_d, strokes, close=tuple(params["close"]),
+                   min_area=params["min_area"]).astype(np.int32))
+    for cls, pls in segs.items():
+        out["seg_%s" % cls] = np.array(
+            [[len(p.np_coords), p.width, p.error] for p in pls],
+            np.float64).reshape(-1, 3)
+        out["seg_%s_coords" % cls] = (
+            np.concatenate([p.np_coords for p in pls])
+            if pls else np.zeros((0, 2)))
+    return out
+
+
+# the OCR fixture's lines of phase 15d: the first LINE_COUNT lines (in
+# path order) of each page's lines.3.zip, at the stage's strip height
+LINE_PAGES = ("synth0000", "synth0001")
+LINE_COUNT = 4
+LINE_HEIGHT = 48
+# full-page images of the fixture (deskew_pair, Deskewer.image) keep
+# every SAMPLE_ROWS-th row, which holds the fixture under its budget
+SAMPLE_ROWS = 16
+
+
+def line_results(mods, png, device=None):
+    """Line.image on both routes, Line.ink and the Deskewer on the first
+    LINE_COUNT lines of the OCR fixture page `png` (its lines.3.zip,
+    contours.3.zip and dewarp.zip), through the modules `mods` of
+    gt_modules (the port's with `device`; the JAX package's, which take
+    no device, with None) -> dict of numpy results."""
+    io, deskew = mods["io"], mods["deskew"]
+    on = {} if device is None else dict(device=device)
+    reader = io.Reader([io.Artifact.LINES], io.Stage.RELIABLE, png, **on)
+    lines = reader.lines.by_path
+    out = {}
+    for i, key in enumerate(sorted(lines)[:LINE_COUNT]):
+        line = lines[key]
+        out["dewarped_%d" % i] = line.image(LINE_HEIGHT)
+        out["deskewed_%d" % i] = line.image(LINE_HEIGHT, dewarped=False)
+        out["ink_%d" % i] = np.asarray(line.ink)
+    d = deskew.Deskewer(lines)
+    warped = reader.page.warped
+    h, w = warped.shape
+    out["deskewer_angle"] = np.float64(d.angle)
+    out["deskewer_image"] = d.image(warped, **on)[::SAMPLE_ROWS]
+    block = reader.regions.by_path[sorted(reader.regions.by_path)[0]]
+    out["deskewer_geometry"] = np.asarray(d.geometry(
+        block.image_space_polygon, (w, h)).exterior.coords, np.float64)
+    return out
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from origami_tpu_torch.ops import binarize, gather, grid, remap
+    return {k: v for counts in (remap.launches, binarize.launches,
+                                gather.launches, grid.launches)
+            for k, v in counts.items()}
+
+
+def gt_params():
+    return json.loads((GT_REF / "params.json").read_text())
+
+
+def sauvola_exact(px, window, k=0.2, r=128.0):
+    """Sauvola of the u8 page `px` from exact integer window sums (the
+    window clipped to the page) with the threshold in float64 ->
+    (mask, |pixel - threshold|)."""
+    v = px.astype(np.int64)
+    h, w = v.shape
+    rad = window // 2
+
+    def integral(a):
+        s = np.zeros((h + 1, w + 1), np.int64)
+        s[1:, 1:] = a.cumsum(0).cumsum(1)
+        return s
+    ys, xs = np.arange(h), np.arange(w)
+    y0, y1 = np.clip(ys - rad, 0, h)[:, None], np.clip(ys + rad + 1, 0, h)[
+        :, None]
+    x0, x1 = np.clip(xs - rad, 0, w)[None], np.clip(xs + rad + 1, 0, w)[None]
+
+    def box(s):
+        return (s[y1, x1] - s[y0, x1] - s[y1, x0] + s[y0, x0]).astype(
+            np.float64)
+    n = ((y1 - y0) * (x1 - x0)).astype(np.float64)
+    mean = box(integral(v)) / n
+    std = np.sqrt(np.maximum(box(integral(v * v)) / n - mean * mean, 0.0))
+    t = mean * (1.0 + k * (std / r - 1.0))
+    return v > t, np.abs(v - t)
+
+
+def check_gen_binarized(corpus, device, params):
+    """Phase 15a: gen_binarized over the train corpus; each bin/ page
+    against the JAX page of the fixture (GT_BIN_EQUAL), one sauvola
+    launch a page on the card. -> pages/s."""
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.train.segment.binarize import gen_binarized
+    reset_launches()
+    t0 = time.time()
+    n = gen_binarized(corpus, params["window_size"], device)
+    dt = time.time() - t0
+    launched = launch_counts()
+    want = {"sauvola": n} if device == "cuda" else {}
+    failed = []
+    for png in sorted((corpus.parent / "bin").glob("*.png")):
+        got, ref = _png.read(png), _png.read(GT_REF / "bin" / png.name)
+        diff = int((got != ref).sum()) if got.shape == ref.shape else -1
+        share = 1.0 - diff / got.size if diff >= 0 else 0.0
+        exact, gap = sauvola_exact(_png.read_gray(corpus / png.name),
+                                   params["window_size"] | 1)
+        off = int(((got > 0) != exact)[gap > GT_BIN_TIE].sum())
+        ok = share >= GT_BIN_EQUAL and off == 0
+        log("  (a) bin/%s %dx%d: %d pixels differ from JAX's (equal %.7f, "
+            "bar %g); %d from the exact Sauvola off its %d ties  %s" % (
+                png.name, got.shape[1], got.shape[0], diff, share,
+                GT_BIN_EQUAL, off, int((gap <= GT_BIN_TIE).sum()),
+                "ok" if ok else "FAIL"))
+        if not ok:
+            failed.append(png.name)
+    nz = {k: v for k, v in launched.items() if v}
+    log("  (a) gen_binarized: %d pages in %.3f s (%.2f pages/s, cold "
+        "process), launches %s (expected %s)" % (n, dt, n / dt,
+                                                json.dumps(nz), want))
+    if failed or n != len(TRAIN_PAGES) or nz != want:
+        raise PhaseError("gen_binarized: pages %s off JAX's, %d pages, "
+                         "launches %s" % (failed, n, nz))
+    return n / dt
+
+
+def check_deskew_pair(corpus, device, params):
+    """Phase 15b: deskew_pair of each DESKEW_CASES page and its region
+    map (resized to the page, nearest) against the fixture: labels
+    equal, image within 1 gray level and equal on GT_DESKEW_EQUAL of
+    the sampled rows; one remap_affine launch a call. -> launches."""
+    from origami_tpu_torch.train.segment.annotations import \
+        load_page_annotations
+    from origami_tpu_torch.train.segment.data import resize_nearest_u8
+    from origami_tpu_torch.train.segment.skew import deskew_pair
+    rows = params["sample_rows"]
+    n_launched = 0
+    for page, angle in params["deskew"]:
+        ann = load_page_annotations(corpus / (page + ".png"))
+        h, w = ann.image.shape
+        labels = resize_nearest_u8(ann.labels("region"), (w, h))
+        reset_launches()
+        t0 = time.time()
+        img, lab = deskew_pair(ann.image, labels, angle, device=device)
+        dt = time.time() - t0
+        nz = {k: v for k, v in launch_counts().items() if v}
+        want = {"remap_affine": 1} if device == "cuda" else {}
+        n_launched += nz.get("remap_affine", 0)
+        with np.load(GT_REF / ("deskew_%s.npz" % page)) as ref:
+            lab_ok = np.array_equal(lab, ref["labels"])
+            d = np.abs(img[::rows].astype(int) - ref["image"])
+        share = float((d == 0).mean())
+        ok = lab_ok and d.max() <= 1 and share >= GT_DESKEW_EQUAL \
+            and nz == want
+        log("  (b) deskew_pair %s %dx%d at %g rad: labels %s, image max "
+            "%d gray level, equal %.6f (bar %g); %.3f s, launches %s  %s"
+            % (page, w, h, angle, "equal" if lab_ok else "DIFFER",
+               d.max(), share, GT_DESKEW_EQUAL, dt, json.dumps(nz),
+               "ok" if ok else "FAIL"))
+        if not ok:
+            raise PhaseError("deskew_pair %s off JAX's or launches %s"
+                             % (page, nz))
+    return n_launched
+
+
+def check_gt_chain(corpus, params):
+    """Phase 15c: gt_chain on each corpus page against the fixture:
+    segments within GT_COORD, the skew within GT_SKEW, the master,
+    stops and region rasters equal. -> seconds."""
+    mods = gt_modules()
+    t0 = time.time()
+    for png in sorted(p for p in corpus.glob("*.png")
+                      if ".labels." not in p.name):
+        t1 = time.time()
+        got = gt_chain(mods, png, params["gt"])
+        bad = []
+        with np.load(GT_REF / ("gt_%s.npz" % png.stem)) as ref:
+            for k in ref.files:
+                a, b = ref[k], got[k]
+                if a.shape != b.shape:
+                    bad.append("%s shape %s != %s" % (k, b.shape, a.shape))
+                    continue
+                tol = GT_SKEW if k == "skew" else GT_COORD \
+                    if k.startswith("seg_") else 0
+                if a.size and np.abs(a.astype(np.float64)
+                                     - b.astype(np.float64)).max() > tol:
+                    bad.append(k)
+        n_seg = sum(len(got["seg_%s" % c]) for c, _ in params["gt"]
+                    ["classes"])
+        log("  (c) %s: skew %.9g, %d segments, %d regions, master/stops/"
+            "regions %s; %.2f s  %s" % (
+                png.stem, float(got["skew"]), n_seg,
+                int(got["regions"].max()),
+                "equal" if not bad else "DIFFER " + ", ".join(bad),
+                time.time() - t1, "ok" if not bad else "FAIL"))
+        if bad:
+            raise PhaseError("gt chain %s: %s" % (png.stem, bad))
+    return time.time() - t0
+
+
+def check_lines(device):
+    """Phase 15d: line_results on the OCR fixture pages against the
+    fixture: strips within 1 gray level, ink within GT_INK, the
+    Deskewer's angle and geometry within 1e-9, its image within 1 gray
+    level; remap_batch once a dewarped strip, remap_affine once a
+    deskewed strip, a ink and the Deskewer image. -> remap_affine
+    launches."""
+    mods = gt_modules()
+    n_launched = 0
+    for page in LINE_PAGES:
+        reset_launches()
+        t0 = time.time()
+        got = line_results(mods, FIXTURE / (page + ".png"), device)
+        dt = time.time() - t0
+        nz = {k: v for k, v in launch_counts().items() if v}
+        bad = []
+        worst = dict(strip=0, ink=0.0)
+        with np.load(GT_REF / ("lines_%s.npz" % page)) as ref:
+            for k in ref.files:
+                a, b = ref[k], np.asarray(got[k])
+                if a.shape != b.shape:
+                    bad.append("%s shape" % k)
+                    continue
+                d = np.abs(a.astype(np.float64) - b) if a.size else \
+                    np.zeros(1)
+                if k.startswith("ink_"):
+                    worst["ink"] = max(worst["ink"], float(d.max()))
+                    tol = GT_INK
+                elif k in ("deskewer_angle", "deskewer_geometry"):
+                    tol = 1e-9
+                else:
+                    worst["strip"] = max(worst["strip"], int(d.max()))
+                    tol = 1
+                if d.max() > tol:
+                    bad.append(k)
+        n = LINE_COUNT
+        # the page's load adds its dewarp_u8 and sauvola_packed launches
+        want = {"remap_batch": n, "remap_affine": 2 * n + 1} \
+            if device == "cuda" else {}
+        got_remap = {k: nz[k] for k in ("remap_batch", "remap_affine")
+                     if k in nz}
+        if got_remap != want:
+            bad.append("launches %s, expected %s" % (got_remap, want))
+        n_launched += nz.get("remap_affine", 0)
+        log("  (d) %s: %d lines, both Line.image routes max %d gray level, "
+            "Line.ink max %.3g, Deskewer angle %.6g; %.2f s, launches %s"
+            "  %s" % (page, n, worst["strip"], worst["ink"],
+                      float(got["deskewer_angle"]), dt, json.dumps(nz),
+                      "ok" if not bad else "FAIL " + ", ".join(bad)))
+        if bad:
+            raise PhaseError("lines %s: %s" % (page, bad))
+    return n_launched
+
+
+def _flat_report(report, prefix=""):
+    for k, v in report.items():
+        if isinstance(v, dict):
+            yield from _flat_report(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+def check_eval(corpus, device, params):
+    """Phase 15e: eval_segmentation and eval_separator_tolerant of the
+    students over the corpus in float32 against the fixture's JAX
+    reports (GT_EVAL), then in bf16 with their pages/s."""
+    import torch
+    from origami_tpu_torch.train import bootstrap
+    ev = params["eval"]
+    models = ROOT / ev["models"]
+    n_pages = len([p for p in corpus.glob("*.png")
+                   if ".labels." not in p.name])
+    for dtype in (torch.float32, torch.bfloat16):
+        t0 = time.time()
+        reports = dict(
+            segmentation=bootstrap.eval_segmentation(
+                models, corpus, target=ev["target"], batch=ev["batch"],
+                device=device, dtype=dtype),
+            separator_tolerant=bootstrap.eval_separator_tolerant(
+                models, corpus, target=ev["target"], tol=ev["tol"],
+                batch=ev["batch"], device=device, dtype=dtype))
+        dt = time.time() - t0
+        name = str(dtype).split(".")[-1]
+        log("  (e) %s: %s" % (name, json.dumps(reports, sort_keys=True)))
+        # each page passes the predictor twice: once for both kinds'
+        # IoUs, once for the separator scores
+        log("  (e) %s: %.2f s for %d page passes (%.2f pages/s)"
+            % (name, dt, 2 * n_pages, 2 * n_pages / dt))
+        want = dict(_flat_report(ev["reports"]))
+        got = dict(_flat_report(reports))
+        worst, bad = 0.0, []
+        for k, v in want.items():
+            if (v is None) != (got.get(k) is None):
+                bad.append(k)
+            elif v is not None:
+                worst = max(worst, abs(got[k] - v))
+                if abs(got[k] - v) > GT_EVAL:
+                    bad.append(k)
+        if dtype != torch.float32:
+            # the control: bf16 scores lie outside the float32 bar, so
+            # the bar would catch a predictor that lost float32
+            log("  (e) bf16 vs JAX's float32: max |diff| %.3g over %d "
+                "scores, %d outside the float32 bar %g (control, not "
+                "gated)" % (worst, len(want), len(bad), GT_EVAL))
+            continue
+        log("  (e) float32 vs JAX: max |diff| %.3g over %d scores (bar %g)"
+            "  %s" % (worst, len(want), GT_EVAL,
+                      "ok" if not bad else "FAIL " + ", ".join(bad)))
+        if bad:
+            raise PhaseError("evaluation off JAX's: %s" % bad)
+
+
+def gt_sites(corpus, device):
+    """Phase 15's kernel sites on the card, each against its plain
+    version: sauvola at gen_binarized's largest page (exactly) and
+    remap_affine, affine_warp as deskew_pair calls it, at deskew_pair's
+    largest page (within REMAP_F32_ERR), with the bound, the plain
+    version's and the yardstick's times."""
+    import torch
+    import torch.nn.functional as F
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core.math import rotation_matrix
+    from origami_tpu_torch.ops import binarize, remap
+    page, angle = DESKEW_CASES[-1]          # the larger page
+    px = _png.read_gray(corpus / (page + ".png"))
+    h, w = px.shape
+    img = torch.from_numpy(px).to(device)
+    window = 15
+
+    def sk():
+        return binarize.sauvola(img, window)
+
+    def sp():
+        return binarize.sauvola_plain(img, window)
+    same = bool(torch.equal(sk(), sp()))
+    bound, by = sauvola_bound(img, sk())
+    rows = {"sauvola": dict(
+        site="gen_binarized", shape="%dx%d" % (w, h), equal=same,
+        err=0.0 if same else 1.0, ms=time_cuda(sk), device_ms=device_ms(sk),
+        plain_ms=time_cuda(sp), bound_ms=bound, bound_by=by,
+        library_ms=time_cuda(lambda: sauvola_library(img, window)),
+        library_device_ms=device_ms(lambda: sauvola_library(img, window)))}
+    m = rotation_matrix(angle, center=(w / 2, h / 2))
+    f = img.float()
+
+    def rk():
+        return remap.affine_warp(f, m, (h, w), 255.0)
+
+    def rp():
+        return remap.affine_warp_plain(f, m, (h, w), 255.0)
+    err = float((rk() - rp()).abs().max())
+    sx, sy = (torch.from_numpy(v).to(device)
+              for v in remap.affine_planes(m, (h, w)))
+    maps = (sx[None].contiguous(), sy[None].contiguous())
+
+    def by_planes():
+        # the same samples through remap_batch reading the planes
+        return remap.remap_batch(f[None], maps, 255.0, "hard")
+    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0,
+                        sy * (2.0 / (h - 1)) - 1.0], -1)[None]
+
+    def lib():
+        return F.grid_sample(f[None, None], grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+    # the f32 image read once and the f32 output written once
+    nbytes = 4 * h * w + 4 * h * w
+    rows["remap_affine"] = dict(
+        site="affine_warp (deskew_pair)", shape="%dx%d" % (w, h),
+        equal=err <= REMAP_F32_ERR, err=err, ms=time_cuda(rk),
+        device_ms=device_ms(rk), plain_ms=time_cuda(rp, reps=5),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=time_cuda(lib), library_device_ms=device_ms(lib))
+    log("  site remap_affine: remap_batch on prebuilt planes, the planes "
+        "excluded: device %s" % fmt_ms(device_ms(by_planes)))
+    for name, r in rows.items():
+        log("  site %s at %s %s: max abs %.3g vs plain  %s; events %s, "
+            "device %s; plain %s; bound %s (%s); yardstick events %s, "
+            "device %s" % (
+                name, r["site"], r["shape"], r["err"],
+                "ok" if r["equal"] else "FAIL", fmt_ms(r["ms"]),
+                fmt_ms(r["device_ms"]), fmt_ms(r["plain_ms"]),
+                fmt_ms(r["bound_ms"]), r["bound_by"],
+                fmt_ms(r["library_ms"]), fmt_ms(r["library_device_ms"])))
+        if not r["equal"]:
+            raise PhaseError("%s at %s off its plain version: %g"
+                             % (name, r["site"], r["err"]))
+    return rows
+
+
+def check_ground_truth(workdir, device="cuda"):
+    """Phase 15: the ground-truth path of the port on `device` against
+    the JAX package's fixture (tests/data/torch_gt): (a)-(e) above, then
+    (on the card) the kernel sites. -> (the site rows ({} on the CPU),
+    remap_affine's launches in (b) and (d))."""
+    params = gt_params()
+    corpus = train_corpus(workdir / "gt" / "corpus")
+    t = time.time()
+    pps = check_gen_binarized(corpus, device, params)
+    log("  (a) %.1f s" % (time.time() - t))
+    t = time.time()
+    n_affine = check_deskew_pair(corpus, device, params)
+    log("  (b) %.1f s" % (time.time() - t))
+    log("  (c) %.1f s" % check_gt_chain(corpus, params))
+    t = time.time()
+    n_affine += check_lines(device)
+    log("  (d) %.1f s" % (time.time() - t))
+    t = time.time()
+    check_eval(corpus, device, params)
+    log("  (e) %.1f s" % (time.time() - t))
+    log("  gen_binarized %.2f pages/s" % pps)
+    return (gt_sites(corpus, device) if device == "cuda" else {},
+            n_affine)
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -3833,12 +4346,13 @@ def main():
     if not (ROOT / "origami_tpu_torch").is_dir() or not FIXTURE.is_dir() \
             or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
             or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
-            or not TRAIN_REF.is_dir():
+            or not TRAIN_REF.is_dir() or not GT_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
-              "tests/data/torch_layout/, tests/data/torch_compose/ or "
-              "tests/data/torch_train/ missing)", file=sys.stderr)
+              "tests/data/torch_layout/, tests/data/torch_compose/, "
+              "tests/data/torch_train/ or tests/data/torch_gt/ missing)",
+              file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     torch.backends.cudnn.allow_tf32 = False
@@ -4047,11 +4561,21 @@ def main():
         check_processes(work)
         log("  (phase 14: %.1f s)" % (time.time() - t14))
 
+        log("== phase 15: ground-truth generation, segmentation evaluation "
+            "and the affine-warp helpers on the card vs the JAX package "
+            "(%s)" % smi)
+        t15 = time.time()
+        gt_rows, affine_launches = check_ground_truth(work)
+        rows["remap_affine"] = gt_rows["remap_affine"]
+        log("  (phase 15: %.1f s)" % (time.time() - t15))
+
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
              for k in whole["banded"]}
     # the training warp's kernel: its launches in phase 14c's run
     total["remap_batch"] = train_launches["remap_batch"]
+    # the affine warp's: its launches in phase 15's deskew_pair and lines
+    total["remap_affine"] = affine_launches
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",
@@ -4066,6 +4590,8 @@ def main():
                                    "origami_tpu/core/dewarp.py:131"),
         "remap": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "remap_batch": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
+        "remap_affine": ("remap.cu",
+                         "origami_tpu/ops/pallas/remap.py:392"),
         "take_along_axis_lane": ("gather.cu",
                                  "scripts/pallas_gather_repro.py:73"),
         "take_along_axis_sublane": ("gather.cu",

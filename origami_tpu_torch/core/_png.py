@@ -1,10 +1,12 @@
 """A small PNG reader and writer: zlib + numpy (un)filtering.
 
 Reads what the corpora of this project hold (PIL-written pages): 8-bit
-grayscale or RGB, non-interlaced. Everything else raises ValueError.
-`read_gray` converts color the way PIL's `convert("L")` does (ITU-R
-601-2 luma in 16-bit fixed point), so pixels match the reference loader
-exactly. `encode_paletted` / `decode_paletted` write and read the
+grayscale or RGB and 1-bit grayscale (PIL's mode "1", read as 0 and 255,
+as its `convert("L")` gives), non-interlaced. Everything else raises
+ValueError. `read_gray` converts color the way PIL's `convert("L")` does
+(ITU-R 601-2 luma in 16-bit fixed point), so pixels match the reference
+loader exactly. `encode_bilevel` / `write_bilevel` write the 1-bit
+grayscale PNG that PIL writes for a mode "1" image. `encode_paletted` / `decode_paletted` write and read the
 paletted label maps of segment.zip (colour type 3 with a PLTE chunk).
 Keeps the port free of PIL.
 """
@@ -104,6 +106,10 @@ def read(path):
     with open(path, "rb") as f:
         data = f.read()
     (w, h, depth, ctype, _c, _f, _i), _plte, raw = _parse(data, path)
+    if depth == 1 and ctype == 0:
+        rows = _unfilter(raw, h, (w + 7) // 8, 1)
+        bits = np.unpackbits(rows, axis=1)[:, :w]
+        return np.ascontiguousarray(bits * np.uint8(255))
     if depth != 8 or ctype not in _CHANNELS:
         raise ValueError("unsupported PNG (depth %d, color type %d)"
                          % (depth, ctype))
@@ -177,6 +183,29 @@ def encode_gray(pixels):
 def write_gray(path, pixels):
     with open(path, "wb") as f:
         f.write(encode_gray(pixels))
+
+
+def encode_bilevel(mask):
+    """bool (H, W) mask, True = white -> PNG bytes: colour type 0, 1 bit,
+    8 pixels a byte from the most significant bit, rows padded to a
+    byte, every row with filter 0, zlib level `_GRAY_LEVEL`."""
+    m = np.asarray(mask)
+    if m.ndim != 2:
+        raise ValueError("mask must be (H, W)")
+    h, w = m.shape
+    packed = np.packbits(m.astype(bool), axis=1)
+    rows = np.zeros((h, packed.shape[1] + 1), np.uint8)
+    rows[:, 1:] = packed
+    return b"".join([
+        _SIG,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 1, 0, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), _GRAY_LEVEL)),
+        _chunk(b"IEND", b"")])
+
+
+def write_bilevel(path, mask):
+    with open(path, "wb") as f:
+        f.write(encode_bilevel(mask))
 
 
 def to_gray(px):

@@ -9,6 +9,10 @@ text), and builds the (2, 3) strip frames the strip kernel consumes;
 the lines stage scores a detected line with its label evidence
 (`update_confidence`, `predicted_path`, `predicted_path_error`,
 block.py:190-223) sampled on `dewarped_grid_coords` (:291-308).
+`Line.image` cuts one line's strip (block.py:310-339): through the
+dewarping grid's `inverse_points` and remap_batch on the dewarped route,
+else the deskewed frame through ops.remap.affine_warp; `Line.ink` is the
+column ink density of the deskewed binarized strip (:341-352).
 `Lines.open` reads lines.N.zip and drops lines whose block is
 not among the regions (block.py:444-460). `TextAreaFactory` carves a
 block's text area out of its neighbours and the page's separators
@@ -20,8 +24,10 @@ from __future__ import annotations
 import json
 import math
 import zipfile
+from functools import cached_property
 
 import numpy as np
+import torch
 
 from origami_tpu_torch import geometry as G
 
@@ -55,6 +61,40 @@ class Block:
     @property
     def bounds(self):
         return self._polygon.bounds
+
+    @property
+    def _dewarped(self):
+        return self._stage is not None and self._stage.is_dewarped
+
+    @property
+    def page_pixels(self):
+        """The page's u8 pixels (numpy) in the block's frame: dewarped
+        at a dewarped stage."""
+        if self._dewarped:
+            return self._page.dewarped_dev.cpu().numpy()
+        return self._page.warped
+
+    @property
+    def page_pixels_dev(self):
+        """page_pixels as a u8 tensor on the page's device."""
+        if self._dewarped:
+            return self._page.dewarped_dev
+        return self._page.device_pixels
+
+    @cached_property
+    def background(self):
+        """Background intensity estimate: high quantile of the block
+        crop."""
+        x0, y0, x1, y1 = [int(v) for v in self.bounds]
+        px = self.page_pixels
+        x0 = max(0, x0)
+        y0 = max(0, y0)
+        x1 = min(px.shape[1], x1 + 1)
+        y1 = min(px.shape[0], y1 + 1)
+        if x1 <= x0 or y1 <= y0:
+            return 255
+        crop = px[y0:y1, x0:x1]
+        return float(np.quantile(crop, 0.8))
 
 
 class Line:
@@ -217,16 +257,82 @@ class Line:
                           [dx[1], dy[1], origin[1]]], np.float32)
         return frame, width
 
-    def dewarped_grid_coords(self, target_height, xres=1.0):
+    def deskewed_frame(self, target_height):
+        """(2, 3) affine mapping strip (x, y) -> page coords: x spans
+        `right`, y runs top(0) -> bottom(target_height-1) down `up`."""
+        width = max(2, int(math.ceil(self.length)))
+        h = max(target_height - 1, 1)
+        ex = self._right / max(width - 1, 1)
+        ey = -self._up / h          # strip y grows downward; up points up
+        origin = self._p + self._up  # strip (0, 0) is the top-left corner
+        return np.array([
+            [ex[0], ey[0], origin[0]],
+            [ex[1], ey[1], origin[1]]]), width
+
+    def dewarped_grid_coords(self, target_height, xres=1.0, column=None,
+                             pad=None):
         """Dewarped-space sample grid (target_height, W, 2) of the line:
-        rows from its top (p + up) down to p, columns along `right`."""
-        p0, right, up = self._p, self._right, self._up
+        rows from its top (p + up) down to p, columns along `right`;
+        `column` and `pad` as dewarped_frame's."""
+        p0, right = self._column_extent(column)
+        up = self._up
+        if pad:
+            pt, pb = pad
+            p0 = p0 - up * pb
+            up = up * (1.0 + pt + pb)
         width = max(2, int(math.ceil(np.linalg.norm(right) * xres)))
         xs = np.linspace(0.0, 1.0, width)
         ys = np.linspace(1.0, 0.0, target_height)
         return (p0[None, None, :]
                 + ys[:, None, None] * up[None, None, :]
                 + xs[None, :, None] * right[None, None, :])
+
+    def image(self, target_height=48, column=None, dewarped=True,
+              deskewed=True, binarizer=None):
+        """Single-line extraction (the batch path is LineExtractor) on
+        the page's device -> u8 numpy strip. Dewarped (with a grid): the
+        padded band's sample grid through the grid's inverse_points,
+        sampled from the warped page by remap_batch; else the deskewed
+        frame through affine_warp."""
+        from origami_tpu_torch.ops import remap as _remap
+        page = self._block.page
+        fill = float(self._block.background)
+        if dewarped and page.grid is not None:
+            # aspect-preserving: x sampled at the same magnification
+            # the (padded) band -> target_height scaling applies in y
+            pt, pb = BAND_PAD
+            band_h = float(np.linalg.norm(self._up)) * (1.0 + pt + pb)
+            xres = target_height / max(band_h, 1.0)
+            coords = self.dewarped_grid_coords(target_height,
+                                               xres=xres, column=column,
+                                               pad=BAND_PAD)
+            warped = page.grid.inverse_points(
+                coords.reshape(-1, 2)).reshape(coords.shape)
+            maps = torch.from_numpy(warped.astype(np.float32)[None]) \
+                .to(page.device)
+            out = _remap.remap_batch(page.device_pixels.float()[None], maps,
+                                     fill, border="hard")[0]
+        else:
+            frame, width = self.deskewed_frame(target_height)
+            out = _remap.affine_warp(self._block.page_pixels_dev.float(),
+                                     frame, (target_height, width), fill)
+        out = np.clip(out.cpu().numpy(), 0, 255).astype(np.uint8)
+        if binarizer is not None:
+            out = binarizer(out)
+        return out
+
+    @cached_property
+    def ink(self):
+        """Per-column ink density of the deskewed binarized strip."""
+        from origami_tpu_torch.ops import remap as _remap
+        page = self._block.page
+        height = max(2, int(math.ceil(self.height)))
+        frame, width = self.deskewed_frame(height)
+        binar = torch.from_numpy(page.binarized).to(page.device) \
+            .float() * 255.0
+        strip = _remap.affine_warp(binar, frame, (height, width), 255.0) \
+            .cpu().numpy()
+        return 1.0 - np.mean(strip / 255.0, axis=0)
 
 
 def _jsonable(d):

@@ -17,7 +17,9 @@
 // coalesce and the taps of a warp fall on one or two source rows; the
 // grid's z axis walks a batch of images, so the training step warps its
 // whole batch (train/segment/warp.py's bilinear_sample, hard border) in
-// one launch.
+// one launch. `remap_affine_f32` is the same sampler with the source
+// (x, y) computed from an affine's six coefficients in the thread (the
+// JAX affine_warp, origami_tpu/ops/remap.py:76-85), so no map is read.
 //
 // `dewarp_u8` upsamples the coarse grid inside the kernel (index-aligned,
 // nearest beyond the last node, as core/dewarp.py:436-456), so the dense
@@ -69,22 +71,39 @@ namespace {
 //   hard == 1 (bilinear_sample_xy, origami_tpu/ops/remap.py:28-59, the
 //     training warp's): taps clamped into the image, the sample `fill`
 //     outside [0, w-1] x [0, h-1].
+// kAffine: no maps; the source (x, y) of output (col, row) is
+// m0 col + m1 row + m2 and m3 col + m4 row + m5 in float32 as XLA's CPU
+// backend evaluates them (ops/remap.py:80-84): m1 row rounded, m0 col
+// fused into it, then m2 added (the plain version's core/math.fma_f32).
 // The arithmetic is the plain version's, product by product (built
 // with -fmad=false), so the two agree to the bit.
+struct Affine {
+  float m[6];
+};
+
+template <bool kAffine>
 __global__ void remap_f32_kernel(const float* __restrict__ img, int h, int w,
                                  const float* __restrict__ mx,
                                  const float* __restrict__ my, int stride,
-                                 int oh, int ow, float fill, int hard,
-                                 float* __restrict__ out) {
+                                 Affine a, int oh, int ow, float fill,
+                                 int hard, float* __restrict__ out) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= ow || y >= oh) return;
   long plane = (long)oh * ow;
   long o = (long)y * ow + x;
-  long mo = (blockIdx.z * plane + o) * stride;
   img += (long)blockIdx.z * h * w;
   out += blockIdx.z * plane;
-  float sx = __ldg(mx + mo), sy = __ldg(my + mo);
+  float sx, sy;
+  if (kAffine) {
+    float fc = (float)x, fr = (float)y;
+    sx = __fadd_rn(__fmaf_rn(a.m[0], fc, __fmul_rn(a.m[1], fr)), a.m[2]);
+    sy = __fadd_rn(__fmaf_rn(a.m[3], fc, __fmul_rn(a.m[4], fr)), a.m[5]);
+  } else {
+    long mo = (blockIdx.z * plane + o) * stride;
+    sx = __ldg(mx + mo);
+    sy = __ldg(my + mo);
+  }
   if (!hard) {
     sx = fminf(fmaxf(sx, -2.0f), (float)w + 1.0f);
     sy = fminf(fmaxf(sy, -2.0f), (float)h + 1.0f);
@@ -380,8 +399,23 @@ extern "C" int origami_remap_f32(const float* img, int b, int h, int w,
   if (b > 65535) return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
   dim3 grid((ow + 31) / 32, (oh + 7) / 8, b);
-  remap_f32_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      img, h, w, mx, my, stride, oh, ow, fill, hard, out);
+  remap_f32_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+      img, h, w, mx, my, stride, Affine{}, oh, ow, fill, hard, out);
+  return (int)cudaGetLastError();
+}
+
+// One image (h, w) through the inverse-map affine m (six float32
+// coefficients, row-major (2, 3)) to (oh, ow), at the hard border.
+extern "C" int origami_remap_affine_f32(const float* img, int h, int w,
+                                        const float* m, int oh, int ow,
+                                        float fill, float* out,
+                                        void* stream) {
+  Affine a;
+  for (int k = 0; k < 6; ++k) a.m[k] = m[k];
+  dim3 block(32, 8);
+  dim3 grid((ow + 31) / 32, (oh + 7) / 8, 1);
+  remap_f32_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+      img, h, w, nullptr, nullptr, 1, a, oh, ow, fill, 1, out);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 
 A copy of origami_tpu/geometry (which the port may not import): geometry
 value types, WKT serialization (the artifact contract), spatial indexing,
-transforms, polyline clipping, exact areal booleans through the C++
+transforms (`affinity`), polyline clipping, exact areal booleans through the C++
 library of native.cpp (built with g++ at first use) and raster-backed
 buffers. It needs numpy and scipy, not cv2: the convex hull repeats
 cv2.convexHull's algorithm and the raster bridge has its own fill and
@@ -27,6 +27,7 @@ from .ops import (
 )
 from .strtree import STRtree, IntervalTree
 from . import wkt
+from . import affinity
 from . import raster
 from . import ops
 
@@ -35,5 +36,5 @@ __all__ = [
     "LinearRing", "Polygon", "MultiPolygon", "GeometryCollection", "box",
     "GEOMETRY_EMPTY", "unary_union", "transform", "collect",
     "clip_line_to_polygon", "make_valid", "scale_geometry",
-    "STRtree", "IntervalTree", "wkt", "raster", "ops",
+    "STRtree", "IntervalTree", "wkt", "affinity", "raster", "ops",
 ]

@@ -446,14 +446,23 @@ void fill_circle(uint8_t* img, int h, int w, int cx, int cy, int radius,
   }
 }
 
-// ThickLine(img, p0, p1, color, thickness, LINE_8, flags, shift 0)
+// ThickLine(img, p0, p1, color, thickness, LINE_8, flags, shift 0). As
+// OpenCV 5 does, the segment is first clipped (integer clipLine) to the
+// image grown by `thickness` on every side; a segment that misses it draws
+// nothing, its caps included (their radius is at most the margin).
 void thick_line(uint8_t* img, int h, int w, int64_t p0x, int64_t p0y,
                 int64_t p1x, int64_t p1y, int thickness, int flags,
                 uint8_t v) {
-  p0x <<= kXYShift;
-  p0y <<= kXYShift;
-  p1x <<= kXYShift;
-  p1y <<= kXYShift;
+  const int64_t g = thickness;
+  p0x += g;
+  p0y += g;
+  p1x += g;
+  p1y += g;
+  if (!clip_line_l(w + 2 * g, h + 2 * g, p0x, p0y, p1x, p1y)) return;
+  p0x = (p0x - g) << kXYShift;
+  p0y = (p0y - g) << kXYShift;
+  p1x = (p1x - g) << kXYShift;
+  p1y = (p1y - g) << kXYShift;
   const double inv_one = 1.0 / (double)kXYOne;
   const double dx = (p0x - p1x) * inv_one, dy = (p1y - p0y) * inv_one;
   double r = dx * dx + dy * dy;

@@ -8,9 +8,10 @@ scales and operations and does each step itself:
   * fill: cv2.fillPoly's scanline algorithm with its outline, and
     thin lines as cv2's 8-connected Bresenham lines (native C++,
     contour_trace.cpp);
-  * thick strokes: OpenCV's ThickLine (a fixed-point quadrilateral per
-    segment through FillConvexPoly, round caps as filled circles;
-    native C++, contour_trace.cpp);
+  * thick strokes: OpenCV's ThickLine (each segment clipped to the
+    raster grown by the thickness, a fixed-point quadrilateral through
+    FillConvexPoly, round caps as filled circles; native C++,
+    contour_trace.cpp);
   * dilate / erode: scipy.ndimage with cv2's MORPH_ELLIPSE kernel (erosion
     treats pixels outside the raster as set, as cv2 does);
   * trace: cv2's findContours (RETR_CCOMP, CHAIN_APPROX_SIMPLE) from
@@ -19,6 +20,12 @@ scales and operations and does each step itself:
 
 Fill, lines, dilation and tracing give cv2's pixels and vertices, so
 make_valid, unions, overlays and polygon buffers equal the JAX package's.
+
+`rotation_matrix_2d` and `warp_affine_u8` give cv2.getRotationMatrix2D
+and cv2.warpAffine on uint8 rasters (INTER_NEAREST, and INTER_LINEAR,
+which INTER_AREA becomes in warpAffine; BORDER_REPLICATE), which the
+ground-truth generator deskews its label rasters with
+(train/segment/regions.py `Deskewing`).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import ctypes
 import numpy as np
 from scipy import ndimage
 
+from ..core.math import fma_f32
 from .contour_trace import contour_area, find_contours
 from .native_bindings import library
 from .poly import Polygon, MultiPolygon, GEOMETRY_EMPTY
@@ -188,6 +196,82 @@ def rasterize(geom, frame, mask=None, value=1, thickness=None):
         for g in geom.geoms:
             rasterize(g, frame, mask, value, thickness)
     return mask
+
+
+# ---------------------------------------------------------------------------
+# affine warps of uint8 rasters
+# ---------------------------------------------------------------------------
+
+def rotation_matrix_2d(center, angle, scale):
+    """cv2.getRotationMatrix2D: (2, 3) float64 rotation by `angle`
+    degrees (counter-clockwise on screen) about `center`, which cv2
+    takes as float32."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    a = angle * (np.pi / 180)
+    alpha = np.cos(a) * scale
+    beta = np.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+# cv2's warp kernels step 2 x 8 float32 lanes at a time (its AVX2 build);
+# the columns past the last full step take the scalar expression
+_WARP_STEP = 16
+
+
+def _warp_coords(matrix, w, h):
+    """The source (x, y) planes (h, w) float32 of cv2.warpAffine's
+    kernels: the forward `matrix` inverted in float64 and cast to float32;
+    per row, y m1 + m2 in float32; each column of a full step
+    fma(m0, x, that); each later column fma(x, m0, y m1) + m2."""
+    m = np.asarray(matrix, np.float64).ravel().copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[1], m[3], m[4] = a11, m[1] * -d, m[3] * -d, a22
+    m[2], m[5] = -m[0] * m[2] - m[1] * m[5], -m[3] * m[2] - m[4] * m[5]
+    m = m.astype(np.float32)
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    xv = (w // _WARP_STEP) * _WARP_STEP
+    planes = []
+    for a, b, c in ((m[0], m[1], m[2]), (m[3], m[4], m[5])):
+        yb = ys * b
+        v = np.empty((h, w), np.float32)
+        v[:, :xv] = fma_f32(a, xs[:, :xv], yb + c)
+        v[:, xv:] = fma_f32(xs[:, xv:], a, yb) + c
+        planes.append(v)
+    return planes
+
+
+def warp_affine_u8(raster, matrix, size, nearest=True):
+    """cv2.warpAffine(raster, matrix, size, flags=INTER_NEAREST if
+    `nearest` else INTER_LINEAR, borderMode=BORDER_REPLICATE) of a uint8
+    (H, W) raster; size is (W, H). Nearest rounds the source coordinates
+    half to even; linear lerps in float32 with fused multiply-adds (x,
+    then y) and rounds half to even. Taps off the raster take its edge."""
+    src = np.asarray(raster)
+    if src.dtype != np.uint8 or src.ndim != 2:
+        raise ValueError("a uint8 (H, W) raster is needed")
+    w, h = (int(v) for v in size)
+    sx, sy = _warp_coords(matrix, w, h)
+    rows, cols = src.shape
+    if nearest:
+        yi = np.clip(np.rint(sy).astype(np.int64), 0, rows - 1)
+        xi = np.clip(np.rint(sx).astype(np.int64), 0, cols - 1)
+        return src[yi, xi]
+    fx, fy = np.floor(sx), np.floor(sy)
+    ax, ay = sx - fx, sy - fy
+    x0, y0 = fx.astype(np.int64), fy.astype(np.int64)
+
+    def tap(dy, dx):
+        return src[np.clip(y0 + dy, 0, rows - 1),
+                   np.clip(x0 + dx, 0, cols - 1)].astype(np.float32)
+    p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    top = fma_f32(ax, p01 - p00, p00)
+    bot = fma_f32(ax, p11 - p10, p10)
+    out = fma_f32(ay, bot - top, top)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,8 @@ _L = ctypes.c_long
 SIGNATURES = {
     "origami_remap_f32": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _F, _I, _P,
                           _P],
+    "origami_remap_affine_f32": [_P, _I, _I, ctypes.POINTER(_F), _I, _I, _F,
+                                 _P, _P],
     "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "origami_strips_dewarped": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P,
                                 _L, _P],

@@ -11,6 +11,10 @@ same signature and arithmetic:
     dewarp_u8           ports the dewarp of core/dewarp.py:504-531
     strips_dewarped     strip mode (a): extract_strips_banded's function
     strips_through_grid strip mode (b): extract_dewarped_strips' function
+    affine_warp         an inverse-map affine warp (ops/remap.py:76-85):
+                        the remap kernel with each source coordinate
+                        computed from the six coefficients, at the hard
+                        border (counted as remap_affine)
 
 The strip modes also have a page-level entry (`strips_dewarped_page`,
 `strips_through_grid_page`): all (width bucket, profile) groups of a page
@@ -25,11 +29,13 @@ raises — it never falls back. `launches[name]` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as np
 import torch
 
+from origami_tpu_torch.core.math import fma_f32
 from origami_tpu_torch.ops import _build
 
 
@@ -44,7 +50,7 @@ class LaunchCounts(dict):
             self[name] += n
 
 
-launches = LaunchCounts(remap=0, remap_batch=0, dewarp_u8=0,
+launches = LaunchCounts(remap=0, remap_batch=0, remap_affine=0, dewarp_u8=0,
                         strips_dewarped=0, strips_through_grid=0)
 
 
@@ -592,3 +598,59 @@ def strips_through_grid_page(page_u8, hv, res, frames, widths, desc, out,
                 out.numel())
         launches.add("strips_through_grid")
     return out
+
+
+# ---------------------------------------------------------------------------
+# affine warps
+# ---------------------------------------------------------------------------
+
+def affine_planes(matrix, out_hw):
+    """The source (x, y) planes (h, w), float32 numpy, of an inverse-map
+    affine warp: `matrix` (2, 3) cast to float32, then m00 x + m01 y +
+    m02 in float32 as XLA's CPU backend evaluates ops/remap.py:80-84:
+    m01 y rounded, m00 x added to it in one fused multiply-add, then m02
+    added."""
+    h, w = (int(v) for v in out_hw)
+    m = np.asarray(matrix, np.float32).reshape(2, 3)
+    ys = np.arange(h, dtype=np.float32)[:, None]
+    xs = np.arange(w, dtype=np.float32)[None, :]
+    return [fma_f32(m[r, 0], xs, m[r, 1] * ys) + m[r, 2] for r in (0, 1)]
+
+
+def affine_warp_plain(image, matrix, out_hw, fill=0.0):
+    """affine_warp's plain version: the planes of affine_planes, moved to
+    the image's device, through remap_batch_plain at the hard border."""
+    sx, sy = (torch.from_numpy(p).to(image.device)[None]
+              for p in affine_planes(matrix, out_hw))
+    return remap_batch_plain(image[None], sx, sy, fill, "hard")[0]
+
+
+def affine_warp(image, matrix, out_hw, fill=0.0):
+    """Inverse-map affine warp of the f32 image (H, W): `matrix` (2, 3)
+    maps OUTPUT (x, y, 1) to source coordinates (cv2.warpAffine with
+    WARP_INVERSE_MAP) -> f32 (h, w) on the image's device. Each sample is
+    bilinear_sample_xy's: taps clamped into the image, `fill` outside
+    [0, w-1] x [0, h-1]. On the card one remap_affine launch, which
+    computes each source coordinate from the six coefficients."""
+    dev = _device_of(image)
+    _check(image, "image", torch.float32, 2, dev)
+    if dev.type == "cpu":
+        return affine_warp_plain(image, matrix, out_hw, fill)
+    oh, ow = (int(v) for v in out_hw)
+    out = torch.empty((oh, ow), dtype=torch.float32, device=dev)
+    if out.numel():
+        h, w = image.shape
+        m = (ctypes.c_float * 6)(*np.asarray(matrix, np.float32).ravel())
+        _launch("origami_remap_affine_f32", _ptr(image), h, w, m, oh, ow,
+                float(fill), _ptr(out))
+        launches.add("remap_affine")
+    return out
+
+
+def invert_affine(matrix):
+    """Invert a (2, 3) forward affine into the inverse-map form, in
+    float32 as ops/remap.py:88-94 -> f32 (2, 3) tensor."""
+    m = torch.as_tensor(np.asarray(matrix, np.float32).reshape(2, 3))
+    ai = torch.linalg.inv(m[:, :2])
+    ti = -(ai @ m[:, 2])
+    return torch.cat([ai, ti[:, None]], dim=1)

@@ -10,10 +10,16 @@ Port of the training half of origami_tpu/train/bootstrap.py:
     `train_recognizer_synth` (:322-362): it takes a list of (strip u8
     (H, W), text) pairs, buckets them by width, moves the pool to the
     card and trains the CTC recognizer. The rendering half (train.synth,
-    PIL and fonts) is not ported.
+    PIL and fonts) is not ported;
+  * `eval_segmentation` and `eval_separator_tolerant` (:124-227) score
+    the serving predictor (core/predict.SegmentationPredictor) against
+    a validation corpus: per-class IoU, and separator recall/precision
+    within a pixel tolerance. cv2's INTER_NEAREST resize is
+    data.resize_nearest_u8, its square dilation ops/morphology.dilate.
 
-Each trainer takes `device` (cuda unless "cpu") and the convolutions'
-`dtype` (bf16, the JAX trainers' numeric mode). `on_step(kind, member,
+Each trainer and evaluator takes `device` (cuda unless "cpu") and the
+convolutions' `dtype` (bf16, the JAX trainers' and the stage's numeric
+mode; float32 for parity runs). `on_step(kind, member,
 step, loss)` is called after every step with the loss as a device tensor
 (the JAX functions log every `log_every` steps; so do these).
 """
@@ -115,6 +121,122 @@ def train_segmentation(corpus_dir, out_dir, kind, members=5, steps=600,
                      meta_for(kind, classes, full_size, width, s2d))
         losses.append(float(loss))
     return losses
+
+
+def _eval_pages(predictor, pairs, batch):
+    """(the second item, Segmentation) of each (image path, item) pair,
+    `batch` pages a predictor call."""
+    from origami_tpu_torch.core import _png
+    for start in range(0, len(pairs), batch):
+        chunk = pairs[start: start + batch]
+        segs = predictor.predict_batch([_png.read_gray(ip)
+                                        for ip, _ in chunk])
+        for (_, lp), seg in zip(chunk, segs):
+            yield lp, seg
+
+
+def _gt_at(lp, shape):
+    """The GT label map of `lp` resized (nearest, as cv2) to `shape`."""
+    from origami_tpu_torch.train.segment.data import (read_labels,
+                                                      resize_nearest_u8)
+    return resize_nearest_u8(read_labels(lp), (shape[1], shape[0]))
+
+
+def eval_segmentation(models_path, val_dir, target="quality", batch=4,
+                      device=None, dtype=torch.bfloat16):
+    """Per-kind, per-class IoU of the serving predictor vs GT masks.
+
+    Aggregates intersections/unions over the whole validation set (not
+    a mean of per-page IoUs, which over-weights near-empty classes).
+    Each page is predicted once for both kinds (the JAX function
+    predicts it once a kind; the sums are the same)."""
+    from origami_tpu_torch.core.predict import SegmentationPredictor
+    from origami_tpu_torch.train.segment.data import page_pairs
+
+    predictor = SegmentationPredictor(models_path, target=target,
+                                      device=device, dtype=dtype)
+    kinds = {"region": "regions", "separator": "separators"}
+    gts = {kind: dict(page_pairs(val_dir, kind)) for kind in kinds}
+    pages = sorted(set(gts["region"]) | set(gts["separator"]))
+    inter = {k: np.zeros(len(KIND_CLASSES[k]), np.int64) for k in kinds}
+    union = {k: np.zeros(len(KIND_CLASSES[k]), np.int64) for k in kinds}
+    for ip, seg in _eval_pages(predictor, [(p, p) for p in pages], batch):
+        for kind, name in kinds.items():
+            if ip not in gts[kind]:
+                continue
+            lab = seg.by_name(name).labels
+            gt = _gt_at(gts[kind][ip], lab.shape)
+            for c in range(len(KIND_CLASSES[kind])):
+                am = lab == c
+                bm = gt == c
+                inter[kind][c] += np.logical_and(am, bm).sum()
+                union[kind][c] += np.logical_or(am, bm).sum()
+    report = {}
+    for kind in kinds:
+        classes = KIND_CLASSES[kind]
+        i, u = inter[kind], union[kind]
+        report[kind] = {classes[c]: (float(i[c] / u[c]) if u[c] else None)
+                        for c in range(len(classes))}
+        ious = [v for v in report[kind].values() if v is not None]
+        report[kind]["_mean"] = float(np.mean(ious)) if ious else None
+    return report
+
+
+def eval_separator_tolerant(models_path, val_dir, target="quality",
+                            tol=3, batch=4, device=None,
+                            dtype=torch.bfloat16):
+    """Functional separator quality: recall/precision at +-tol px.
+
+    A GT separator pixel counts as found if a predicted pixel of the
+    same class lies within `tol` px (dilated-prediction recall), and
+    vice versa for precision."""
+    from origami_tpu_torch.core.predict import SegmentationPredictor
+    from origami_tpu_torch.ops.morphology import dilate
+    from origami_tpu_torch.train.segment.data import page_pairs
+
+    predictor = SegmentationPredictor(models_path, target=target,
+                                      device=device, dtype=dtype)
+    classes = KIND_CLASSES["separator"]
+    k = 2 * tol + 1
+
+    def grown(m):
+        # cv2.dilate with a k x k square: the border never dilates
+        t = torch.from_numpy(m.astype(np.float32))
+        return (dilate(t, k, k) > 0).numpy().astype(np.uint8)
+
+    hit_r = np.zeros(len(classes), np.int64)
+    tot_r = np.zeros(len(classes), np.int64)
+    hit_p = np.zeros(len(classes), np.int64)
+    tot_p = np.zeros(len(classes), np.int64)
+    pairs = list(page_pairs(val_dir, "separator"))
+    for lp, seg in _eval_pages(predictor, pairs, batch):
+        lab = seg.by_name("separators").labels
+        gt = _gt_at(lp, lab.shape)
+        for c, name in enumerate(classes):
+            if name == "BACKGROUND":
+                continue
+            pm = (lab == c).astype(np.uint8)
+            gm = (gt == c).astype(np.uint8)
+            pd = grown(pm)
+            gd = grown(gm)
+            hit_r[c] += int((gm & pd).sum())
+            tot_r[c] += int(gm.sum())
+            hit_p[c] += int((pm & gd).sum())
+            tot_p[c] += int(pm.sum())
+    report = {}
+    f1s = []
+    for c, name in enumerate(classes):
+        if name == "BACKGROUND":
+            continue
+        r = float(hit_r[c] / tot_r[c]) if tot_r[c] else None
+        p = float(hit_p[c] / tot_p[c]) if tot_p[c] else None
+        f1 = (2 * r * p / (r + p)) if r and p else None
+        report[name] = dict(recall=r, precision=p, f1=f1)
+        if f1 is not None:
+            f1s.append(f1)
+    report["_mean_f1"] = float(np.mean(f1s)) if f1s else None
+    report["tol_px"] = tol
+    return report
 
 
 def distill_students(models_path, corpus_dir, out_dir, steps=800,

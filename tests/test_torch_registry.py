@@ -146,7 +146,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 banned = ("jax", "flax", "optax", "orbax", "origami_tpu", "PIL", "click",
-          "msgpack", "cv2", "networkx", "lxml")
+          "msgpack", "cv2", "networkx", "lxml", "shapely")
 print(json.dumps({"modules": names,
                   "banned": sorted(m for m in sys.modules
                                    if m.split(".")[0] in banned)}))
@@ -181,7 +181,10 @@ print(json.dumps({"modules": names,
                  "train.segment.labels", "train.segment.data",
                  "train.segment.warp", "train.segment.train",
                  "train.segment.distill", "train.segment.main",
-                 "train.ocr.train"):
+                 "train.ocr.train", "geometry.affinity",
+                 "train.segment.annotations", "train.segment.skew",
+                 "train.segment.segments", "train.segment.regions",
+                 "train.segment.binarize", "batch.core.deskew"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

@@ -3,11 +3,14 @@
 JAX package's raster bridge calls.
 
 Tolerance: every pixel equal. Thick strokes repeat OpenCV's ThickLine
-(the quadrilateral in 16-bit fixed point through FillConvexPoly, the
-round caps as filled Bresenham circles), thin ones its 8-connected
-LineIterator, clipped to the mask as cv2 clips them. The polylines'
-vertices lie on the mask, as the raster frames place every vertex; the
-thick strokes still run off its edges.
+(the segment clipped to the mask grown by the thickness, the
+quadrilateral in 16-bit fixed point through FillConvexPoly, the round
+caps as filled Bresenham circles), thin ones its 8-connected
+LineIterator, clipped to the mask as cv2 clips them. The first cases
+keep the vertices on the mask, as the raster frames place every vertex
+(the thick strokes still run off its edges); the off-raster cases put
+them up to 3x the thickness off it, as the ground-truth generator's
+extended separators do (train/segment/regions.py `stops`).
 """
 
 import cv2
@@ -53,3 +56,29 @@ def test_thin_stroke_clipped_like_cv2():
                     rng.integers(-20, h + 20, n)].astype(np.int32)
         got, want = _both(h, w, pts, 1)
         np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
+
+
+@pytest.mark.parametrize("thickness", range(2, 16))
+def test_thick_stroke_off_raster_is_cv2s(thickness):
+    """29 seeded polylines a thickness (406 in all) whose vertices lie up
+    to 3x the thickness off the mask."""
+    rng = np.random.default_rng(100 + thickness)
+    for _ in range(29):
+        h, w = (int(v) for v in rng.integers(20, 90, 2))
+        n = int(rng.integers(2, 6))
+        m = 3 * thickness
+        pts = np.c_[rng.integers(-m, w + m, n),
+                    rng.integers(-m, h + m, n)].astype(np.int32)
+        got, want = _both(h, w, pts, thickness)
+        np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
+
+
+@pytest.mark.parametrize("pts, thickness", [
+    ([(150, -20), (150, 220)], 2), ([(150, -20), (150, 220)], 3),
+    ([(-30, 50), (330, 57)], 3), ([(-30, 50), (330, 57)], 4)])
+def test_extended_separator_off_raster_is_cv2s(pts, thickness):
+    """An extended separator leaving a 200x300 raster: a vertical one and
+    a slanted one (the unclipped stroke differed from cv2's on 170 of
+    its 1500 pixels at thickness 3)."""
+    got, want = _both(200, 300, np.asarray(pts, np.int32), thickness)
+    np.testing.assert_array_equal(got, want)
