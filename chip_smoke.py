@@ -148,6 +148,24 @@ Phases (any failure exits non-zero before the result line):
      scores); then each new kernel site against its plain version with
      its times, bound and yardstick (gt_sites). The kernels line's
      remap_affine launches come from (b) and (d).
+ 16. the synthetic corpus and what it feeds, against the JAX package's
+     numbers in tests/data/torch_synth (scripts/make_torch_synth_fixture
+     .py): (a) write_corpus(2 pages, seed=7) equal to the OCR fixture's
+     page images on every pixel, its label maps and gt.json, the other
+     render_page cases, render_line over SYNTH_LINE_SEEDS and
+     page_line_pool equal to JAX's by digest; (b) eval_recognizer's 300
+     lines through the serving predictor, models_pretrained/recognizer
+     and the 2-model sequence vote with recognizer2 (CER within EVAL_CER
+     of JAX's, EVAL_MIN_EQUAL texts equal), and the pool's build time
+     and the recognizer's steps/s; (c) the chain's baselines on the
+     rendered pages, mapped back through dewarp.zip and scored by the
+     port's evaluate against their gt.json (each count within
+     CHAIN_SCORE_SLACK of the JAX chain's; phase 12's outputs where the
+     pages equal its page images); (d) `python -m
+     origami_tpu_torch.train.bootstrap` end to end at BOOT_ARGS' depth.
+     It prints render_page's host seconds a page, the pool's build
+     seconds, the recognizer's steps/s, eval_recognizer's lines/s and
+     the chain's pages/s with the card's name and power limit.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -2932,6 +2950,7 @@ def check_whole_chain(workdir, device="cuda"):
         if str(device) != "cpu":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        WHOLE_CHAIN_WALL[mode] = wall
         launches = kernel_launches()
         runs[mode] = launches
         seconds = {}
@@ -3341,7 +3360,10 @@ MAIN_OCR = dict(steps=20, batch=64, height=48,
                 conv_features=(64, 128, 256), lstm_features=256)
 # phase 14d: the host stages run with --processes 2
 POOL_STAGES = ("contours", "flow", "dewarp", "layout", "lines")
-POOL_ALIVE = 24
+# the stalled pool's --alive: the watchdog names a page stuck once it has
+# run for half of it, and a spawned worker takes 10-14 s on the card to
+# start its page, so at 24 s its pages were sometimes too young to name
+POOL_ALIVE = 48
 
 
 def train_corpus(dst):
@@ -4336,6 +4358,338 @@ def check_ground_truth(workdir, device="cuda"):
             n_affine)
 
 
+# ---------------------------------------------------------------- phase 16
+
+SYNTH_REF = ROOT / "tests" / "data" / "torch_synth"
+# phase 16a: render_page's cases (seed, keyword arguments); the first two
+# are write_corpus(seed=7)'s pages, the OCR fixture's page images
+SYNTH_PAGES = ((70000, {}), (70001, {}), (55_000_000, {"n_columns": 2}),
+               (123, {"degrade": False}))
+SYNTH_LINE_SEEDS = tuple(range(32)) + tuple(123_456 + i for i in range(32))
+SYNTH_POOL_PAGES = 2
+# phase 16b: eval_recognizer's lines and models; the CER within EVAL_CER
+# of the JAX value and at least EVAL_MIN_EQUAL of the texts equal
+# (ROADMAP C2: bf16 convolutions round two lines of 513 otherwise)
+EVAL_N = 300
+EVAL_MODELS = {"single": ("recognizer",),
+               "voted": ("recognizer", "recognizer2")}
+EVAL_CER = 0.002
+EVAL_MIN_EQUAL = 298
+# phase 16c: each count within this many lines a page of the JAX chain's
+CHAIN_SCORE_SLACK = 1
+# phase 16d: the bootstrap CLI at a small depth (the widths and the page size
+# are the defaults) and the report keys its phases write
+BOOT_ARGS = ("--train-pages", "2", "--val-pages", "1", "--members", "1",
+             "--seg-steps", "3", "--distill-steps", "3", "--ocr-steps",
+             "3", "--ocr-pool", "64", "--batch", "1")
+BOOT_KEYS = ("seg_train_seconds", "distill_seconds", "ocr_train_seconds",
+             "iou_ensemble", "iou_ensemble_speed1", "iou_student",
+             "sep_tolerant_ensemble", "sep_tolerant_student", "ocr",
+             "eval_seconds")
+# the recognizer's steps/s: a pool of this many strips, these many steps
+# (the first two are warm-up)
+TRAIN_POOL = 360
+TRAIN_STEPS = 12
+# phase 12's wall seconds a run, read by phase 16c
+WHOLE_CHAIN_WALL = {}
+
+
+def synth_modules():
+    """The port's modules that phase 16 calls, by name (the fixture
+    script passes the JAX package's under the same names)."""
+    from origami_tpu_torch.batch.utils import evaluate
+    from origami_tpu_torch.core.dewarp import Grid
+    from origami_tpu_torch.train import synth
+    return dict(synth=synth, evaluate=evaluate, Grid=Grid)
+
+
+def digest(*parts):
+    """sha256 over arrays (shape, dtype and bytes) and strings."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in parts:
+        if isinstance(p, str):
+            h.update(p.encode("utf8"))
+        else:
+            a = np.ascontiguousarray(p)
+            h.update(("%s%s" % (a.shape, a.dtype)).encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def synth_page_digests(synth, seed, **kw):
+    """Digests of render_page's image, label maps and gt.json document
+    (write_corpus's, through the port's page_gt_json for either
+    package's page)."""
+    from origami_tpu_torch.train.synth import page_gt_json
+    page = synth.render_page(seed, **kw)
+    return dict(image=digest(page.image), region=digest(page.region_labels),
+                separator=digest(page.separator_labels),
+                gt=digest(json.dumps(page_gt_json(page))))
+
+
+def synth_line_digests(synth, seeds=SYNTH_LINE_SEEDS):
+    return [digest(*synth.render_line(s)) for s in seeds]
+
+
+def synth_pool_digest(synth, n_pages=SYNTH_POOL_PAGES):
+    pool = synth.page_line_pool(n_pages=n_pages)
+    return digest(*[x for strip, text in pool for x in (strip, text)])
+
+
+def synth_gt_lines(gt):
+    """match_baselines' GT lines of a gt.json document: the baseline row,
+    the ink's x extent and its height above the baseline."""
+    return [dict(y=float(l["baseline"][0][1]), x0=float(l["bbox"][0]),
+                 x1=float(l["bbox"][2]),
+                 h=float(l["baseline"][0][1] - l["bbox"][1]))
+            for l in gt["lines"]]
+
+
+def chain_scores(mods, out, gt):
+    """The detected baselines of a page's lines.3.zip, mapped back to the
+    page through its dewarp.zip, scored against its gt.json document:
+    per GT line (match_baselines, within max(0.5 h, 4) px) and per
+    detection (match_detections)."""
+    ev = mods["evaluate"]
+    grid = mods["Grid"].open(out / "dewarp.zip")
+    dets = []
+    with zipfile.ZipFile(out / "lines.3.zip") as zf:
+        for n in sorted(zf.namelist()):
+            if not n.endswith(".json") or n == "meta.json":
+                continue
+            bl = (json.loads(zf.read(n)).get("tesseract_data")
+                  or {}).get("baseline")
+            if bl and len(bl) >= 2:
+                dets.append(grid.inverse_points(np.asarray(bl, float)))
+    lines = synth_gt_lines(gt)
+    res = ev.match_baselines(lines, dets)
+    matched = sum(1 for g, d in res
+                  if d is not None and d <= max(0.5 * g["h"], 4.0))
+    prec = ev.match_detections(lines, dets, zones=ev.gt_zones(lines))
+    return dict(n_gt=len(res), n_matched=matched, n_detected=len(dets),
+                n_considered=prec["n_considered"], n_true=prec["n_true"])
+
+
+def synth_ref():
+    return json.loads((SYNTH_REF / "synth.json").read_text())
+
+
+def check_render(workdir, ref):
+    """Phase 16a: write_corpus(2 pages, seed=7) against the OCR fixture's
+    page images (every pixel) and the fixture's digests (images, label
+    maps, gt.json), render_page's other cases, render_line's seeds and
+    page_line_pool by digest. -> (the corpus, seconds a page, whether
+    both pages equal the fixture's images)."""
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.train import synth
+    failed = []
+    corpus = workdir / "synth_corpus"
+    t = time.perf_counter()
+    names = synth.write_corpus(corpus, 2, seed=7)
+    per_page = (time.perf_counter() - t) / len(names)
+    same_pages = True
+    for name, (seed, kw) in zip(names, SYNTH_PAGES):
+        want = ref["pages"][str(seed)]
+        img = _png.read_gray(corpus / (name + ".png"))
+        fixture = _png.read_gray(FIXTURE / (name + ".png"))
+        diff = int((img != fixture).sum()) if img.shape == fixture.shape \
+            else -1
+        got = dict(image=digest(img),
+                   region=digest(_png.read_gray(
+                       corpus / (name + ".labels.region.png"))),
+                   separator=digest(_png.read_gray(
+                       corpus / (name + ".labels.separator.png"))),
+                   gt=digest((corpus / (name + ".gt.json")).read_text()))
+        bad = [k for k in want if got[k] != want[k]]
+        log("  %s (seed %d): %d pixels differ from the OCR fixture's "
+            "page; digests %s  %s" % (name, seed, diff,
+                                      "equal" if not bad else bad,
+                                      "ok" if diff == 0 and not bad
+                                      else "FAIL"))
+        same_pages &= diff == 0
+        if diff or bad:
+            failed.append("write_corpus %s: %d pixels, digests %s"
+                          % (name, diff, bad))
+    for seed, kw in SYNTH_PAGES[2:]:
+        got = synth_page_digests(synth, seed, **kw)
+        bad = [k for k, v in ref["pages"][str(seed)].items() if got[k] != v]
+        log("  render_page(%d, %s): %s" % (seed, kw,
+                                           "equal" if not bad else bad))
+        if bad:
+            failed.append("render_page(%d): %s" % (seed, bad))
+    lines = synth_line_digests(synth)
+    first = next((s for s, a, b in zip(SYNTH_LINE_SEEDS, lines,
+                                       ref["lines"]) if a != b), None)
+    log("  render_line over %d seeds: %s" % (
+        len(lines), "equal" if first is None
+        else "first differing seed %d" % first))
+    if first is not None:
+        failed.append("render_line: seed %d differs" % first)
+    pool = synth_pool_digest(synth)
+    log("  page_line_pool(n_pages=%d): %s" % (
+        SYNTH_POOL_PAGES, "equal" if pool == ref["pool"] else "differs"))
+    if pool != ref["pool"]:
+        failed.append("page_line_pool differs")
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return corpus, per_page, same_pages
+
+
+def check_eval_recognizer(ref, device):
+    """Phase 16b: eval_recognizer's lines through the serving predictor
+    on `device`, single and 2-model sequence vote, against the JAX
+    package's texts and CER. -> {mode: lines/s}."""
+    from origami_tpu_torch.batch.utils.evaluate import cer
+    from origami_tpu_torch.train import bootstrap
+    failed, rates = [], {}
+    for mode, names in EVAL_MODELS.items():
+        want = ref["eval"][mode]
+        dirs = [ROOT / "models_pretrained" / n for n in names]
+        t = time.perf_counter()
+        truths, preds, _ = bootstrap.recognizer_predictions(
+            dirs if len(dirs) > 1 else dirs[0], n=EVAL_N, device=device)
+        rates[mode] = EVAL_N / (time.perf_counter() - t)
+        c = float(np.mean([cer(a, b) for a, b in zip(truths, preds)]))
+        same = sum(a == b for a, b in zip(preds, want["preds"]))
+        ok = truths == want["truths"] and same >= EVAL_MIN_EQUAL \
+            and abs(c - want["cer"]) <= EVAL_CER
+        log("  %-6s %d lines: CER %.5f (JAX %.5f, bar %.3f), texts equal "
+            "to JAX's %d (gate %d), %.1f lines/s  %s" % (
+                mode, EVAL_N, c, want["cer"], EVAL_CER, same,
+                EVAL_MIN_EQUAL, rates[mode], "ok" if ok else "FAIL"))
+        if not ok:
+            failed.append("eval_recognizer %s: CER %.5f vs %.5f, %d equal"
+                          % (mode, c, want["cer"], same))
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return rates
+
+
+def recognizer_rate(workdir, device):
+    """(the pool's build seconds, the recognizer's training steps/s) of
+    train_recognizer_synth's parts at their defaults."""
+    import torch
+    from origami_tpu_torch.train import bootstrap
+    from origami_tpu_torch.train.synth import CHARSET
+    t = time.perf_counter()
+    pool = bootstrap.synth_pool(TRAIN_POOL)
+    build = time.perf_counter() - t
+    stamps = []
+
+    def on_step(kind, member, step, loss):
+        float(loss)
+        stamps.append(time.perf_counter())
+
+    bootstrap.train_recognizer_pool(pool, workdir / "synth_recognizer",
+                                    CHARSET, steps=TRAIN_STEPS,
+                                    device=device, on_step=on_step)
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    return build, (len(stamps) - 2) / (stamps[-1] - stamps[1])
+
+
+def check_chain_scores(corpus, same_pages, ref, workdir, device):
+    """Phase 16c: the nine stages on the 16a pages, scored by the port's
+    evaluate against their gt.json documents, each count within
+    CHAIN_SCORE_SLACK lines a page of the JAX chain's. Where both pages
+    equal the OCR fixture's images, phase 12's main-path outputs of the
+    same images are scored. -> pages/s of the chain run scored."""
+    import torch
+    from origami_tpu_torch.batch.runner import PipelinedRunner
+    mods = synth_modules()
+    if same_pages and "banded" in WHOLE_CHAIN_WALL:
+        chain = workdir / "whole_chain_banded"
+        wall = WHOLE_CHAIN_WALL["banded"]
+        log("  scoring phase 12's main-path outputs (the same page images)")
+    else:
+        chain = workdir / "synth_chain"
+        chain.mkdir()
+        for png in sorted(corpus.glob("synth????.png")):
+            shutil.copy(png, chain / png.name)
+        reset_launches()
+        t = time.perf_counter()
+        PipelinedRunner(chain_stages(device, str(ROOT / STUDENTS), "banded"),
+                        wave_size=1).run(chain)
+        if str(device) != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        log("  ran the chain on the rendered pages: %.2f s" % wall)
+    failed = []
+    n = 0
+    for png in sorted(chain.glob("synth????.png")):
+        gt = json.loads((corpus / (png.stem + ".gt.json")).read_text())
+        got = chain_scores(mods, chain / (png.stem + ".out"), gt)
+        want = ref["chain"][png.stem]
+        bad = {k: (got[k], want[k]) for k in want
+               if abs(got[k] - want[k]) > CHAIN_SCORE_SLACK}
+        log("  %s: %s (JAX %s)  %s" % (png.stem, json.dumps(got),
+                                       json.dumps(want),
+                                       "ok" if not bad else "FAIL"))
+        if bad:
+            failed.append("%s scores (port, JAX): %s" % (png.stem, bad))
+        n += 1
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return n / wall
+
+
+def check_bootstrap_cli(workdir, device):
+    """Phase 16d: `python -m origami_tpu_torch.train.bootstrap` end to end
+    at BOOT_ARGS' depth: exit 0 and every BOOT_KEYS key in report.json.
+    -> (seconds, the run's kernel launches)."""
+    work = workdir / "bootstrap"
+    cmd = [sys.executable, "-m", "origami_tpu_torch.train.bootstrap",
+           "--work", str(work), "--device", str(device), *BOOT_ARGS]
+    t = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True, timeout=900)
+    secs = time.perf_counter() - t
+    launches = {}
+    for line in r.stdout.splitlines():
+        if line.startswith('{"kernel_launches"'):
+            launches = json.loads(line)["kernel_launches"]
+    report = json.loads((work / "report.json").read_text()) \
+        if (work / "report.json").exists() else {}
+    missing = [k for k in BOOT_KEYS if k not in report]
+    log("  bootstrap %s: exit %d, %.1f s; report keys missing %s; ocr %s; "
+        "launches %s  %s" % (" ".join(BOOT_ARGS), r.returncode, secs,
+                             missing, json.dumps(report.get("ocr")),
+                             json.dumps({k: v for k, v in launches.items()
+                                         if v}),
+                             "ok" if r.returncode == 0 and not missing
+                             else "FAIL"))
+    if r.returncode or missing:
+        raise PhaseError("bootstrap CLI: exit %d, missing %s; %s" % (
+            r.returncode, missing, r.stdout[-3000:]))
+    return secs, launches
+
+
+def check_synth(workdir, device="cuda"):
+    """Phase 16: (a)-(d) above, then the host and card rates."""
+    ref = synth_ref()
+    t = time.time()
+    corpus, per_page, same_pages = check_render(workdir, ref)
+    log("  (a) %.1f s" % (time.time() - t))
+    t = time.time()
+    rates = check_eval_recognizer(ref, device)
+    build, steps = recognizer_rate(workdir, device)
+    log("  (b) %.1f s" % (time.time() - t))
+    t = time.time()
+    pages_s = check_chain_scores(corpus, same_pages, ref, workdir, device)
+    log("  (c) %.1f s" % (time.time() - t))
+    t = time.time()
+    check_bootstrap_cli(workdir, device)
+    log("  (d) %.1f s" % (time.time() - t))
+    smi = smi_line() if str(device) != "cpu" else "cpu"
+    log("  render_page %.3f s a page (host); the pool of %d strips built "
+        "in %.2f s (host); recognizer %.2f steps/s (batch 64); "
+        "eval_recognizer %s lines/s; the chain %.3f pages/s  (%s)" % (
+            per_page, TRAIN_POOL, build, steps,
+            ", ".join("%s %.1f" % kv for kv in rates.items()), pages_s,
+            smi))
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -4568,6 +4922,13 @@ def main():
         gt_rows, affine_launches = check_ground_truth(work)
         rows["remap_affine"] = gt_rows["remap_affine"]
         log("  (phase 15: %.1f s)" % (time.time() - t15))
+
+        log("== phase 16: the synthetic corpus, recognizer evaluation and "
+            "training, the chain's scores and the bootstrap CLI on the "
+            "card vs the JAX package (%s)" % smi)
+        t16 = time.time()
+        check_synth(work)
+        log("  (phase 16: %.1f s)" % (time.time() - t16))
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]

@@ -49,13 +49,16 @@ class RecognizerPredictor:
     beam search over per-frame distributions. With several models the
     default vote="sequence" lets each member decode and votes per line
     on the texts, confidence breaking ties (ocr.py:52-64); vote="frames"
-    averages the members' frame log-distributions (comparison only)."""
+    averages the members' frame log-distributions (comparison only).
+    `conv_dtype`: the convolutions' dtype (bf16, the JAX model's; float32
+    for parity runs)."""
 
     def __init__(self, model_paths, device, batch_size=128,
-                 decoder="greedy", beam_width=10, vote="sequence"):
+                 decoder="greedy", beam_width=10, vote="sequence",
+                 conv_dtype=torch.bfloat16):
         from origami_tpu_torch.models import ctc, registry
         self._device = torch.device(device)
-        loaded = [registry.load_model(p, self._device)
+        loaded = [registry.load_model(p, self._device, conv_dtype)
                   for p in model_paths]
         self._models = [m for m, _ in loaded]
         meta = loaded[0][1]

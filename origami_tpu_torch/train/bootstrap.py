@@ -1,21 +1,29 @@
 """Corpus -> trained models, on the card.
 
-Port of the training half of origami_tpu/train/bootstrap.py:
+Port of origami_tpu/train/bootstrap.py:
 
   * `train_segmentation` trains a k-member U-Net ensemble for one kind
     (median-frequency class weights, k-fold exclusion, a device-resident
     corpus warped on the card each step through the remap kernel);
   * `distill_students` folds each kind's ensemble into one student;
-  * `train_recognizer_pool` is the pool-training half of
-    `train_recognizer_synth` (:322-362): it takes a list of (strip u8
-    (H, W), text) pairs, buckets them by width, moves the pool to the
-    card and trains the CTC recognizer. The rendering half (train.synth,
-    PIL and fonts) is not ported;
+  * `train_recognizer_synth` (:280-362) renders the strip pool with the
+    port's train/synth.py (half cut from degraded pages, half
+    render_line strips, the JAX function's seeds and subsample) and
+    trains on it through `train_recognizer_pool`, which buckets a list
+    of (strip u8 (H, W), text) pairs by width, moves the pool to the
+    card and trains the CTC recognizer;
   * `eval_segmentation` and `eval_separator_tolerant` (:124-227) score
     the serving predictor (core/predict.SegmentationPredictor) against
     a validation corpus: per-class IoU, and separator recall/precision
     within a pixel tolerance. cv2's INTER_NEAREST resize is
-    data.resize_nearest_u8, its square dilation ops/morphology.dilate.
+    data.resize_nearest_u8, its square dilation ops/morphology.dilate;
+  * `eval_recognizer` (:365-388) scores the serving RecognizerPredictor
+    on held-out render_line strips (CER).
+
+`main` is scripts/bootstrap_synth.py on the port:
+
+    python -m origami_tpu_torch.train.bootstrap --work DIR \
+        [--phases gen,seg,distill,ocr,eval] [--device cuda]
 
 Each trainer and evaluator takes `device` (cuda unless "cpu") and the
 convolutions' `dtype` (bf16, the JAX trainers' and the stage's numeric
@@ -26,7 +34,10 @@ step, loss)` is called after every step with the loss as a device tensor
 
 from __future__ import annotations
 
+import argparse
+import json
 import logging
+import sys
 import time
 from pathlib import Path
 
@@ -368,3 +379,204 @@ def train_recognizer_pool(pool, out_dir, charset, steps=2000, batch=64,
                      (time.time() - t0) / (step + 1))
     trainer.save(Path(out_dir), charset)
     return float(loss)
+
+
+def synth_pool(n_pool, height=48, seed=0):
+    """train_recognizer_synth's strip pool: [(strip u8 (height, w),
+    text)], page-extracted strips first (at most half, a seeded
+    subsample), then render_line strips."""
+    from origami_tpu_torch.train.synth import page_line_pool, render_line
+    page_pool = page_line_pool(
+        n_pages=max(4, n_pool // 180), height=height,
+        seed=7_000_000 + seed)
+    rng_pool = np.random.default_rng(seed + 41)
+    if len(page_pool) > n_pool // 2:
+        sel = rng_pool.choice(len(page_pool), n_pool // 2, replace=False)
+        page_pool = [page_pool[i] for i in sel]
+    return page_pool + [
+        render_line(seed * 100_000 + i, height=height)
+        for i in range(n_pool - len(page_pool))]
+
+
+def train_recognizer_synth(out_dir, steps=2000, batch=64, height=48,
+                           seed=0, learning_rate=1e-3,
+                           conv_features=(64, 128, 256),
+                           lstm_features=256, max_text_len=None,
+                           n_pool=6000, log_every=50, device=None,
+                           dtype=torch.bfloat16, on_step=None):
+    """Train the CTC recognizer on synthetic line strips, rendered into
+    a pool once on the host (synth_pool); returns the last loss."""
+    from origami_tpu_torch.train.synth import CHARSET
+    t0 = time.time()
+    pool = synth_pool(n_pool, height, seed)
+    log.info("[ocr] pool of %d strips rendered in %.1f s", len(pool),
+             time.time() - t0)
+    return train_recognizer_pool(
+        pool, out_dir, CHARSET, steps=steps, batch=batch, height=height,
+        seed=seed, learning_rate=learning_rate,
+        conv_features=conv_features, lstm_features=lstm_features,
+        max_text_len=max_text_len, log_every=log_every, device=device,
+        dtype=dtype, on_step=on_step)
+
+
+def recognizer_predictions(model_dir, n=200, seed=123_456, height=None,
+                           decoder="greedy", vote="sequence", device=None,
+                           dtype=torch.bfloat16):
+    """(true texts, predicted texts, confidences) of the serving
+    RecognizerPredictor over render_line(seed + i), i < n. `model_dir`
+    may be a list of model dirs: the multi-model voting mode."""
+    from origami_tpu_torch.batch.detect.ocr import RecognizerPredictor
+    from origami_tpu_torch.device import resolve
+    from origami_tpu_torch.train.synth import render_line
+
+    dirs = ([Path(d) for d in model_dir]
+            if isinstance(model_dir, (list, tuple)) else [Path(model_dir)])
+    predictor = RecognizerPredictor(dirs, resolve(device), decoder=decoder,
+                                    vote=vote, conv_dtype=dtype)
+    h = height or predictor.line_height
+    strips, texts = [], []
+    for i in range(n):
+        s, t = render_line(seed + i, height=h)
+        strips.append((("val", str(i)), s))
+        texts.append(t)
+    preds, confs = predictor.predict(strips)
+    return texts, preds, confs
+
+
+def eval_recognizer(model_dir, n=200, seed=123_456, height=None,
+                    decoder="greedy", vote="sequence", device=None,
+                    dtype=torch.bfloat16):
+    """Mean CER of the serving RecognizerPredictor on held-out synthetic
+    lines (seed-disjoint from training by construction)."""
+    from origami_tpu_torch.batch.utils.evaluate import cer
+    texts, preds, confs = recognizer_predictions(
+        model_dir, n, seed, height, decoder, vote, device, dtype)
+    cers = [cer(t, p) for t, p in zip(texts, preds)]
+    return dict(cer=float(np.mean(cers)),
+                cer_median=float(np.median(cers)),
+                n=n, conf=float(np.mean(confs)))
+
+
+def parser():
+    ap = argparse.ArgumentParser(
+        prog="python -m origami_tpu_torch.train.bootstrap",
+        description="Bootstrap on the synthetic corpus: write it, train "
+                    "the segmentation ensembles, distill one student a "
+                    "kind, train the recognizer and evaluate everything "
+                    "(report.json under --work).")
+    ap.add_argument("--work", default="work/bootstrap")
+    ap.add_argument("--train-pages", type=int, default=48)
+    ap.add_argument("--val-pages", type=int, default=12)
+    ap.add_argument("--members", type=int, default=5)
+    ap.add_argument("--seg-steps", type=int, default=600)
+    ap.add_argument("--distill-steps", type=int, default=1200)
+    ap.add_argument("--ocr-steps", type=int, default=4000)
+    ap.add_argument("--ocr-pool", type=int, default=8000)
+    ap.add_argument("--ocr-seeds", type=int, default=1,
+                    help="train N recognizer seeds (recognizer, "
+                         "recognizer2, ...) for voting evaluation")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--full-size", default="1280x2432")
+    ap.add_argument("--phases", default="gen,seg,distill,ocr,eval")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    from origami_tpu_torch.device import resolve
+    from origami_tpu_torch.train import synth
+
+    args = parser().parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(message)s")
+    dev = resolve(args.device)
+    work = Path(args.work)
+    work.mkdir(parents=True, exist_ok=True)
+    phases = set(args.phases.split(","))
+    fw, fh = (int(v) for v in args.full_size.split("x"))
+    report_path = work / "report.json"
+    report = json.loads(report_path.read_text()) \
+        if report_path.exists() else {}
+
+    def save_report():
+        report_path.write_text(json.dumps(report, indent=2))
+
+    if "gen" in phases:
+        t0 = time.time()
+        synth.write_corpus(work / "train", args.train_pages, seed=1)
+        synth.write_corpus(work / "val", args.val_pages, seed=7_000_000)
+        log.info("corpus generated in %.1f s", time.time() - t0)
+
+    if "seg" in phases:
+        t0 = time.time()
+        train_segmentation(
+            work / "train", work / "models", "region",
+            members=args.members, steps=args.seg_steps, width=2.0,
+            s2d=4, full_size=(fw, fh), batch=args.batch, device=dev)
+        train_segmentation(
+            work / "train", work / "models", "separator",
+            members=args.members, steps=args.seg_steps, width=1.0,
+            s2d=2, full_size=(fw, fh), batch=args.batch, device=dev)
+        report["seg_train_seconds"] = round(time.time() - t0, 1)
+        save_report()
+
+    if "distill" in phases:
+        t0 = time.time()
+        distill_students(
+            work / "models", work / "train", work / "students",
+            steps=args.distill_steps, batch=args.batch, device=dev)
+        report["distill_seconds"] = round(time.time() - t0, 1)
+        save_report()
+
+    if "ocr" in phases:
+        for extra in range(args.ocr_seeds):
+            t0 = time.time()
+            name = "recognizer%s" % ("" if extra == 0 else extra + 1)
+            train_recognizer_synth(
+                work / name, steps=args.ocr_steps, n_pool=args.ocr_pool,
+                seed=extra, device=dev)
+            key = "ocr%s_train_seconds" % ("" if extra == 0 else extra + 1)
+            report[key] = round(time.time() - t0, 1)
+            save_report()
+
+    if "eval" in phases:
+        t0 = time.time()
+        report["iou_ensemble"] = eval_segmentation(
+            work / "models", work / "val", target="quality", device=dev)
+        report["iou_ensemble_speed1"] = eval_segmentation(
+            work / "models", work / "val", target="speed", device=dev)
+        report["iou_student"] = eval_segmentation(
+            work / "students", work / "val", target="speed", device=dev)
+        report["sep_tolerant_ensemble"] = eval_separator_tolerant(
+            work / "models", work / "val", target="quality", device=dev)
+        report["sep_tolerant_student"] = eval_separator_tolerant(
+            work / "students", work / "val", target="speed", device=dev)
+        rec = work / "recognizer"
+        report["ocr"] = eval_recognizer(rec, n=300, device=dev)
+        if (work / "recognizer2" / "meta.json").exists():
+            pair = [rec, work / "recognizer2"]
+            report["ocr_seed2"] = eval_recognizer(
+                work / "recognizer2", n=300, device=dev)
+            # the 2-model voted beam against the single greedy decode
+            report["ocr_voted_beam"] = eval_recognizer(
+                pair, n=300, decoder="beam", device=dev)
+            report["ocr_voted_frames"] = eval_recognizer(
+                pair, n=300, decoder="beam", vote="frames", device=dev)
+            report["ocr_voted_greedy"] = eval_recognizer(
+                pair, n=300, device=dev)
+            report["ocr_beam_single"] = eval_recognizer(
+                rec, n=300, decoder="beam", device=dev)
+        report["eval_seconds"] = round(time.time() - t0, 1)
+        save_report()
+        log.info("REPORT: %s", json.dumps(report, indent=2))
+
+    save_report()
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
+    # one JSON line: how often each kernel ran (read by chip_smoke.py)
+    print(json.dumps({"kernel_launches": kernel_launches()}), flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -19,7 +19,19 @@ cv2's bytes on uint8 images (tests/test_torch_train_data.py):
     11-bit fixed point: a horizontal pass to int32, then the vertical
     pass's ((b0 (S0 >> 4)) >> 16) + ((b1 (S1 >> 4)) >> 16) + 2) >> 2;
   * INTER_NEAREST: source = min(floor(d * scale), n - 1), scale =
-    1 / (dst / src) in double.
+    1 / (dst / src) in double;
+  * INTER_LINEAR (`resize_linear_u8`, train/synth.py's strips): source
+    x = (dx + 0.5) scale - 0.5 in float32, weights 1 - frac and frac in
+    11-bit fixed point, then the same two passes. A column off the image
+    is clamped with weight 1 on the edge; a row off it is not: both its
+    taps read the edge row with their weights, rounded apart.
+
+`gaussian_blur_u8` is cv2.GaussianBlur(img, (0, 0), sigma) on uint8:
+ksize round(6 sigma + 1) | 1, the kernel's side taps rounded to 8
+fractional bits from the outside in with the rounding error carried to
+the next tap, the centre 1 minus their sum, the row pass exact in
+integers, the column pass (sum + 2^15) >> 16, borders reflected
+without the edge (BORDER_REFLECT_101): cv2's bit-exact fixed-point path.
 """
 
 from __future__ import annotations
@@ -79,16 +91,88 @@ def _area_linear_taps(n_src, n_dst):
 
 
 def _resize_area_linear(img, w, h):
-    sx, ax = _area_linear_taps(img.shape[1], w)
-    sy, ay = _area_linear_taps(img.shape[0], h)
+    return _two_pass(img, _area_linear_taps(img.shape[1], w),
+                     _area_linear_taps(img.shape[0], h))
+
+
+def _linear_taps(n_src, n_dst, clamp):
+    """cv2's INTER_LINEAR taps along one axis: (first source index, int16
+    weight of it, of the next) at 11 bits. With `clamp` (columns) a tap
+    off the image becomes weight 1 on the edge; without (rows) the
+    index may be -1 or n_src - 1 with its fraction kept."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        f[s < 0] = 0
+        s[s < 0] = 0
+        edge = s >= n_src - 1
+        f[edge] = 0
+        s[edge] = n_src - 1
+    c = np.stack([np.float32(1.0) - f, f], axis=1)
+    return s, np.rint(c * np.float32(2048.0)).astype(np.int32)
+
+
+def _two_pass(img, taps_x, taps_y):
+    """cv2's fixed-point bilinear passes over (source index, weights)
+    taps of each axis; source indices are clipped to the image."""
+    sx, ax = taps_x
+    sy, ay = taps_y
     src = img.astype(np.int64)
     x1 = np.minimum(sx + 1, img.shape[1] - 1)
     rows = src[:, sx] * ax[:, 0] + src[:, x1] * ax[:, 1]     # (H_src, w)
-    y1 = np.minimum(sy + 1, img.shape[0] - 1)
-    s0, s1 = rows[sy] >> 4, rows[y1] >> 4
+    y0 = np.clip(sy, 0, img.shape[0] - 1)
+    y1 = np.clip(sy + 1, 0, img.shape[0] - 1)
+    s0, s1 = rows[y0] >> 4, rows[y1] >> 4
     b0, b1 = ay[:, 0, None], ay[:, 1, None]
     out = (((b0 * s0) >> 16) + ((b1 * s1) >> 16) + 2) >> 2
     return out.astype(np.uint8)
+
+
+def resize_linear_u8(img, size):
+    """cv2.resize(img, size, interpolation=cv2.INTER_LINEAR) of a uint8
+    (H, W) image; size is (W, H)."""
+    w, h = int(size[0]), int(size[1])
+    img = np.asarray(img, np.uint8)
+    if (h, w) == img.shape:
+        return img.copy()
+    return _two_pass(img, _linear_taps(img.shape[1], w, True),
+                     _linear_taps(img.shape[0], h, False))
+
+
+def _gaussian_taps(sigma):
+    """cv2's fixed-point Gaussian kernel for uint8 (8 fractional bits)."""
+    n = int(round(sigma * 6 + 1)) | 1
+    scale2 = -0.125 / (sigma * sigma)
+    values = [math.exp(float(x * x) * scale2)
+              for x in range(1 - n, -1, 2)]
+    total = 2 * sum(values) + 1.0
+    side, err = [], 0.0
+    for v in values:
+        adj = v / total * 256 + err
+        side.append(int(round(adj)))
+        err = adj - side[-1]
+    return np.asarray(side + [256 - 2 * sum(side)] + side[::-1], np.int64)
+
+
+def gaussian_blur_u8(img, sigma):
+    """cv2.GaussianBlur(img, (0, 0), sigmaX=sigma) of a uint8 (H, W)
+    image."""
+    img = np.asarray(img, np.uint8)
+    k = _gaussian_taps(float(sigma))
+    r = len(k) // 2
+    h, w = img.shape
+    kx, ky = (r if w > 1 else 0), (r if h > 1 else 0)
+    src = np.pad(img.astype(np.int64), ((ky, ky), (kx, kx)),
+                 mode="reflect")
+    # a one-pixel axis is not blurred (cv2 takes ksize 1 there)
+    one = np.array([256], np.int64)
+    kr = k if kx else one
+    kc = k if ky else one
+    rows = sum(kr[i] * src[:, i: i + w] for i in range(len(kr)))
+    out = sum(kc[i] * rows[i: i + h] for i in range(len(kc)))
+    return ((out + (1 << 15)) >> 16).astype(np.uint8)
 
 
 def _area_table(n_src, n_dst, scale):

@@ -146,7 +146,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 banned = ("jax", "flax", "optax", "orbax", "origami_tpu", "PIL", "click",
-          "msgpack", "cv2", "networkx", "lxml", "shapely")
+          "msgpack", "cv2", "networkx", "lxml", "shapely", "fontTools")
 print(json.dumps({"modules": names,
                   "banned": sorted(m for m in sys.modules
                                    if m.split(".")[0] in banned)}))
@@ -184,7 +184,9 @@ print(json.dumps({"modules": names,
                  "train.ocr.train", "geometry.affinity",
                  "train.segment.annotations", "train.segment.skew",
                  "train.segment.segments", "train.segment.regions",
-                 "train.segment.binarize", "batch.core.deskew"):
+                 "train.segment.binarize", "batch.core.deskew",
+                 "train.draw", "train.synth", "batch.utils",
+                 "batch.utils.evaluate"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
