@@ -60,7 +60,7 @@ Phases (any failure exits non-zero before the result line):
      (the bf16 label maps move shapes by up to a label pixel). Every
      stage's launches per page are checked
      exactly (STAGE_LAUNCHES: the layout stage launches sauvola_packed,
-     dewarp_u8 and remap once a page), and the layout stage's Sauvola
+     dewarp_u8 and dewarp_f32 once a page), and the layout stage's Sauvola
      windows are printed;
   10. time the contours and layout stages in process, warm, for pages/s,
      with the device time by kernel and the busy share of one profiled
@@ -174,10 +174,18 @@ must agree exactly (scripts/sauvola_ab.py runs this check alone); and
 the gather kernel (lane and sublane) over the sweep of
 scripts/pallas_gather_repro.py and at the grid build's own inputs, which
 must agree exactly with numpy's take_along_axis and the plain version;
-remap (f32, within 1e-4) on the separator mask the layout stage dewarps
-and on the page itself; dewarp_u8 (bit-equal) on both of its tile routes: the pages' own grids
-(every tile staged in shared memory), a scrambled grid (every tile
-through __ldg), a sheared grid and a ragged crop; and the grid scan
+dewarp_f32 (f32, within 1e-4) on the separator mask the layout stage
+dewarps, against its plain version (the grid upsampled, then remap's
+sample), and remap, its parity entry through the dense map, on the same
+mask and on the page at both borders; dewarp_u8 (bit-equal, both
+borders) and dewarp_f32 on both of their tile routes: the pages' own
+grids (every tile staged in shared memory), a scrambled grid (every
+tile through __ldg), a sheared grid, a past-edge grid and a ragged crop;
+remap_affine on rotations of +-0.02 rad, a 0.3x minification, a
+translation mostly off the page, an output width of 4k + 3 and a source
+whose rows are not 16-byte aligned, and the map form through a map of
+ragged width, a map off a 16-byte boundary and remap_batch's planes
+(check_remap_cases); and the grid scan
 kernels against the plain build (nodes within 1e-3 px; the chosen
 segments equal on the fixture pages) on the fixture pages' inputs,
 seeded samples at 400x300 and 1312x1920, rays that miss their row
@@ -191,9 +199,9 @@ device_groups (one upload, one launch per mode) against the earlier
 per-group path.
 
 The line before the last is the kernel table as JSON (the kernels of the
-driven paths; the gather's entry points, which no path runs, are printed
-on a line of their own before it), the last line {"ok": true, "device":
-{...}}. Imports nothing of JAX or origami_tpu.
+driven paths; the gather's entry points and remap, which no path runs,
+are printed on a line of their own before it), the last line {"ok":
+true, "device": {...}}. Imports nothing of JAX or origami_tpu.
 """
 
 from __future__ import annotations
@@ -309,7 +317,7 @@ CHAIN_PX = 2.5
 # each stage's launches per page: the Sauvola prefetch (packed, window
 # 15) in segment, flow and dewarp; the dewarp kernel and both grid scans
 # in dewarp; the layout stage's Sauvola at its own window, the dewarp of
-# its page and the remap of its separator mask; the lines stage's
+# its page and the f32 dewarp of its separator mask; the lines stage's
 # dewarp of its page and Sauvola (window 15) on it; nothing else
 STAGE_LAUNCHES = {
     "segment": {"sauvola_packed": 1},
@@ -317,7 +325,7 @@ STAGE_LAUNCHES = {
     "flow": {"sauvola_packed": 1},
     "dewarp": {"sauvola_packed": 1, "dewarp_u8": 1, "grid_scan_h": 1,
                "grid_scan_v": 1},
-    "layout": {"sauvola_packed": 1, "dewarp_u8": 1, "remap": 1},
+    "layout": {"sauvola_packed": 1, "dewarp_u8": 1, "dewarp_f32": 1},
     "lines": {"sauvola_packed": 1, "dewarp_u8": 1},
     "order": {},
     "compose": {},
@@ -331,10 +339,10 @@ STAGE_LAUNCHES = {
 # a page (lines past the banded profiles: WHOLE_CHAIN_AT_MOST).
 WHOLE_CHAIN_LAUNCHES = {
     "banded": {"sauvola_packed": 3, "sauvola": 0, "dewarp_u8": 1,
-               "remap": 1, "grid_scan_h": 1, "grid_scan_v": 1,
+               "dewarp_f32": 1, "remap": 0, "grid_scan_h": 1, "grid_scan_v": 1,
                "strips_dewarped": 1, "strips_through_grid": 1},
     "gather": {"sauvola_packed": 3, "sauvola": 1, "dewarp_u8": 1,
-               "remap": 1, "grid_scan_h": 1, "grid_scan_v": 1,
+               "dewarp_f32": 1, "remap": 0, "grid_scan_h": 1, "grid_scan_v": 1,
                "strips_dewarped": 0, "strips_through_grid": 1},
 }
 WHOLE_CHAIN_AT_MOST = {("banded", "strips_through_grid")}
@@ -796,6 +804,65 @@ def warped_grid(hv, res):
     return (hv + d.to(hv.device)).contiguous()
 
 
+def check_remap_cases(device, px, map_xy):
+    """The f32 sampler's forms off the main path, against their plain
+    versions (F32_TOL) on the first fixture page: remap_affine on the
+    page as f32 rotated by +-0.02 rad, minified 0.3x, moved mostly off
+    the page and rotated into an output of width 4k + 3, and on a crop
+    whose rows are not 16-byte aligned (941 px); the map form at both borders
+    through a map of ragged width (1597: scalar loads and stores), through
+    a map that starts 8 bytes off a 16-byte boundary, and as remap_batch's
+    planes of ragged width. -> failures."""
+    import torch
+    from origami_tpu_torch.core.math import rotation_matrix
+    from origami_tpu_torch.ops import remap as ops
+    failures = []
+
+    def held(name, label, got, want):
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        log("  %-20s %-30s max|diff| %.3g (tol %g) %s" % (
+            name, label, err, F32_TOL, "ok" if err <= F32_TOL else "FAIL"))
+        if err > F32_TOL:
+            failures.append("%s %s" % (name, label))
+
+    img = px.float().contiguous()
+    crop = img[100:1100, 60:1001].contiguous()
+    h, w = img.shape
+    c = (w / 2, h / 2)
+    for image, label, m, out_hw in (
+            (img, "rotated +0.02", rotation_matrix(0.02, c), (h, w)),
+            (img, "rotated -0.02", rotation_matrix(-0.02, c), (h, w)),
+            (img, "0.3x minified", [[1 / 0.3, 0.0, 0.4], [0.0, 1 / 0.3, 0.7]],
+             (int(h * 0.3), int(w * 0.3))),
+            (img, "mostly off the page",
+             [[1.0, 0.0, 0.9 * w], [0.0, 1.0, 0.8 * h]], (h, w)),
+            (img, "out_w % 4 == 3", rotation_matrix(0.02, c), (h - 3, w - 3)),
+            (crop, "unaligned rows, rotated 0.02",
+             rotation_matrix(0.02, (470.0, 500.0)), crop.shape)):
+        held("remap_affine", "%s %dx%d -> %dx%d" % (
+            (label,) + tuple(image.shape) + tuple(out_hw)),
+            ops.affine_warp(image, m, out_hw, 255.0),
+            ops.affine_warp_plain(image, m, out_hw, 255.0))
+    oh, ow = map_xy.shape[:2]
+    ragged = map_xy[:, :1597].contiguous()
+    flat = torch.empty(map_xy.numel() + 2, device=device)
+    shifted = flat[2:].view(oh, ow, 2)
+    shifted.copy_(map_xy)
+    for border in ("fill_taps", "hard"):
+        for label, m in (("map of width 1597", ragged),
+                         ("map 8 bytes off 16", shifted)):
+            held("remap", "%s %s" % (border, label),
+                 ops.remap(img, m, 0.0, border),
+                 ops.remap_plain(img, m, 0.0, border))
+        planes = (ragged[None, ..., 0].contiguous(),
+                  ragged[None, ..., 1].contiguous())
+        held("remap_batch", "%s planes of width 1597" % border,
+             ops.remap_batch(img[None], planes, 0.0, border),
+             ops.remap_batch_plain(img[None], *planes, 0.0, border))
+    return failures
+
+
 def check_strip_cases(device, dew, px, hv, res):
     """Phase 2's crafted cases for both strip modes (strip_cases over the
     dewarped page; mode (b) through a seeded warped grid, plus frames
@@ -971,32 +1038,38 @@ def check_kernels(device):
                 else row[k] + t[k]
 
     def dewarp_only(label, page, grid, res, want_route, border):
-        """dewarp_u8 against its plain version (bit-equal) at one border
-        on a grid off the main path, with the count of tiles that staged
-        a window."""
+        """A grid form against its plain version on a grid off the main
+        path, with the count of tiles that staged a window: dewarp_u8
+        (bit-equal) at one border for a u8 page, dewarp_f32 (fill_taps,
+        within F32_TOL; fill 0) for an f32 image."""
+        if page.dtype == torch.uint8:
+            name, tol, fill = "dewarp_u8", 0, 255.0
+            kernel, plain = ops.dewarp_u8, ops.dewarp_u8_plain
+            args = (fill, border)
+        else:
+            name, tol, fill = "dewarp_f32", F32_TOL, 0.0
+            kernel, plain = ops.dewarp_f32, ops.dewarp_f32_plain
+            args = (fill,)
         staged = torch.zeros(1, dtype=torch.int32, device=device)
-        got = ops.dewarp_u8(page, grid, res, 255.0, border,
-                            staged_tiles=staged)
-        want = ops.dewarp_u8_plain(page, grid, res, 255.0, border)
+        got = kernel(page, grid, res, *args, staged_tiles=staged)
+        want = plain(page, grid, res, *args)
         torch.cuda.synchronize()
-        err = float((got.int() - want.int()).abs().max())
+        err = float((got.double() - want.double()).abs().max())
         gh, gw = grid.shape[:2]
-        tiles = -(-gh // 4) * -(-gw // 4)
+        cells = ops.TILE_CELLS[page.dtype]
+        tiles = -(-gh // cells) * -(-gw // cells)
         n_staged = int(staged)
         route_ok = {"staged": n_staged == tiles, "direct": n_staged == 0,
                     "any": True}[want_route]
-        log("  %-20s %-30s max|diff| %g (tol 0) %s  tiles %d: %d staged, "
+        log("  %-20s %-30s max|diff| %g (tol %g) %s  tiles %d: %d staged, "
             "%d read through __ldg  kernel %.4f ms  plain %.4f ms" % (
-                "dewarp_u8", "%s %s %dx%d" % ((label, border)
-                                              + tuple(page.shape)),
-                err, "ok" if err == 0 and route_ok else "FAIL", tiles,
+                name, "%s %s %dx%d" % ((label, border) + tuple(page.shape)),
+                err, tol, "ok" if err <= tol and route_ok else "FAIL", tiles,
                 n_staged, tiles - n_staged,
-                time_cuda(lambda: ops.dewarp_u8(page, grid, res, 255.0,
-                                                border)),
-                time_cuda(lambda: ops.dewarp_u8_plain(page, grid, res,
-                                                      255.0, border))))
-        if err != 0 or not route_ok:
-            failures.append("dewarp_u8 %s %s" % (label, border))
+                time_cuda(lambda: kernel(page, grid, res, *args)),
+                time_cuda(lambda: plain(page, grid, res, *args))))
+        if err > tol or not route_ok:
+            failures.append("%s %s %s" % (name, label, border))
         return n_staged, tiles
 
     for i, png in enumerate(pages):
@@ -1044,49 +1117,69 @@ def check_kernels(device):
             if name == "dewarp_u8":
                 dew = got
         images.append((px, dew))
-        # both tile routes at both borders: the page's own grid stages
-        # every tile's window, the scrambled grid none; the sheared grid
-        # mixes them; a ragged crop (rows not 16-byte aligned) stages
-        # with byte loads; a grid that samples 0.7-1.5 px past every edge
-        # stages the ring of fill
-        for border in ("fill_taps", "hard"):
-            dewarp_only("own grid", px, hv, res, "staged", border)
+        # both tile routes at both borders (dewarp_f32: its fill_taps
+        # border, on the page's pixels as f32): the page's own grid
+        # stages every tile's window, the scrambled grid none; the
+        # sheared grid mixes them; a ragged crop (rows not 16-byte
+        # aligned) stages with element loads; a grid that samples 0.7-1.5
+        # px past every edge stages the ring of fill
+        for image, border in ((px, "fill_taps"), (px, "hard"),
+                              (px.float(), "fill_taps")):
+            dewarp_only("own grid", image, hv, res, "staged", border)
             if i == 0:
                 extra = dewarp_grids(hv, h, w, res)
-                dewarp_only("scrambled grid", px, extra["scrambled"], res,
+                dewarp_only("scrambled grid", image, extra["scrambled"], res,
                             "direct", border)
-                dewarp_only("sheared grid", px, extra["sheared"], res,
+                dewarp_only("sheared grid", image, extra["sheared"], res,
                             "any", border)
-                dewarp_only("past-edge grid", px, extra["past_edge"], res,
-                            "staged", border)
-                crop = px[100:297, 60:311].contiguous()
+                dewarp_only("past-edge grid", image, extra["past_edge"],
+                            res, "staged", border)
+                crop = image[100:297, 60:311].contiguous()
                 shift = torch.tensor([60.0, 100.0], device=device)
                 dewarp_only("ragged crop", crop, (hv - shift).contiguous(),
                             res, "any", border)
 
-        # remap (remap_pallas' function, f32, fill 0): on the layout
-        # stage's path it dewarps the separator mask, resized onto the
-        # warped page as that stage resizes it ("remap"); the page's own
-        # pixels through the same map are a second case ("remap_page")
+        # the layout stage's site: its separator mask, resized onto the
+        # warped page as that stage resizes it, dewarped through the
+        # page's grid (f32, fill 0): "dewarp_f32" there (one launch, the
+        # grid upsampled in the kernel; the stage's kernel), and "remap"
+        # (remap_pallas' function through the dense map, the stage's
+        # kernel before dewarp_f32, now remap_pallas' parity entry) on
+        # the same map; the page's own pixels through the map are a
+        # second case of remap ("remap_page"), at both borders
+        sep = separator_mask(png, device, h, w)
+        taps = tapped_pixels(mx.clamp(-2.0, w + 1.0), my.clamp(-2.0, h + 1.0),
+                             torch.ones_like(mx, dtype=torch.bool), h, w)
+        got = ops.dewarp_f32(sep, hv, res, 0.0)
+        want = ops.dewarp_f32_plain(sep, hv, res, 0.0)
+        torch.cuda.synchronize()
+        report("dewarp_f32", got, want, F32_TOL,
+               lambda: ops.dewarp_f32(sep, hv, res, 0.0),
+               lambda: ops.dewarp_f32_plain(sep, hv, res, 0.0),
+               taps * 4 + hv.numel() * 4 + got.numel() * 4,
+               lambda: F.grid_sample(sep[None, None], grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True),
+               "fill_taps %dx%d -> %dx%d" % (h, w, *got.shape))
         map_xy = torch.stack([mx, my], dim=-1).contiguous()
-        for name, img in (("remap", separator_mask(png, device, h, w)),
-                          ("remap_page", px.float().contiguous())):
-            got = ops.remap(img, map_xy, 0.0)
-            want = ops.remap_plain(img, map_xy, 0.0)
+        for name, img, border in (
+                ("remap", sep, "fill_taps"),
+                ("remap_page", px.float().contiguous(), "fill_taps"),
+                ("remap_page_hard", px.float().contiguous(), "hard")):
+            got = ops.remap(img, map_xy, 0.0, border)
+            want = ops.remap_plain(img, map_xy, 0.0, border)
             torch.cuda.synchronize()
             report(name, got, want, F32_TOL,
-                   lambda: ops.remap(img, map_xy, 0.0),
-                   lambda: ops.remap_plain(img, map_xy, 0.0),
-                   tapped_pixels(map_xy[..., 0].clamp(-2.0, w + 1.0),
-                                 map_xy[..., 1].clamp(-2.0, h + 1.0),
-                                 torch.ones_like(mx, dtype=torch.bool), h,
-                                 w) * 4
-                   + map_xy.numel() * 4 + got.numel() * 4,
+                   lambda: ops.remap(img, map_xy, 0.0, border),
+                   lambda: ops.remap_plain(img, map_xy, 0.0, border),
+                   taps * 4 + map_xy.numel() * 4 + got.numel() * 4,
                    lambda: F.grid_sample(img[None, None], grid,
                                          mode="bilinear",
                                          padding_mode="zeros",
                                          align_corners=True),
-                   "%dx%d -> %dx%d" % (h, w, *map_xy.shape[:2]))
+                   "%s %dx%d -> %dx%d" % (border, h, w, *map_xy.shape[:2]))
+        if i == 0:
+            failures += check_remap_cases(device, px, map_xy)
 
         # the strip kernels: every main-path group of the page through
         # the group-level entry and all of them through one page-level
@@ -1634,12 +1727,12 @@ def check_grid(device, lane_row):
         short = torch.empty((n_gy, 8, 2), device=device)
 
         def run_h(cols=n_gx, dst=grid_h):
-            ops._launch("origami_grid_scan_h", ops._ptr(h_xy),
+            ops._launch(ops.kernels.origami_grid_scan_h, ops._ptr(h_xy),
                         ops._ptr(h_phi), ops._ptr(h_mask), n_h, n_gy, cols,
                         25.0, -50.0, ops._ptr(dst))
 
         def run_v(rows_=n_gy):
-            ops._launch("origami_grid_scan_v", ops._ptr(grid_h),
+            ops._launch(ops.kernels.origami_grid_scan_v, ops._ptr(grid_h),
                         ops._ptr(v_xy), ops._ptr(v_phi), ops._ptr(v_mask),
                         n_v, rows_, n_gx, 25.0, ops._ptr(out), None)
 
@@ -1725,26 +1818,38 @@ def check_grid(device, lane_row):
 
 def host_path_ab(device):
     """Host µs per wrapper call: the launch path the wrappers share
-    (ops/remap.py `_launch`, `_ptr`: the raw current stream, the
-    pointer as an int) against the earlier one (a torch.cuda.Stream
-    object and a ctypes.c_void_p per pointer, re-created here), in
-    turns earlier, current, current, earlier."""
+    (ops/remap.py `_launch`, `_ptr`: the entry point bound once, the raw
+    current stream, the pointer as an int) against the earliest one (the
+    entry point looked up by name in the library, a torch.cuda.Stream
+    object and a ctypes.c_void_p per pointer, re-created here), in turns
+    earlier, current, current, earlier. The wrappers of the f32 sampler
+    (remap, remap_batch, affine_warp, dewarp_f32) at phase 2's shapes
+    beside dewarp_u8, sauvola_packed, the gather and the grid scans."""
     import ctypes
     import torch
     from origami_tpu_torch.core import _png, dewarp
+    from origami_tpu_torch.core.math import rotation_matrix
     from origami_tpu_torch.ops import _build, binarize, gather, grid
     from origami_tpu_torch.ops import remap as ops
     mods = (ops, gather, grid, binarize)
     current = {m: (m._launch, m._ptr) for m in mods}
 
-    def earlier_launch(fn_name, *args):
+    def earlier_launch(fn, *args):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(_build.library(), fn_name)(*args, stream)
+        rc = getattr(_build.library(), fn.__name__)(*args, stream)
         if rc != 0:
-            raise RuntimeError("%s: CUDA error %d at launch" % (fn_name, rc))
+            raise RuntimeError("%s: CUDA error %d at launch"
+                               % (fn.__name__, rc))
+
+    class VoidP(ctypes.c_void_p):
+        """A pointer argument that takes an offset in bytes (the y plane
+        of an interleaved map)."""
+
+        def __add__(self, k):
+            return VoidP(self.value + k)
 
     def earlier_ptr(t):
-        return ctypes.c_void_p(t.data_ptr())
+        return VoidP(t.data_ptr())
 
     png = sorted(FIXTURE.glob("*.png"))[0]
     px = torch.from_numpy(_png.read_gray(png)).to(device)
@@ -1754,7 +1859,18 @@ def host_path_ab(device):
     src = torch.rand((64, 63), device=device)
     idx = torch.zeros((64, 1), dtype=torch.int32, device=device)
     padded, shape = page_grid_inputs(png, device)
+    f = px.float()
+    mx, my = ops._upsample_grid(hv, 25)
+    map_xy = torch.stack([mx, my], -1).contiguous()
+    planes = (mx[None].contiguous(), my[None].contiguous())
+    h, w = px.shape
+    rot = rotation_matrix(0.02, (w / 2, h / 2))
     calls = {
+        "remap": (lambda: ops.remap(f, map_xy), 200),
+        "remap_batch": (lambda: ops.remap_batch(f[None], planes), 200),
+        "affine_warp": (lambda: ops.affine_warp(f, rot, (h, w), 255.0),
+                        200),
+        "dewarp_f32": (lambda: ops.dewarp_f32(f, hv, 25), 200),
         "dewarp_u8": (lambda: ops.dewarp_u8(px, hv, 25), 200),
         "sauvola_packed": (lambda: binarize.sauvola_packed(px, 15), 200),
         "take_along_axis_lane": (lambda: gather.take_along_axis(src, idx, 1),
@@ -2563,8 +2679,16 @@ def stage_throughput(workdir, stage, cls, make_corpus, reps=5):
     med = statistics.median(times)
     return dict(times=times, seconds=med, pages_per_s=n_pages / med,
                 device_ms=_device_ms(prof), prof_wall_s=walls[-1],
+                device_events=device_events(prof) / n_pages,
                 profile=prof.key_averages().table(
                     sort_by="self_cuda_time_total", row_limit=12))
+
+
+def device_events(prof):
+    """How many kernels and copies ran on the card in a profiled run."""
+    import torch
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def log_throughput(stage, r):
@@ -2578,9 +2702,10 @@ def log_throughput(stage, r):
             % (stage, r["prof_wall_s"]))
     else:
         log("  %s profiled pass: %.4f s wall, %.3f ms device (kernel) "
-            "time, device busy %.2f %%" % (
+            "time, device busy %.2f %%, %.1f device events a page" % (
                 stage, r["prof_wall_s"], r["device_ms"],
-                100.0 * r["device_ms"] / 1e3 / r["prof_wall_s"]))
+                100.0 * r["device_ms"] / 1e3 / r["prof_wall_s"],
+                r["device_events"]))
     log(r["profile"])
 
 
@@ -4949,6 +5074,7 @@ def main():
         "grid_scan_h": ("grid.cu", "origami_tpu/core/dewarp.py:93"),
         "grid_scan_v": ("grid.cu", "scripts/pallas_gather_repro.py:73, "
                                    "origami_tpu/core/dewarp.py:131"),
+        "dewarp_f32": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "remap": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "remap_batch": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "remap_affine": ("remap.cu",
@@ -4968,16 +5094,18 @@ def main():
             max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
-    off_path = ("take_along_axis_lane", "take_along_axis_sublane")
+    # remap (the dense map) is remap_pallas' parity entry: the layout
+    # stage took it until dewarp_f32 upsampled the grid in the kernel
+    off_path = ("take_along_axis_lane", "take_along_axis_sublane", "remap")
     starved = [n for n, k in kernels.items()
                if n not in off_path and k["launches"] < 1]
     if starved:
         raise PhaseError("kernels of the driven paths never launched: %s"
                          % starved)
     log("total %.1f s" % (time.time() - t_start))
-    # the gather (lane and sublane) is an entry point that no stage
-    # calls: held against its plain version above, launched by no path,
-    # and so kept out of the table of the paths' kernels
+    # the gather (lane and sublane) and remap are entry points that no
+    # stage calls: held against their plain versions above, launched by
+    # no path, and so kept out of the table of the paths' kernels
     print(json.dumps({"off_path_kernels": [kernels.pop(n)
                                            for n in off_path]}),
           flush=True)

@@ -16,9 +16,9 @@ The device work is the binarized page of the whitespace splitters: on the
 card the page is dewarped by the dewarp kernel (Page.dewarped_dev), then
 binarized by the Sauvola kernel at a window from the median line height,
 and the separator label mask is whitened into it (ops/binarize.py: a
-linear resize onto the warped page, the remap kernel through the grid, a
-0.2 threshold, a 3x3 dilation; one launch each of sauvola_packed,
-dewarp_u8 and remap a page). Graphs use core/graph.py in place of
+linear resize onto the warped page, the f32 dewarp kernel through the
+grid, a 0.2 threshold, a 3x3 dilation; one launch each of sauvola_packed,
+dewarp_u8 and dewarp_f32 a page). Graphs use core/graph.py in place of
 networkx. Where the JAX stage swallows a failure of that binarization
 (RegionState.start_binarize), this one lets it raise, so the page is
 recorded FAILED.

@@ -41,9 +41,10 @@ _L = ctypes.c_long
 SIGNATURES = {
     "origami_remap_f32": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _F, _I, _P,
                           _P],
-    "origami_remap_affine_f32": [_P, _I, _I, ctypes.POINTER(_F), _I, _I, _F,
-                                 _P, _P],
+    "origami_remap_affine_f32": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I,
+                                 _F, _P, _P],
     "origami_dewarp_u8": [_P, _I, _I, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    "origami_dewarp_f32": [_P, _I, _I, _P, _I, _I, _I, _F, _P, _P, _P],
     "origami_strips_dewarped": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _P,
                                 _L, _P],
     "origami_strips_through_grid": [_P, _I, _I, _P, _I, _I, _F, _P, _P, _P,
@@ -123,3 +124,21 @@ def library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+class _Entries:
+    """The C entry points of SIGNATURES as attributes
+    (`entries.origami_remap_f32`), bound once: the first attribute read
+    loads the library and sets every entry point on this object, so
+    later reads are plain attribute lookups."""
+
+    def __getattr__(self, name):
+        if name not in SIGNATURES:
+            raise AttributeError(name)
+        lib = library()
+        for fn in SIGNATURES:
+            setattr(self, fn, getattr(lib, fn))
+        return getattr(lib, name)
+
+
+entries = _Entries()

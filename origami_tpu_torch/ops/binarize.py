@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from origami_tpu_torch.ops.remap import (LaunchCounts, _check, _device_of,
-                                         _div, _launch, _ptr)
+                                         _div, _launch, _ptr, kernels)
 
 launches = LaunchCounts(sauvola=0, sauvola_packed=0)
 
@@ -166,7 +166,7 @@ def _sauvola_launch(name, image, window_size, k, r, border, packed):
     shape = (h, -(-w // 8)) if packed else (h, w)
     out = torch.empty(shape, dtype=torch.uint8, device=dev)
     if out.numel():
-        _launch("origami_sauvola_u8", _ptr(image), h, w, window_size,
+        _launch(kernels.origami_sauvola_u8, _ptr(image), h, w, window_size,
                 float(k), float(r), _BORDERS[border], int(packed), _ptr(out))
         launches.add(name)
     return out
@@ -197,8 +197,9 @@ def sauvola_packed(image, window_size=15, k=0.2, r=128.0, border="clamp"):
 # page with Sauvola and OR in the separator label mask, moved from the
 # warped page's label space onto the binarized page, thresholded and
 # dilated by a 3x3 box. They are composed here from PyTorch ops around the
-# Sauvola kernel (sauvola_packed) and, for the dewarped page, the remap
-# kernel (ops.remap.remap): nothing is fused into a kernel. `sep_mask` is
+# Sauvola kernel (sauvola_packed) and, for the dewarped page, the f32
+# dewarp kernel (ops.remap.dewarp_f32, which upsamples the grid inside
+# the kernel): nothing else is fused into a kernel. `sep_mask` is
 # the (lh, lw) bool label mask on the page's device; each function returns
 # the (H, ceil(W/8)) u8 packed mask, True = paper or separator.
 
@@ -218,16 +219,17 @@ def binarize_sep_dewarped_packed(image, window_size, sep_mask, hv, res,
                                  warp_h, warp_w):
     """The dewarped page `image` (u8, (H, W)), grid `hv` ((gh, gw, 2)
     f32, gh*res = H, gw*res = W): the mask is resized onto the warped
-    page (warp_h, warp_w), dewarped through the grid by the remap kernel
-    (taps outside the warped page read 0) and thresholded at 0.2 (the
-    JAX function: binarize_sep_banded_packed, which dewarps by its banded
-    two-pass route)."""
-    from origami_tpu_torch.ops.remap import _upsample_grid, remap
+    page (warp_h, warp_w), dewarped through the grid by one dewarp_f32
+    launch (remap through the upsampled grid, taps outside the warped
+    page read 0) and thresholded at 0.2 (the JAX function:
+    binarize_sep_banded_packed, which dewarps by its banded two-pass
+    route)."""
+    from origami_tpu_torch.ops.remap import dewarp_f32
     from origami_tpu_torch.ops.resize import resize
     packed = sauvola_packed(image, window_size)
     sep = resize(sep_mask.float(), (warp_h, warp_w), _JAX_LINEAR)
-    mx, my = _upsample_grid(hv.float(), int(res))
-    sepd = remap(sep.contiguous(), torch.stack([mx, my], dim=-1), fill=0.0)
+    sepd = dewarp_f32(sep.contiguous(), hv.float().contiguous(), int(res),
+                      fill=0.0)
     return _whiten(packed, (sepd > 0.2).float())
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from origami_tpu_torch.ops.remap import (LaunchCounts, _check, _device_of,
-                                         _launch, _ptr)
+                                         _launch, _ptr, kernels)
 
 launches = LaunchCounts(take_along_axis_lane=0, take_along_axis_sublane=0)
 
@@ -59,8 +59,8 @@ def take_along_axis(src, idx, axis):
     r, c = idx.shape
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     if out.numel():
-        _launch("origami_take_along_axis_f32", _ptr(src), src.shape[axis],
-                _ptr(idx), r, c, axis, _ptr(out))
+        _launch(kernels.origami_take_along_axis_f32, _ptr(src),
+                src.shape[axis], _ptr(idx), r, c, axis, _ptr(out))
         launches.add("take_along_axis_lane" if axis == 1
                      else "take_along_axis_sublane")
     return out

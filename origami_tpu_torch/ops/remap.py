@@ -5,10 +5,16 @@ csrc/strips.cu) and sits beside its plain PyTorch version, which has the
 same signature and arithmetic:
 
     remap               ports remap_pallas (ops/pallas/remap.py:415)
+                        through a dense map (no stage calls it: the
+                        layout stage takes dewarp_f32)
     remap_batch         the same kernel over a batch in one launch, at
                         the training warp's border (bilinear_sample_xy,
                         train/segment/warp.py:44)
     dewarp_u8           ports the dewarp of core/dewarp.py:504-531
+    dewarp_f32          the same dewarp of an f32 image at the fill_taps
+                        border: remap through the upsampled grid, with
+                        the grid upsampled inside the kernel (the layout
+                        stage's separator mask)
     strips_dewarped     strip mode (a): extract_strips_banded's function
     strips_through_grid strip mode (b): extract_dewarped_strips' function
     affine_warp         an inverse-map affine warp (ops/remap.py:76-85):
@@ -29,7 +35,6 @@ raises — it never falls back. `launches[name]` counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import numpy as np
@@ -51,7 +56,8 @@ class LaunchCounts(dict):
 
 
 launches = LaunchCounts(remap=0, remap_batch=0, remap_affine=0, dewarp_u8=0,
-                        strips_dewarped=0, strips_through_grid=0)
+                        dewarp_f32=0, strips_dewarped=0,
+                        strips_through_grid=0)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +164,9 @@ def _upsample_grid(hv, res):
 
 
 BORDERS = ("hard", "fill_taps")
+# the grid forms' tiles: grid cells a side (csrc/remap.cu kU8Cells,
+# kF32Cells), for counting a launch's tiles against staged_tiles
+TILE_CELLS = {torch.uint8: 4, torch.float32: 2}
 
 
 def dewarp_u8_plain(page_u8, hv, res, fill=255.0, border="hard"):
@@ -177,6 +186,14 @@ def dewarp_u8_plain(page_u8, hv, res, fill=255.0, border="hard"):
     h, w = img.shape
     return _to_u8_round(_bilinear_fill_taps(
         img, mx.clamp(-2.0, w + 1.0), my.clamp(-2.0, h + 1.0), float(fill)))
+
+
+def dewarp_f32_plain(image, hv, res, fill=0.0):
+    """The dewarped f32 image (gh*res, gw*res): `image` (H, W) sampled
+    through the upsampled grid at the fill_taps border, as remap_plain
+    samples it through the map of _upsample_grid."""
+    mx, my = _upsample_grid(hv.float(), int(res))
+    return _sample(image, mx, my, fill, "fill_taps")
 
 
 def strips_dewarped_plain(dew_u8, frames, widths, out_h, out_w, fill=255.0):
@@ -341,28 +358,35 @@ def strips_through_grid_page_plain(page_u8, hv, res, frames, widths, desc,
 # ---------------------------------------------------------------------------
 
 def _check(t, name, dtype, ndim, device):
+    """Raise unless `t` is a tensor of `dtype` with `ndim` dims on
+    `device`, contiguous on the card (the tensor's flags, not the
+    device's type string, say where it is)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError("%s must be a torch.Tensor" % name)
     if t.dtype != dtype:
         raise TypeError("%s must be %s, got %s" % (name, dtype, t.dtype))
-    if t.dim() != ndim:
+    if t.ndim != ndim:
         raise ValueError("%s must have %d dims, got shape %s"
                          % (name, ndim, tuple(t.shape)))
     if t.device != device:
         raise ValueError("%s is on %s, expected %s" % (name, t.device,
                                                        device))
-    if device.type == "cuda" and not t.is_contiguous():
+    if t.is_cuda and not t.is_contiguous():
         raise ValueError("%s must be contiguous" % name)
 
 
-def _launch(fn_name, *args):
-    """Call the C entry point `fn_name` with `args` and the current
+# the kernels' C entry points, bound once (`kernels.origami_remap_f32`)
+kernels = _build.entries
+
+
+def _launch(fn, *args):
+    """Call the bound C entry point `fn` with `args` and the current
     device's current stream (its raw handle: no torch.cuda.Stream object
     is built per call); raise on a CUDA error."""
-    rc = getattr(_build.library(), fn_name)(
-        *args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
+    rc = fn(*args,
+            torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if rc != 0:
-        raise RuntimeError("%s: CUDA error %d at launch" % (fn_name, rc))
+        raise RuntimeError("%s: CUDA error %d at launch" % (fn.__name__, rc))
 
 
 def _ptr(t):
@@ -371,7 +395,7 @@ def _ptr(t):
 
 
 def _device_of(t):
-    if t.device.type not in ("cpu", "cuda"):
+    if not (t.is_cuda or t.is_cpu):
         raise ValueError("unsupported device %s" % t.device)
     return t.device
 
@@ -401,8 +425,8 @@ def remap(image, map_xy, fill=0.0, border="fill_taps"):
     if out.numel():
         h, w = image.shape
         p = _ptr(map_xy)
-        _launch("origami_remap_f32", _ptr(image), 1, h, w, p, p + 4, 2, oh,
-                ow, float(fill), int(border == "hard"), _ptr(out))
+        _launch(kernels.origami_remap_f32, _ptr(image), 1, h, w, p, p + 4, 2,
+                oh, ow, float(fill), int(border == "hard"), _ptr(out))
         launches.add("remap")
     return out
 
@@ -437,10 +461,26 @@ def remap_batch(images, maps, fill=0.0, border="hard"):
     out = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
     if out.numel():
         _, h, w = images.shape
-        _launch("origami_remap_f32", _ptr(images), b, h, w, *ptrs, stride,
-                oh, ow, float(fill), int(border == "hard"), _ptr(out))
+        _launch(kernels.origami_remap_f32, _ptr(images), b, h, w, *ptrs,
+                stride, oh, ow, float(fill), int(border == "hard"), _ptr(out))
         launches.add("remap_batch")
     return out
+
+
+def _staged_ptr(staged_tiles, dev):
+    """The address of a kernel's staged-tile counter, None for none."""
+    if staged_tiles is None:
+        return None
+    _check(staged_tiles, "staged_tiles", torch.int32, 1, dev)
+    if dev.type != "cuda" or staged_tiles.numel() != 1:
+        raise ValueError("staged_tiles is a (1,) tensor on the card")
+    return _ptr(staged_tiles)
+
+
+def _check_grid(hv, res, dev):
+    _check(hv, "hv", torch.float32, 3, dev)
+    if hv.shape[2] != 2 or res < 1:
+        raise ValueError("hv must be (gh, gw, 2) and res >= 1")
 
 
 def dewarp_u8(page_u8, hv, res, fill=255.0, border="hard",
@@ -450,33 +490,51 @@ def dewarp_u8(page_u8, hv, res, fill=255.0, border="hard",
     wants an integer fill in [0, 255]). `staged_tiles` (CUDA only): an
     int32 (1,) tensor to which the kernel adds the number of its 4x4-cell
     tiles that read their taps from a window staged in shared memory
-    (the others read them through the read-only cache)."""
+    (the others read them through the read-only cache; TILE_CELLS gives
+    the tiles' size)."""
     dev = _device_of(page_u8)
     _check(page_u8, "page_u8", torch.uint8, 2, dev)
-    _check(hv, "hv", torch.float32, 3, dev)
     res = int(res)
-    if hv.shape[2] != 2 or res < 1:
-        raise ValueError("hv must be (gh, gw, 2) and res >= 1")
+    _check_grid(hv, res, dev)
     if border not in BORDERS:
         raise ValueError("border must be one of %s, got %r"
                          % (BORDERS, border))
     if border == "fill_taps" and not (0 <= fill <= 255
                                       and float(fill).is_integer()):
         raise ValueError("fill_taps wants an integer fill in [0, 255]")
-    if staged_tiles is not None:
-        _check(staged_tiles, "staged_tiles", torch.int32, 1, dev)
-        if dev.type != "cuda" or staged_tiles.numel() != 1:
-            raise ValueError("staged_tiles is a (1,) tensor on the card")
+    staged = _staged_ptr(staged_tiles, dev)
     if dev.type == "cpu":
         return dewarp_u8_plain(page_u8, hv, res, fill, border)
     gh, gw = hv.shape[:2]
     out = torch.empty((gh * res, gw * res), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = page_u8.shape
-        _launch("origami_dewarp_u8", _ptr(page_u8), h, w, _ptr(hv), gh, gw,
-                res, float(fill), int(border == "fill_taps"), _ptr(out),
-                None if staged_tiles is None else _ptr(staged_tiles))
+        _launch(kernels.origami_dewarp_u8, _ptr(page_u8), h, w, _ptr(hv), gh,
+                gw, res, float(fill), int(border == "fill_taps"), _ptr(out),
+                staged)
         launches.add("dewarp_u8")
+    return out
+
+
+def dewarp_f32(image, hv, res, fill=0.0, staged_tiles=None):
+    """f32 image (H, W), f32 grid (gh, gw, 2), int res -> f32 (gh*res,
+    gw*res): dewarp_f32_plain's samples, each tap off the image `fill`,
+    in one launch that upsamples the grid tile by tile (no dense map is
+    written). `staged_tiles` as dewarp_u8's."""
+    dev = _device_of(image)
+    _check(image, "image", torch.float32, 2, dev)
+    res = int(res)
+    _check_grid(hv, res, dev)
+    staged = _staged_ptr(staged_tiles, dev)
+    if dev.type == "cpu":
+        return dewarp_f32_plain(image, hv, res, fill)
+    gh, gw = hv.shape[:2]
+    out = torch.empty((gh * res, gw * res), dtype=torch.float32, device=dev)
+    if out.numel():
+        h, w = image.shape
+        _launch(kernels.origami_dewarp_f32, _ptr(image), h, w, _ptr(hv), gh,
+                gw, res, float(fill), _ptr(out), staged)
+        launches.add("dewarp_f32")
     return out
 
 
@@ -520,9 +578,9 @@ def strips_dewarped(dew_u8, frames, widths, out_h, out_w, fill=255.0):
     out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = dew_u8.shape
-        _launch("origami_strips_dewarped", _ptr(dew_u8), h, w, _ptr(frames),
-                _ptr(widths), None, n, int(out_h), int(out_w), float(fill),
-                _ptr(out), out.numel())
+        _launch(kernels.origami_strips_dewarped, _ptr(dew_u8), h, w,
+                _ptr(frames), _ptr(widths), None, n, int(out_h), int(out_w),
+                float(fill), _ptr(out), out.numel())
         launches.add("strips_dewarped")
     return out
 
@@ -544,9 +602,9 @@ def strips_dewarped_page(dew_u8, frames, widths, desc, out, out_h, max_w,
                                           out_h, max_w, fill)
     if n and out_h > 0 and max_w > 0:
         h, w = dew_u8.shape
-        _launch("origami_strips_dewarped", _ptr(dew_u8), h, w, _ptr(frames),
-                _ptr(widths), _ptr(desc), n, int(out_h), int(max_w),
-                float(fill), _ptr(out), out.numel())
+        _launch(kernels.origami_strips_dewarped, _ptr(dew_u8), h, w,
+                _ptr(frames), _ptr(widths), _ptr(desc), n, int(out_h),
+                int(max_w), float(fill), _ptr(out), out.numel())
         launches.add("strips_dewarped")
     return out
 
@@ -567,9 +625,10 @@ def strips_through_grid(page_u8, hv, res, frames, widths, out_h, out_w,
     out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = page_u8.shape
-        _launch("origami_strips_through_grid", _ptr(page_u8), h, w, _ptr(hv),
-                gh, gw, float(res), _ptr(frames), _ptr(widths), None, n,
-                int(out_h), int(out_w), float(fill), _ptr(out), out.numel())
+        _launch(kernels.origami_strips_through_grid, _ptr(page_u8), h, w,
+                _ptr(hv), gh, gw, float(res), _ptr(frames), _ptr(widths),
+                None, n, int(out_h), int(out_w), float(fill), _ptr(out),
+                out.numel())
         launches.add("strips_through_grid")
     return out
 
@@ -592,9 +651,9 @@ def strips_through_grid_page(page_u8, hv, res, frames, widths, desc, out,
     if n and out_h > 0 and max_w > 0:
         h, w = page_u8.shape
         gh, gw = hv.shape[:2]
-        _launch("origami_strips_through_grid", _ptr(page_u8), h, w, _ptr(hv),
-                gh, gw, float(res), _ptr(frames), _ptr(widths), _ptr(desc),
-                n, int(out_h), int(max_w), float(fill), _ptr(out),
+        _launch(kernels.origami_strips_through_grid, _ptr(page_u8), h, w,
+                _ptr(hv), gh, gw, float(res), _ptr(frames), _ptr(widths),
+                _ptr(desc), n, int(out_h), int(max_w), float(fill), _ptr(out),
                 out.numel())
         launches.add("strips_through_grid")
     return out
@@ -631,18 +690,21 @@ def affine_warp(image, matrix, out_hw, fill=0.0):
     WARP_INVERSE_MAP) -> f32 (h, w) on the image's device. Each sample is
     bilinear_sample_xy's: taps clamped into the image, `fill` outside
     [0, w-1] x [0, h-1]. On the card one remap_affine launch, which
-    computes each source coordinate from the six coefficients."""
+    computes each source coordinate from the six coefficients (passed by
+    value)."""
     dev = _device_of(image)
     _check(image, "image", torch.float32, 2, dev)
+    m = np.asarray(matrix, np.float32).ravel().tolist()
+    if len(m) != 6:
+        raise ValueError("matrix must be (2, 3), got %d values" % len(m))
     if dev.type == "cpu":
         return affine_warp_plain(image, matrix, out_hw, fill)
     oh, ow = (int(v) for v in out_hw)
     out = torch.empty((oh, ow), dtype=torch.float32, device=dev)
     if out.numel():
         h, w = image.shape
-        m = (ctypes.c_float * 6)(*np.asarray(matrix, np.float32).ravel())
-        _launch("origami_remap_affine_f32", _ptr(image), h, w, m, oh, ow,
-                float(fill), _ptr(out))
+        _launch(kernels.origami_remap_affine_f32, _ptr(image), h, w, *m, oh,
+                ow, float(fill), _ptr(out))
         launches.add("remap_affine")
     return out
 

@@ -50,6 +50,12 @@ def test_affine_warp_equal_jax(case):
     want = np.asarray(R.affine_warp(jnp.asarray(img), jnp.asarray(m),
                                     out_hw, fill=255.0))
     got = T.affine_warp(torch.from_numpy(img), m, out_hw, 255.0).numpy()
+    # the six coefficients as float32 values, from numpy or a tensor: the
+    # kernel takes them by value, the plain version builds its planes
+    for mat in (m, torch.from_numpy(m.astype(np.float32))):
+        np.testing.assert_array_equal(
+            got, T.affine_warp_plain(torch.from_numpy(img), mat, out_hw,
+                                     255.0).numpy())
     d = np.abs(got - want)
     sx, sy = T.affine_planes(m, out_hw)
     step = np.spacing(np.float32(max(np.abs(sx).max(), np.abs(sy).max())))

@@ -6,12 +6,12 @@ Tolerances, each with its reason:
     exactly the JAX results (the same host code; the raster steps give
     cv2's pixels and vertices, tests/test_torch_contours.py);
   * the binarization site on a whole fixture page: >= 99.9 % of the
-    pixels equal to the JAX stage's (ROADMAP's bar for binary masks):
-    the port's Sauvola sums are exact integers where JAX differences
-    float32 integral images (a few pixels in ten thousand), and the
-    port's dewarp of the page is hard-edged where the JAX banded route
-    blends the page border (ROADMAP C3); the separator mask itself,
-    resized, dewarped and thresholded, equals the JAX mask on every
+    pixels equal to the JAX stage's (ROADMAP's bar for binary masks),
+    and no more than the 194 pixels that differ on synth0001 (ROADMAP
+    C3): the port's Sauvola sums are exact integers where JAX
+    differences float32 integral images (a few pixels in ten thousand);
+    the separator mask itself, resized, dewarped by the site's
+    dewarp_f32 and thresholded, equals the JAX banded route's on every
     pixel of both fixture pages;
   * each separator-whitening route on a small crafted page (a smooth
     grid, a sheared grid that has no banded plan, no grid, no mask):
@@ -51,7 +51,7 @@ from origami_tpu_torch.core import geometry_ops, hull, neighbors, xycut
 from origami_tpu_torch.core.dewarp import Grid
 from origami_tpu_torch.core.segment import PredictorType
 from origami_tpu_torch.ops import binarize
-from origami_tpu_torch.ops.remap import _upsample_grid, remap
+from origami_tpu_torch.ops.remap import dewarp_f32
 from origami_tpu_torch.ops.resize import resize
 from test_torch_geometry import jax_native  # noqa: F401
 
@@ -189,6 +189,12 @@ def region_state(mod, page, rs, **kw):
               dew.separators, warped.segmentation, grid=dew.grid)
 
 
+# the binarized layout page's pixels that differ from the JAX stage's on
+# synth0001 (ROADMAP C3; 475 on synth0000), measured with dewarp_f32 at
+# the site
+SITE_DIFFERING = 194
+
+
 def test_binarization_site_matches_jax_on_a_page(tmp_path):
     c = corpus(tmp_path / "c", stems=("synth0001",))
     page = c / "synth0001.png"
@@ -199,8 +205,10 @@ def test_binarization_site_matches_jax_on_a_page(tmp_path):
     got, want = port.binarized, jx.binarized
     assert got.shape == want.shape == (2200, 1600)
     assert (got == want).mean() >= 0.999
+    assert (got != want).sum() <= SITE_DIFFERING
     # the separator mask alone: resized onto the warped page, dewarped
-    # through the grid (remap against the banded route), thresholded
+    # through the grid (the site's dewarp_f32 against the banded route),
+    # thresholded
     sep = [p.labels != p.classes["BACKGROUND"].value
            for p in port._segmentation.predictions
            if p.type == PredictorType.SEPARATOR][0]
@@ -214,9 +222,9 @@ def test_binarization_site_matches_jax_on_a_page(tmp_path):
         plan["step"], plan["d1"], plan["n1"], plan["d2"], plan["n2"],
         h, w, 0.0))
     ps = resize(torch.from_numpy(sep).float(), (wh, ww), "area")
-    mx, my = _upsample_grid(torch.from_numpy(port.grid.points("sample")),
-                            port.grid.resolution)
-    pd = remap(ps.contiguous(), torch.stack([mx, my], -1), 0.0).numpy()
+    pd = dewarp_f32(ps.contiguous(),
+                    torch.from_numpy(port.grid.points("sample")),
+                    port.grid.resolution, 0.0).numpy()
     np.testing.assert_array_equal(pd > 0.2, jd > 0.2)
 
 

@@ -160,7 +160,8 @@ print(json.dumps({"modules": names,
     for name in ("batch.detect.ocr", "batch.detect.segment", "core.binarize",
                  "core.predict", "core.segment", "core.utils",
                  "models.unet", "ops.binarize", "ops.morphology",
-                 "ops.resize", "ops.tiling", "batch.detect.flow",
+                 "ops.resize", "ops.tiling", "ops.remap", "ops._build",
+                 "batch.detect.flow",
                  "batch.detect.dewarp", "core.baselines", "core.flow",
                  "core.separate", "ops.gather", "ops.grid", "geometry",
                  "geometry.booleans", "geometry.native_bindings",

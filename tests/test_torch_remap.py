@@ -15,6 +15,11 @@ Tolerances, each with its reason:
     coordinates by its fill margin in float32, which would otherwise
     move a tap weight by an ulp of the shifted coordinate (up to ~4e-3
     of a gray level on text edges);
+  * remap off that lattice vs a float64 bilinear of the same float32
+    coordinates: <= 2**-15, float32 rounding (ROADMAP C5: the port is
+    the exact one, see the test);
+  * dewarp_f32 vs the upsampled grid through remap_plain: bit-equal
+    (the layout stage's composition before the f32 dewarp kernel);
   * strip mode (a) vs extract_strips_banded: <= 1 on >= 99.9 % for
     lines as flat as the fixture's (|slope| <= 5e-4) — the banded route
     is a shear/scale decomposition of the same sample whose error grows
@@ -124,6 +129,76 @@ def test_remap_matches_remap_pallas(crop):
                                   fill=0.0, interpret=True))
     got = ops.remap(_t(img), _t(m), 0.0).numpy()
     assert np.abs(got - ref).max() <= 1e-3
+
+
+def _bilinear64(img, m, fill):
+    """remap_plain's fill_taps sample of `img` at the float32 map `m`,
+    computed in float64."""
+    h, w = img.shape
+    x = np.clip(m[..., 0].astype(np.float64), -2, w + 1)
+    y = np.clip(m[..., 1].astype(np.float64), -2, h + 1)
+    fx, fy = np.floor(x), np.floor(y)
+    tx, ty = x - fx, y - fy
+    x0, y0 = fx.astype(int), fy.astype(int)
+
+    def tap(yi, xi):
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        v = img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
+        return np.where(inside, v.astype(np.float64), fill)
+    top = tap(y0, x0) * (1 - tx) + tap(y0, x0 + 1) * tx
+    bot = tap(y0 + 1, x0) * (1 - tx) + tap(y0 + 1, x0 + 1) * tx
+    return top * (1 - ty) + bot * ty
+
+
+def test_remap_off_lattice_is_float64_bilinear_within_rounding(crop):
+    """ROADMAP C5. The seeded map of test_remap_matches_remap_pallas
+    without its 1/64-px rounding: remap is 2.84e-5 gray levels from the
+    float64 bilinear of the same float32 coordinates, and
+    remap_pallas(interpret=True) 4.21e-3 from it (both measured on this
+    map). The Pallas kernel shifts each coordinate by its fill margin
+    and tile origin in float32 (ops/pallas/remap.py:272-283, 373-374)
+    and so loses low bits of the tap weights. The port's bound: below
+    512 px a weight and its product with a u8 gray level are exact in
+    float32, and the two sums, the two products of the second lerp and
+    the last sum each round by at most half an ulp below 256 (2**-17),
+    2**-15 in all."""
+    rng = np.random.default_rng(4)
+    img = crop.astype(np.float32)
+    yy, xx = np.meshgrid(np.arange(64, dtype=np.float32),
+                         np.arange(256, dtype=np.float32), indexing="ij")
+    a = rng.uniform(0, 2 * np.pi, 2)
+    mx = 20.0 + 0.98 * xx + 0.05 * yy + 1.5 * np.sin(yy / 9.0 + a[0])
+    my = 60.0 + 1.02 * yy - 0.03 * xx + 1.2 * np.sin(xx / 17.0 + a[1])
+    m = np.stack([mx, my], -1).astype(np.float32)
+    assert (np.round(m * 64) != m * 64).mean() > 0.99    # off the lattice
+    assert m.max() < 512
+    got = ops.remap(_t(img), _t(m), 0.0).numpy()
+    d = np.abs(got - _bilinear64(img, m, 0.0))
+    assert d.max() <= 2.0 ** -15, d.max()
+    assert d.max() > 0                  # float32, not float64, arithmetic
+
+
+@pytest.mark.parametrize("case", ["crop", "smooth", "sheared"])
+def test_dewarp_f32_is_the_upsampled_grid_through_remap(crop, grid, case):
+    """dewarp_f32 (on the CPU its plain version) equals the composition
+    the layout stage ran before it, _upsample_grid + remap_plain at the
+    fill_taps border, bit for bit: on the fixture crop with its seeded
+    grid, and on the crafted page's smooth and sheared grids
+    (test_torch_layout.crafted_page)."""
+    if case == "crop":
+        img, hv, res = crop.astype(np.float32), grid, RES
+    else:
+        from test_torch_layout import crafted_page
+        page, res, smooth, sheared, _ = crafted_page()
+        img, hv = page.astype(np.float32), {"smooth": smooth,
+                                            "sheared": sheared}[case]
+    mx, my = ops._upsample_grid(_t(hv), res)
+    want = ops.remap_plain(_t(img), torch.stack([mx, my], -1), 0.0,
+                           "fill_taps")
+    got = ops.dewarp_f32(_t(img), _t(hv), res, 0.0)
+    assert got.shape == (hv.shape[0] * res, hv.shape[1] * res)
+    assert torch.equal(got, want)
+    assert (got > 0).float().mean() > 0.3          # the page is there
 
 
 def _frames(specs, th=48):
@@ -238,6 +313,12 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch(crop, grid):
         out.numpy(), ops.strips_dewarped_plain(_t(crop), _t(fr), _t(wd),
                                                48, 256).numpy())
     ops.dewarp_u8(_t(crop), _t(grid), RES)
+    img = _t(crop).float()
+    mx, my = ops._upsample_grid(_t(grid), RES)
+    ops.remap(img, torch.stack([mx, my], -1)[:40, :50].contiguous())
+    ops.remap_batch(img[None], (mx[None, :40, :50], my[None, :40, :50]))
+    ops.dewarp_f32(img, _t(grid), RES)
+    ops.affine_warp(img, np.eye(2, 3), (40, 50))
     assert ops.launches == before
 
 
@@ -251,3 +332,19 @@ def test_wrappers_check_their_inputs(crop, grid):
         ops.strips_dewarped(_t(crop), _t(fr[:, :1]), _t(wd), 48, 256)
     with pytest.raises(ValueError):
         ops.remap(_t(crop).float(), _t(grid[..., :1]), 0.0)
+    img = _t(crop).float()
+    with pytest.raises(TypeError, match="image must be torch.float32"):
+        ops.dewarp_f32(_t(crop), _t(grid), RES)
+    with pytest.raises(ValueError, match=r"hv must be \(gh, gw, 2\)"):
+        ops.dewarp_f32(img, _t(grid), 0)
+    with pytest.raises(ValueError, match="staged_tiles is a"):
+        ops.dewarp_f32(img, _t(grid), RES,
+                       staged_tiles=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"matrix must be \(2, 3\)"):
+        ops.affine_warp(img, np.eye(2), (10, 10))
+    with pytest.raises(TypeError, match="image must be a torch.Tensor"):
+        ops._check(crop, "image", torch.float32, 2, img.device)
+    with pytest.raises(ValueError, match="must have 3 dims"):
+        ops.remap_batch(img, (img, img))
+    with pytest.raises(ValueError, match="is on cpu, expected meta"):
+        ops._check(img, "image", torch.float32, 2, torch.device("meta"))
