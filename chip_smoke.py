@@ -166,6 +166,21 @@ Phases (any failure exits non-zero before the result line):
      It prints render_page's host seconds a page, the pool's build
      seconds, the recognizer's steps/s, eval_recognizer's lines/s and
      the chain's pages/s with the card's name and power limit.
+ 17. the corpus-inspection surface in this process on the fixture pages
+     with the JAX artifacts it reads (inspect_corpus), against the JAX
+     package's outputs in tests/data/torch_inspect
+     (scripts/make_torch_inspect_fixture.py): the annotate renders
+     (grid, flow, contours warped and reliable, lines, layout) and
+     utils.dewarp, each with the page caches emptied (one dewarp_u8
+     launch a page where the canvas is the dewarped page, none
+     elsewhere) and, where it dewarps, again warm (none), their files
+     equal to the JAX canvases by digest outside the label boxes; the
+     thumbnail (PIL's pixels), signature.zip and rtext equal to JAX's;
+     stats, cleanup and reset on planted files; patch_skew_samples on
+     the JAX binarized page at patches 256 and 128 (the same points,
+     SKEW_EQUAL of the angles equal, the rest within SKEW_STEP). The
+     kernels line's dewarp_u8 row lists the renders' cold launches in
+     launches_by_path, beside phase 12's count.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -348,7 +363,8 @@ WHOLE_CHAIN_LAUNCHES = {
 WHOLE_CHAIN_AT_MOST = {("banded", "strips_through_grid")}
 # the kernels line takes each kernel's launches from the phase-12 run of
 # its own path: the heuristic segmenter's mask and the gather strips
-# from the second run, every other kernel from the main path's
+# from the second run, every other kernel from the main path's (phase
+# 17's dewarp_u8 launches go into that row's launches_by_path)
 OTHER_PATH_KERNELS = ("sauvola", "strips_through_grid")
 # what the grid scans need at least: per sample of a field evaluation
 # 2 subtractions, 2 multiplications and 1 addition for d2, the softening
@@ -3486,9 +3502,9 @@ MAIN_OCR = dict(steps=20, batch=64, height=48,
 # phase 14d: the host stages run with --processes 2
 POOL_STAGES = ("contours", "flow", "dewarp", "layout", "lines")
 # the stalled pool's --alive: the watchdog names a page stuck once it has
-# run for half of it, and a spawned worker takes 10-14 s on the card to
-# start its page, so at 24 s its pages were sometimes too young to name
-POOL_ALIVE = 48
+# run for half of it; a worker's spawn (10-14 s on the card) does not
+# count, as --alive runs from each worker's first chunk
+POOL_ALIVE = 24
 
 
 def train_corpus(dst):
@@ -4815,6 +4831,295 @@ def check_synth(workdir, device="cuda"):
             smi))
 
 
+# ------------------------------------------------------------ phase 17
+# The corpus-inspection surface (origami_tpu_torch/batch/annotate,
+# batch/utils): every render and utility CLI in this process on the
+# fixture pages with the JAX artifacts they read, held against the JAX
+# package's outputs in tests/data/torch_inspect/inspect.json
+# (scripts/make_torch_inspect_fixture.py): the renders' canvases by
+# digest outside the label boxes (ROADMAP C8: the labels are the glyph
+# atlas's, not cv2's Hershey strokes), the dewarped pages, thumbnails
+# and signature PNGs by the digest of their pixels, signature.json and
+# the region texts equal; and patch_skew_samples on the JAX binarized
+# page.
+INSPECT_REF = ROOT / "tests" / "data" / "torch_inspect"
+# (CLI under origami_tpu_torch.batch, its arguments, its file in the
+# page's .out folder, whether it draws on the dewarped page: one
+# dewarp_u8 launch a page when the page cache is cold, none when warm)
+INSPECT_RENDERS = (
+    ("annotate.grid", (), "annotation.dewarp.png", False),
+    ("annotate.flow", (), "annotation.flow.png", False),
+    ("annotate.contours", ("--stage", "warped"),
+     "annotation.contours.0.png", False),
+    ("annotate.contours", ("--stage", "reliable"),
+     "annotation.contours.3.png", True),
+    ("annotate.lines", (), "annotation.lines.png", True),
+    ("annotate.layout", (), "annotation.layout.png", True),
+    ("utils.dewarp", (), "dewarped.png", True),
+)
+# patch_skew_samples against the JAX function on the same mask: the same
+# points, the angles equal on >= 99 % of the tiles and the rest within
+# one step of the 33-angle sweep
+SKEW_PATCHES = (256, 128)
+SKEW_EQUAL = 0.99
+SKEW_STEP = 0.24 / 32
+
+
+def inspect_corpus(dst):
+    """The fixture pages with the JAX artifacts the renders and utilities
+    read: segment.zip, dewarp.zip, contours.3.zip, lines.3.zip,
+    tables.json and runtime.json (tests/data/torch_ocr/full),
+    contours.0.zip, contours.1.zip and flow.zip (torch_flow),
+    contours.2.zip (torch_layout), order.json, and compose_xml.zip (the
+    JAX compose stage's --page-xml output) as compose.zip
+    (torch_compose)."""
+    dst.mkdir(parents=True)
+    for png in sorted(FIXTURE.glob("*.png")):
+        shutil.copy(png, dst / png.name)
+        out = dst / (png.stem + ".out")
+        out.mkdir()
+        for ref, names in (
+                (FIXTURE, ("segment.zip", "dewarp.zip", "contours.3.zip",
+                           "lines.3.zip", "tables.json", "runtime.json")),
+                (FLOW_REF, ("contours.0.zip", "contours.1.zip",
+                            "flow.zip")),
+                (LAYOUT_REF, ("contours.2.zip",)),
+                (COMPOSE_REF, ("order.json",))):
+            for name in names:
+                shutil.copy(ref / (png.stem + ".out") / name, out)
+        shutil.copy(COMPOSE_REF / (png.stem + ".out") / "compose_xml.zip",
+                    out / "compose.zip")
+    return dst
+
+
+def masked_digest(pixels, boxes=()):
+    """digest() of an image with its label boxes ((x0, y0, x1, y1), x1
+    and y1 exclusive) set to 0."""
+    px = np.array(pixels, copy=True)
+    for x0, y0, x1, y1 in boxes:
+        px[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = 0
+    return digest(px)
+
+
+def signature_digests(path):
+    """{member: digest of the decoded PNG's pixels} and signature.json's
+    text of a signature.zip."""
+    from origami_tpu_torch.core import _png
+    pngs, text = {}, None
+    with zipfile.ZipFile(path) as zf:
+        for name in sorted(zf.namelist()):
+            if name.endswith(".png"):
+                pngs[name] = digest(_png.decode(zf.read(name), name))
+            else:
+                text = zf.read(name).decode("utf8")
+    return pngs, text
+
+
+def text_digests(folder):
+    """{relative path: digest of its text} of every file under folder."""
+    return {str(p.relative_to(folder)): digest(p.read_text())
+            for p in sorted(folder.rglob("*")) if p.is_file()}
+
+
+def skew_rows(samples):
+    return [[float(x), float(y), float(a)] for (x, y), a in samples]
+
+
+def skew_errors(got, ref, label):
+    """The bars of SKEW_*: -> (failures, tiles, tiles with equal angles)."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape or not np.array_equal(got[:, :2], ref[:, :2]):
+        return ["%s: points differ (%s against %s)" % (
+            label, got.shape, ref.shape)], len(ref), 0
+    diff = np.abs(got[:, 2] - ref[:, 2])
+    same = int((diff == 0).sum())
+    bad = []
+    if same < SKEW_EQUAL * len(ref) or diff.max() > SKEW_STEP + 1e-6:
+        bad.append("%s: %d of %d angles equal, max diff %.3g rad" % (
+            label, same, len(ref), diff.max()))
+    return bad, len(ref), same
+
+
+def run_inspect_cli(cli, args, corpus, device):
+    """main() of origami_tpu_torch.batch.<cli> in this process over
+    `corpus` (--overwrite), its printout captured; every page's
+    runtime.json entry must be COMPLETED. -> (the kernel launches it
+    made, seconds, printout)."""
+    import contextlib
+    import importlib
+    import io
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
+    mod = importlib.import_module("origami_tpu_torch.batch." + cli)
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        stage = mod.main([*args, "--lock-strategy", "NONE", "--plain",
+                          "--overwrite", "--device", str(device),
+                          str(corpus)])
+    _sync(device)
+    seconds = time.time() - t0
+    for png in sorted(corpus.glob("*.png")):
+        entry = json.loads((corpus / (png.stem + ".out") / "runtime.json")
+                           .read_text()).get(stage.processor_name, {})
+        if entry.get("status") != "COMPLETED":
+            raise PhaseError("%s on %s: %s" % (
+                cli, png.name, entry.get("traceback", entry)))
+    return ({k: v for k, v in kernel_launches().items() if v}, seconds,
+            out.getvalue())
+
+
+def check_renders(corpus, ref, device, failed):
+    """Each render CLI cold (page caches emptied: one dewarp_u8 launch a
+    page where it draws on the dewarped page, none elsewhere) and, where
+    it dewarps, warm (no launch); its files against the JAX canvases'
+    digests outside the label boxes. -> (dewarp_u8 launches of the cold
+    runs, {CLI: seconds a page, cold})."""
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import page as page_cache
+    pages = ref["pages"]
+    launched, rates = 0, {}
+    for cli, args, name, dewarped in INSPECT_RENDERS:
+        label = " ".join((cli,) + args)
+        page_cache.clear_caches()
+        got, secs, _ = run_inspect_cli(cli, args, corpus, device)
+        # the wrappers count launches on the card only
+        want = {"dewarp_u8": len(pages)} \
+            if dewarped and str(device) != "cpu" else {}
+        launched += got.get("dewarp_u8", 0)
+        warm = None
+        if dewarped:
+            warm, warm_secs, _ = run_inspect_cli(cli, args, corpus, device)
+        same = 0
+        for stem in pages:
+            px = _png.read(corpus / (stem + ".out") / name)
+            if px.ndim == 3:
+                px = px[:, :, ::-1]          # RGB -> the BGR canvas
+            r = ref["renders"][stem][name]
+            if masked_digest(px, r["boxes"]) == r["digest"]:
+                same += 1
+            else:
+                failed.append("%s: %s of %s differs from JAX's outside "
+                              "its %d label boxes" % (
+                                  label, name, stem, len(r["boxes"])))
+        if got != want:
+            failed.append("%s: launches %s, expected %s (cold cache)"
+                          % (label, got, want))
+        if warm:
+            failed.append("%s: launches %s with a warm page cache, "
+                          "expected none" % (label, warm))
+        rates[label] = secs / len(pages)
+        log("  %-34s %d/%d pages equal to JAX outside the label boxes; "
+            "launches cold %s%s; %.3f s a page cold%s" % (
+                label, same, len(pages), json.dumps(got),
+                ", warm %s" % json.dumps(warm) if dewarped else "",
+                secs / len(pages),
+                ", %.3f warm" % (warm_secs / len(pages)) if dewarped
+                else ""))
+    return launched, rates
+
+
+def check_utilities(corpus, ref, device, failed, workdir):
+    """thumbnail, signature and rtext against the JAX outputs; stats,
+    reset and cleanup on planted files. -> {CLI: seconds a page}."""
+    import os
+    from origami_tpu_torch.core import _png
+    pages = ref["pages"]
+    rates = {}
+
+    def run(cli, *args):
+        got, secs, printed = run_inspect_cli(cli, args, corpus, device)
+        if got:
+            failed.append("%s: launches %s, expected none" % (cli, got))
+        rates[cli] = secs / len(pages)
+        return printed
+
+    run("utils.thumbnail")
+    run("utils.signature")
+    run("utils.rtext", "-o", str(workdir / "rtext"))
+    for stem in pages:
+        out = corpus / (stem + ".out")
+        if digest(_png.read(out / "thumbnail.png")) \
+                != ref["thumbnail"][stem]:
+            failed.append("thumbnail of %s differs from PIL's" % stem)
+        pngs, text = signature_digests(out / "signature.zip")
+        if pngs != ref["signature"][stem]["png"] \
+                or text != ref["signature"][stem]["json"]:
+            failed.append("signature.zip of %s differs from JAX's" % stem)
+        if text_digests(workdir / "rtext" / stem) != ref["rtext"][stem]:
+            failed.append("rtext of %s differs from JAX's" % stem)
+    # planted: a FAILED stage, a temporary file and a broken JSON a page
+    for stem in pages:
+        out = corpus / (stem + ".out")
+        rt = json.loads((out / "runtime.json").read_text())
+        rt["origami_tpu.batch.detect.ocr"] = dict(
+            status="FAILED", traceback="Traceback\nValueError: planted")
+        (out / "runtime.json").write_text(json.dumps(rt))
+        (out / "tmp1234").write_text("x")
+        (out / "broken.json").write_text("{")
+    cwd = os.getcwd()
+    os.chdir(workdir)                  # stats writes errors.csv here
+    try:
+        printed = run("utils.stats", "--list-names", "--list-errors")
+    finally:
+        os.chdir(cwd)
+    errors = (workdir / "errors.csv").read_text()
+    if "ValueError: planted" not in printed or "2: synth0000.png" \
+            not in printed or errors.count("planted") != 1:
+        failed.append("stats did not report the planted failures:\n%s"
+                      % printed[-600:])
+    printed = run("utils.cleanup")
+    if "removed 4 files, cleared 2 failure records." not in printed:
+        failed.append("cleanup: %r" % printed.strip()[-200:])
+    printed = run("utils.reset", "-a", "annotation/layout, thumbnail")
+    left = [p for stem in pages for p in (corpus / (stem + ".out"))
+            .glob("*") if p.name in ("annotation.layout.png",
+                                     "thumbnail.png")]
+    if "removed 4 artifacts." not in printed or left:
+        failed.append("reset: %r, left %s" % (printed.strip()[-200:],
+                                              left))
+    log("  thumbnail, signature, rtext equal to JAX's; stats, cleanup "
+        "and reset on the planted files ok; s a page: %s" % ", ".join(
+            "%s %.3f" % kv for kv in rates.items()))
+    return rates
+
+
+def check_skew(ref, device, failed):
+    """patch_skew_samples on the JAX binarized page (the fixture's 1-bit
+    PNG), on the card, against the JAX function's samples."""
+    import torch
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core.flow import patch_skew_samples
+    mask = torch.from_numpy(
+        _png.read(INSPECT_REF / ref["skew"]["mask"]) > 0).to(device)
+    counts = []
+    for patch in SKEW_PATCHES:
+        t0 = time.time()
+        got = skew_rows(patch_skew_samples(mask, patch=patch))
+        secs = time.time() - t0
+        bad, n, same = skew_errors(got, ref["skew"][str(patch)],
+                                   "patch %d" % patch)
+        failed += bad
+        counts.append("patch %d: %d/%d tiles equal (%.3f s)"
+                      % (patch, same, n, secs))
+    log("  patch_skew_samples on the JAX binarized %s: %s" % (
+        ref["skew"]["page"], "; ".join(counts)))
+
+
+def check_inspection(workdir, device="cuda"):
+    """Phase 17: the renders, the utilities and patch_skew_samples.
+    -> the dewarp_u8 launches of the renders' cold runs."""
+    ref = json.loads((INSPECT_REF / "inspect.json").read_text())
+    corpus = inspect_corpus(workdir / "inspect")
+    failed = []
+    launched, _ = check_renders(corpus, ref, device, failed)
+    check_utilities(corpus, ref, device, failed, workdir)
+    check_skew(ref, device, failed)
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return launched
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -4825,12 +5130,14 @@ def main():
     if not (ROOT / "origami_tpu_torch").is_dir() or not FIXTURE.is_dir() \
             or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
             or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
-            or not TRAIN_REF.is_dir() or not GT_REF.is_dir():
+            or not TRAIN_REF.is_dir() or not GT_REF.is_dir() \
+            or not INSPECT_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
               "tests/data/torch_layout/, tests/data/torch_compose/, "
-              "tests/data/torch_train/ or tests/data/torch_gt/ missing)",
+              "tests/data/torch_train/, tests/data/torch_gt/ or "
+              "tests/data/torch_inspect/ missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -5055,6 +5362,12 @@ def main():
         check_synth(work)
         log("  (phase 16: %.1f s)" % (time.time() - t16))
 
+        log("== phase 17: the annotate renders, the corpus utilities and "
+            "patch_skew_samples on the card vs the JAX package (%s)" % smi)
+        t17 = time.time()
+        inspect_launches = check_inspection(work)
+        log("  (phase 17: %.1f s)" % (time.time() - t17))
+
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
              for k in whole["banded"]}
@@ -5062,6 +5375,10 @@ def main():
     total["remap_batch"] = train_launches["remap_batch"]
     # the affine warp's: its launches in phase 15's deskew_pair and lines
     total["remap_affine"] = affine_launches
+    # phase 17's renders dewarp pages too (cold page caches): their
+    # launches stand beside the chain's, not in its count
+    by_path = {"dewarp_u8": {"chain": total["dewarp_u8"],
+                             "inspection": inspect_launches}}
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",
@@ -5094,6 +5411,8 @@ def main():
             max_abs_err=row["err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"])
+        if name in by_path:
+            kernels[name]["launches_by_path"] = by_path[name]
     # remap (the dense map) is remap_pallas' parity entry: the layout
     # stage took it until dewarp_f32 upsampled the grid in the kernel
     off_path = ("take_along_axis_lane", "take_along_axis_sublane", "remap")

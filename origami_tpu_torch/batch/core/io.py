@@ -1,8 +1,11 @@
 """Typed artifact I/O: Stage/Artifact registry, Reader/Writer, atomic writes.
 
-Port of the parts of origami_tpu/batch/core/io.py that the nine detect
-stages use (segment, contours, flow, dewarp, layout, lines, order, OCR,
-compose).
+Port of origami_tpu/batch/core/io.py: the artifacts of the nine detect
+stages (segment, contours, flow, dewarp, layout, lines, order, OCR,
+compose), the annotation renders and the corpus utilities' outputs.
+Annotations and the thumbnail are PNG where the JAX package writes JPEG
+(`annotation.<name>.png`, `thumbnail.png`): the card's machine has no
+JPEG encoder.
 Per-page `<image>.out/` directories hold the stage artifacts of
 docs/formats.md; a stage declares its I/O as (name, Input/Output) pairs,
 the runtime instantiates Readers/Writers, skips pages whose inputs are
@@ -51,7 +54,7 @@ class Artifact(enum.Enum):
     COMPOSE = ("compose.zip", None)
     RUNTIME = ("runtime.json", None)
     SIGNATURE = ("signature.zip", None)
-    THUMBNAIL = ("thumbnail.jpg", None)
+    THUMBNAIL = ("thumbnail.png", None)
     DINGLEHOPPER = ("dinglehopper.xml", None)
     CONTOURS = ("contours.%d.zip",
                 {Stage.WARPED: 0, Stage.DEWARPED: 1,
@@ -71,6 +74,26 @@ class Artifact(enum.Enum):
         if stage not in self._stage_variants:
             raise ValueError("%s unsupported for %s" % (stage, self))
         return self._pattern % self._stage_variants[stage]
+
+
+class Annotation:
+    """A debugging render: `annotation.<name>.png`."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def filename(self, stage=None):
+        return "annotation.%s.png" % self.name
+
+
+def parse_artifact(name):
+    """Parse 'contours/warped', 'annotation/layout', or 'ocr' specs."""
+    if "/" in name:
+        t1, t2 = (s.strip().upper() for s in name.split("/", 1))
+        if t1 == "ANNOTATION":
+            return Annotation(t2.lower()), None
+        return Artifact[t1], Stage[t2]
+    return Artifact[name.strip().upper()], None
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +499,15 @@ class Writer:
     def segmentation(self, segmentation):
         with self._write(self.path(Artifact.SEGMENTATION), "wb") as f:
             segmentation.save(f)
+
+    def signature(self):
+        return self.write_zip(Artifact.SIGNATURE)
+
+    def annotation(self, image):
+        """Save `image` (anything with save(path)) as the one declared
+        annotation."""
+        (a,) = tuple(self._artifacts)
+        image.save(str(self.path(a)))
 
 
 class Input:

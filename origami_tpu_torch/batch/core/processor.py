@@ -147,7 +147,11 @@ def _worker_run_chunk(chunk):
     """chunk: [(index, path str)]. The worker rebuilds each page's
     readers and writers (prepare_process), so only paths cross the
     process boundary. Returns ([(index, path str)], the kernel launches
-    the chunk made, by counter module)."""
+    the chunk made, by counter module). Taking up a chunk counts as
+    progress, so --alive runs from a worker's first page and not from
+    the pool's start: a worker's spawn (seconds under load) is no stall."""
+    if _worker_heartbeat is not None:
+        _worker_heartbeat.value = time.time()
     before = _launch_snapshot()
     results = []
     for i, path in _worker_self._run_chunk_paths(
@@ -434,7 +438,8 @@ class BatchedProcessor(Processor):
         hold a CUDA context, which a forked child cannot use) rebuild
         the processor via spawn_factory and run chunks of page paths; a
         Watchdog ends the pool when no page completes for --alive
-        seconds, and the run then exits with status 1."""
+        seconds (a worker taking up a chunk counts as progress too), and
+        the run then exits with status 1."""
         ctx = multiprocessing.get_context("spawn")
         heartbeat = ctx.Value("d", time.time())
         factory, fargs = self.spawn_factory()
@@ -556,3 +561,37 @@ class BatchedProcessor(Processor):
                 info.setdefault("status", "COMPLETED")
                 info["elapsed"] = per_page
                 self._update_runtime_info(p, {self.processor_name: info})
+
+
+class PageProcessor(BatchedProcessor):
+    """A host stage that takes one page at a time: `process(page_path,
+    **artifacts)` gets the readers and writers its `artifacts()` name
+    (the JAX package's plain Processor contract)."""
+
+    POOLED = True
+
+    def __init__(self, options):
+        super().__init__(options, batch_size=1)
+
+    def process_batch(self, pages):
+        return {p: self.process(p, **{k: v for k, v in kw.items()
+                                      if not k.startswith("_")}) or {}
+                for p, kw in pages}
+
+
+def run_cli(cls, argv, prog, description, add_options=None):
+    """The command line of a one-class stage: parse `argv` (the options
+    `add_options(parser)` adds, DATA_PATH and the runtime options), build
+    `cls` from them and traverse DATA_PATH. -> the processor."""
+    import argparse
+    p = argparse.ArgumentParser(prog=prog, description=description)
+    if add_options is not None:
+        add_options(p)
+    p.add_argument("data_path", type=str)
+    Processor.add_arguments(p)
+    args = p.parse_args(argv)
+    if not Path(args.data_path).exists():
+        raise SystemExit("no such path: %s" % args.data_path)
+    stage = cls(vars(args))
+    stage.traverse(args.data_path)
+    return stage

@@ -6,8 +6,10 @@ as its `convert("L")` gives), non-interlaced. Everything else raises
 ValueError. `read_gray` converts color the way PIL's `convert("L")` does
 (ITU-R 601-2 luma in 16-bit fixed point), so pixels match the reference
 loader exactly. `encode_bilevel` / `write_bilevel` write the 1-bit
-grayscale PNG that PIL writes for a mode "1" image. `encode_paletted` / `decode_paletted` write and read the
-paletted label maps of segment.zip (colour type 3 with a PLTE chunk).
+grayscale PNG that PIL writes for a mode "1" image. `encode_rgb` /
+`write_rgb` write 8-bit RGB (colour type 2): the annotation renders.
+`encode_paletted` / `decode_paletted` write and read the paletted label
+maps of segment.zip (colour type 3 with a PLTE chunk).
 Keeps the port free of PIL.
 """
 
@@ -102,10 +104,14 @@ def _parse(data, what="data"):
 
 
 def read(path):
-    """Decode a PNG into uint8 (H, W) or (H, W, C)."""
+    """Decode a PNG file into uint8 (H, W) or (H, W, C)."""
     with open(path, "rb") as f:
-        data = f.read()
-    (w, h, depth, ctype, _c, _f, _i), _plte, raw = _parse(data, path)
+        return decode(f.read(), path)
+
+
+def decode(data, what="data"):
+    """Decode PNG bytes into uint8 (H, W) or (H, W, C)."""
+    (w, h, depth, ctype, _c, _f, _i), _plte, raw = _parse(data, what)
     if depth == 1 and ctype == 0:
         rows = _unfilter(raw, h, (w + 7) // 8, 1)
         bits = np.unpackbits(rows, axis=1)[:, :w]
@@ -183,6 +189,31 @@ def encode_gray(pixels):
 def write_gray(path, pixels):
     with open(path, "wb") as f:
         f.write(encode_gray(pixels))
+
+
+# zlib level 1: a page render compresses 4x faster than at 6
+_RGB_LEVEL = 1
+
+
+def encode_rgb(pixels):
+    """uint8 (H, W, 3) RGB pixels -> PNG bytes: colour type 2, 8 bits,
+    every row with filter 0, zlib level `_RGB_LEVEL`."""
+    px = np.ascontiguousarray(pixels, np.uint8)
+    if px.ndim != 3 or px.shape[2] != 3:
+        raise ValueError("pixels must be (H, W, 3)")
+    h, w, _ = px.shape
+    rows = np.zeros((h, 3 * w + 1), np.uint8)
+    rows[:, 1:] = px.reshape(h, 3 * w)
+    return b"".join([
+        _SIG,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), _RGB_LEVEL)),
+        _chunk(b"IEND", b"")])
+
+
+def write_rgb(path, pixels):
+    with open(path, "wb") as f:
+        f.write(encode_rgb(pixels))
 
 
 def encode_bilevel(mask):

@@ -4,13 +4,14 @@ Port of origami_tpu/core/flow.py (host numpy):
 
   * `Samples` — the flow.zip sample container (docs/formats.md#flowzip:
     (n, 3) float64 [x, y, phi] npy + {"version", "size"} json);
+  * `patch_skew_samples` — local text skew on the page's device: the
+    ink of the binarized page cut into tiles, each tile's skew the shear
+    (of 33 from -0.12 to 0.12 rad) whose row profile has the largest
+    variance, all tiles and shears in one batched computation;
   * `border_angle_samples` — V-field samples from the page content's
     side borders (the flow stage's --estimate-border-skew);
   * `separator_angle_samples` — angle samples along separator polylines
     (reference flow.py:245-268), from vector geometry.
-
-`patch_skew_samples` (device local-skew estimation) has no caller on any
-stage's path and is not ported yet (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ import json
 import math
 
 import numpy as np
+import torch
 
+from origami_tpu_torch import device as _device
 from origami_tpu_torch.core.math import Geometry, Orientation
 
 
@@ -77,6 +80,88 @@ class Samples:
 # ---------------------------------------------------------------------------
 # border skew estimation
 # ---------------------------------------------------------------------------
+
+def shear_angles(n_angles=33, max_angle=0.12):
+    """(angles, tan(angles)) as float32 numpy: `jnp.linspace(-max_angle,
+    max_angle, n_angles)` as XLA's CPU backend computes it inside
+    flow.py:_patch_skews, and the tangents rounded from float64, which
+    equal XLA's float32 tan on these angles.
+
+    XLA evaluates -m (1 - i / d) + i (m / d) for i < d = n_angles - 1,
+    then m, and fuses each element into one fma: fma(i, m / d, -m (1 -
+    i / d)), except at i = 1, where the product by i folds away and the
+    other product fuses: fma(-m, 1 - 1 / d, m / d)."""
+    f32, f64 = np.float32, np.float64
+    m = f32(max_angle)
+    div = n_angles - 1
+    it = np.arange(div, dtype=f32)
+    inv = f32(1.0 / div)
+    one_minus = f32(1) - it * inv
+    step = m * inv
+    # the float64 sums of a float32 product and a float32 are exact
+    angles = (f64(step) * it + (-m) * one_minus).astype(f32)
+    if div > 1:
+        angles[1] = f32(f64(-m) * f64(one_minus[1]) + f64(step))
+    angles = np.concatenate([angles, [m]])
+    return angles, np.tan(angles.astype(f64)).astype(f32)
+
+
+def _patch_skews(ink, patch=256, n_angles=33, max_angle=0.12):
+    """flow.py:_patch_skews on a float32 ink tensor (1 = ink): for each
+    (patch x patch) tile, the shear angle whose sheared row profile
+    (row y + tan(a) (x - patch / 2), rounded half to even and clipped)
+    has the largest variance. -> ((gy, gx) text angles, (gy, gx) ink
+    mass), float32 tensors on the ink's device. The profiles are
+    integer counts, so their scatter-add is exact in any order; the
+    variances are taken in float64."""
+    h, w = ink.shape
+    gy, gx = h // patch, w // patch
+    dev = ink.device
+    tiles = ink[: gy * patch, : gx * patch] \
+        .reshape(gy, patch, gx, patch).permute(0, 2, 1, 3) \
+        .reshape(gy * gx, patch * patch)
+    angles, tans = shear_angles(n_angles, max_angle)
+    xs = torch.arange(patch, dtype=torch.float32, device=dev) - patch / 2.0
+    ys = torch.arange(patch, dtype=torch.float32, device=dev)
+    shift = torch.from_numpy(tans).to(dev)[:, None] * xs[None, :]
+    yy = ys[None, :, None] + shift[:, None, :]            # (A, y, x)
+    rows = torch.round(yy).clamp_(0, patch - 1).long() \
+        .reshape(1, n_angles, patch * patch)
+    prof = torch.zeros((gy * gx, n_angles, patch), dtype=torch.float32,
+                       device=dev)
+    prof.scatter_add_(2, rows.expand(gy * gx, -1, -1),
+                      tiles[:, None, :].expand(-1, n_angles, -1))
+    scores = prof.double().var(dim=2, unbiased=False)
+    best = scores.argmax(dim=1)
+    mass = tiles.sum(dim=1)
+    text = -torch.from_numpy(angles).to(dev)[best]
+    return text.reshape(gy, gx), mass.reshape(gy, gx)
+
+
+def patch_skew_samples(binarized, patch=256, min_ink_frac=0.02,
+                       max_angle=0.12, device=None):
+    """H-field samples from local text skew over the binarized page
+    (True = paper; flow.py:138-157). `binarized` is a numpy mask or a
+    bool tensor, whose device it runs on; a numpy mask goes to `device`
+    (None: the card, raising without one). -> [((x, y), angle)]."""
+    if isinstance(binarized, torch.Tensor):
+        ink = (~binarized).float()
+    else:
+        ink = torch.from_numpy(~np.asarray(binarized, bool)).float() \
+            .to(_device.resolve(device))
+    angles, mass = _patch_skews(ink, patch=patch, max_angle=max_angle)
+    angles = angles.cpu().numpy()
+    mass = mass.cpu().numpy()
+    out = []
+    thresh = min_ink_frac * patch * patch
+    for iy in range(angles.shape[0]):
+        for ix in range(angles.shape[1]):
+            if mass[iy, ix] >= thresh:
+                cx = (ix + 0.5) * patch
+                cy = (iy + 0.5) * patch
+                out.append(((cx, cy), float(angles[iy, ix])))
+    return out
+
 
 def border_angle_samples(binarized, n_samples=12, smooth=51,
                          min_content_rows=0.3):

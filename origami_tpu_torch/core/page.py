@@ -26,6 +26,7 @@ _IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".jp2", ".bmp")
 _PIXELS_LRU = collections.OrderedDict()        # decoded host pixels
 _DEVICE_PIXELS_LRU = collections.OrderedDict()  # u8 page on its device
 _DEWARPED_LRU = collections.OrderedDict()      # u8 dewarped page
+_DEWARPED_HOST_LRU = collections.OrderedDict()  # its host copy
 _BINARIZED_LRU = collections.OrderedDict()     # bool host masks
 # pages each cache holds; the binarized cache holds two spaces (warped
 # and dewarped) a page. A runner that keeps several waves of pages alive
@@ -38,6 +39,14 @@ def set_cache_budget(pages_in_flight):
     caches never shrink below their defaults."""
     global _PAGES
     _PAGES = max(_PAGES, int(pages_in_flight) + 4)
+
+
+def clear_caches():
+    """Empty every page cache: the next Page decodes, uploads, dewarps
+    and binarizes again."""
+    for lru in (_PIXELS_LRU, _DEVICE_PIXELS_LRU, _DEWARPED_LRU,
+                _DEWARPED_HOST_LRU, _BINARIZED_LRU):
+        lru.clear()
 
 
 def find_image_path(path):
@@ -139,6 +148,23 @@ class Page:
             dev = Dewarper(self.device_pixels, self._grid).dewarped_dev
             _lru_put(_DEWARPED_LRU, key, dev)
         return dev
+
+    @property
+    def dewarped(self):
+        """The dewarped page as host u8 numpy (None: no grid):
+        `dewarped_dev` copied back once (page.py:196-203)."""
+        if self._grid is None:
+            return None
+        key = self._file_key(str(self._device), self._grid_fp())
+        px = _lru_get(_DEWARPED_HOST_LRU, key)
+        if px is None:
+            px = self.dewarped_dev.cpu().numpy()
+            _lru_put(_DEWARPED_HOST_LRU, key, px)
+        return px
+
+    def pixels(self, dewarped=False):
+        """Host u8 pixels of the page, dewarped or as scanned."""
+        return self.dewarped if dewarped else self.warped
 
     def _binarize(self, key, pixels_dev):
         """Sauvola mask (True = paper) of a u8 page on the device, as a

@@ -427,7 +427,13 @@ void fill_convex_l(uint8_t* img, int h, int w, const int64_t* vx,
   } while (++y <= (int)ymax);
 }
 
-// Circle(img, center, radius, color, fill = 1)
+}  // namespace
+
+extern "C" {
+
+// Circle(img, center, radius, color, fill = 1): cv2.circle(img, (cx, cy),
+// radius, v, -1) with LINE_8, the filled Bresenham circle of drawing.cpp
+// (also the caps of thick_line).
 void fill_circle(uint8_t* img, int h, int w, int cx, int cy, int radius,
                  uint8_t v) {
   int err = 0, dx = radius, dy = 0, plus = 1, minus = (radius << 1) - 1;
@@ -445,6 +451,10 @@ void fill_circle(uint8_t* img, int h, int w, int cx, int cy, int radius,
     minus -= mask & 2;
   }
 }
+
+}  // extern "C"
+
+namespace {
 
 // ThickLine(img, p0, p1, color, thickness, LINE_8, flags, shift 0). As
 // OpenCV 5 does, the segment is first clipped (integer clipLine) to the
@@ -707,21 +717,34 @@ void fill_poly(uint8_t* img, int h, int w, const int32_t* pts, int n,
   for (int i = 0; i < n; ++i) {
     const int64_t px1 = (int64_t)pts[2 * i] << kShift;
     const int64_t py1 = pts[2 * i + 1];
-    cv_line(img, h, w, (int)((px0 + (1 << (kShift - 1))) >> kShift),
-            (int)py0, (int)((px1 + (1 << (kShift - 1))) >> kShift),
-            (int)py1, v);
+    int64_t t0x = (px0 + (1 << (kShift - 1))) >> kShift, t0y = py0;
+    int64_t t1x = (px1 + (1 << (kShift - 1))) >> kShift, t1y = py1;
+    cv_line(img, h, w, (int)t0x, (int)t0y, (int)t1x, (int)t1y, v);
+    // an edge with an end off the image starts from its clipped ends,
+    // as CollectPolyEdges does
+    int64_t cx0 = px0, cy0 = py0, cx1 = px1, cy1 = py1;
+    if ((uint64_t)t0x >= (uint64_t)w || (uint64_t)t1x >= (uint64_t)w ||
+        (uint64_t)t0y >= (uint64_t)h || (uint64_t)t1y >= (uint64_t)h) {
+      clip_line_l(w, h, t0x, t0y, t1x, t1y);
+      if (t0y != t1y) {
+        cx0 = t0x << kShift;
+        cy0 = t0y;
+        cx1 = t1x << kShift;
+        cy1 = t1y;
+      }
+    }
     if (py0 != py1) {
       PolyEdge e;
+      e.dx = (cx1 - cx0) / (cy1 - cy0);
       if (py0 < py1) {
         e.y0 = (int)py0;
         e.y1 = (int)py1;
-        e.x = px0;
+        e.x = cx0 + (py0 - cy0) * e.dx;
       } else {
         e.y0 = (int)py1;
         e.y1 = (int)py0;
-        e.x = px1;
+        e.x = cx1 + (py1 - cy1) * e.dx;
       }
-      e.dx = (px1 - px0) / (py1 - py0);
       e.next = nullptr;
       edges.push_back(e);
     }

@@ -5,7 +5,7 @@ segment distance, the Douglas-Peucker keep-mask, Zhang-Suen thinning, the
 city-block EDT, the skeleton tracer and the concave hull of native.cpp
 (the JAX package's file copied whole), and the port's own raster
 vectorization of contour_trace.cpp (cv2's findContours, connected
-components, chamfer distance transform, fillPoly and line;
+components, chamfer distance transform, fillPoly, line and circle;
 geometry/contour_trace.py and raster.py wrap them). Both sources are compiled at first use with g++ (the JAX
 package's Makefile flags) into
 
@@ -116,6 +116,8 @@ def library():
                                     ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.draw_line.restype = None
     lib.draw_line.argtypes = [_U8P] + [ctypes.c_int] * 7
+    lib.fill_circle.restype = None
+    lib.fill_circle.argtypes = [_U8P] + [ctypes.c_int] * 5 + [ctypes.c_uint8]
     return lib
 
 

@@ -115,6 +115,13 @@ def _fill_polygon(mask, pts, value):
                         len(p), int(value))
 
 
+def _fill_circle(mask, center, radius, value):
+    """cv2.circle(mask, center, radius, value, -1) (native C++)."""
+    h, w = mask.shape
+    library().fill_circle(_u8_ptr(mask), h, w, int(center[0]),
+                          int(center[1]), int(radius), int(value))
+
+
 def _stroke(mask, pts, thickness, value):
     """cv2.polylines(mask, [pts], False, value, thickness) for integer
     points: thickness 1 the Bresenham lines, thicker OpenCV's ThickLine

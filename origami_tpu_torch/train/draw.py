@@ -182,6 +182,33 @@ def font(kind, size):
     return _FONTS[key]
 
 
+def coverage(xy, text, font):
+    """(mask, x0, y0): the text's 8-bit coverage (int32 (h, w)) with its
+    top-left corner at (x0, y0), the pen starting at xy on the baseline;
+    None when nothing is inked."""
+    x, y = xy
+    start = math.floor(math.modf(x)[0] * 64 + 0.5)
+    u, pen, _ = font.layout(text)
+    glyphs = []
+    for k in range(len(u)):
+        cov, dx, dy = font.glyph(int(u[k]))
+        if cov.size:
+            glyphs.append((cov, math.floor(x) + _pixel(start + int(pen[k]))
+                           + dx, int(y) + dy))
+    if not glyphs:
+        return None
+    x0 = min(g[1] for g in glyphs)
+    y0 = min(g[2] for g in glyphs)
+    x1 = max(g[1] + g[0].shape[1] for g in glyphs)
+    y1 = max(g[2] + g[0].shape[0] for g in glyphs)
+    mask = np.zeros((y1 - y0, x1 - x0), np.int32)
+    for cov, gx, gy in glyphs:
+        sub = mask[gy - y0: gy - y0 + cov.shape[0],
+                   gx - x0: gx - x0 + cov.shape[1]]
+        sub += cov - _div255(sub * cov)
+    return mask, x0, y0
+
+
 def _anchor(anchor):
     if anchor != "ls":
         raise ValueError("only the 'ls' anchor is drawn, not %r" % anchor)
@@ -210,26 +237,9 @@ class Draw:
         if x < 0 or y < 0 or y != int(y):
             raise ValueError("text is drawn from x >= 0 and a whole y, "
                              "not %r" % (xy,))
-        start = math.floor(math.modf(x)[0] * 64 + 0.5)
-        u, pen, _ = font.layout(text)
-        glyphs = []
-        for k in range(len(u)):
-            cov, dx, dy = font.glyph(int(u[k]))
-            if cov.size:
-                glyphs.append((cov, int(x) + _pixel(start + int(pen[k])) + dx,
-                               int(y) + dy))
-        if not glyphs:
-            return
-        x0 = min(g[1] for g in glyphs)
-        y0 = min(g[2] for g in glyphs)
-        x1 = max(g[1] + g[0].shape[1] for g in glyphs)
-        y1 = max(g[2] + g[0].shape[0] for g in glyphs)
-        mask = np.zeros((y1 - y0, x1 - x0), np.int32)
-        for cov, gx, gy in glyphs:
-            sub = mask[gy - y0: gy - y0 + cov.shape[0],
-                       gx - x0: gx - x0 + cov.shape[1]]
-            sub += cov - _div255(sub * cov)
-        self._blend(mask, x0, y0, fill)
+        cov = coverage(xy, text, font)
+        if cov is not None:
+            self._blend(*cov, fill)
 
     def _blend(self, mask, x0, y0, fill):
         """Blend `fill` through coverage `mask` placed at (x0, y0),

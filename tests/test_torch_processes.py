@@ -11,6 +11,7 @@ import json
 import threading
 import time
 import zipfile
+from pathlib import Path
 
 import pytest
 
@@ -22,9 +23,12 @@ COMMON = ["--device", "cpu", "--lock-strategy", "NONE", "--plain"]
 
 
 class StallingContours(contours.ContoursProcessor):
-    """A contours stage whose pages never end (a worker that hangs)."""
+    """A contours stage whose pages never end (a worker that hangs).
+    Each page marks its entry, with the time, in the `marks` folder."""
 
     def process(self, p, input, output):
+        marks = Path(self._options["marks"])
+        (marks / Path(p).name).write_text(repr(time.time()))
         time.sleep(120)
         return {}
 
@@ -67,14 +71,19 @@ def test_two_processes_write_the_single_process_artifacts(
 
 def test_watchdog_ends_a_stalled_worker(tmp_path):
     corpus = chip_smoke.chain_corpus(tmp_path / "c", True)
+    marks = tmp_path / "marks"
+    marks.mkdir()
     stage = StallingContours(dict(device="cpu", lock_strategy="NONE",
-                                  plain=True, processes=2, alive=24))
-    t0 = time.time()
+                                  plain=True, processes=2, alive=24,
+                                  marks=str(marks)))
     with pytest.raises(SystemExit) as e:
         stage.traverse(str(corpus))
     assert e.value.code == 1
-    # ended after --alive, well before the pages' 120 s
-    assert time.time() - t0 < 60
+    # both pages entered; the pool ended after --alive counted from the
+    # later entry, well before the pages' 120 s
+    entered = sorted(float(m.read_text()) for m in marks.iterdir())
+    assert len(entered) == 2
+    assert time.time() - entered[-1] < 60
     # two pages for two workers: a chunk of one page each, both stuck
     stuck = sorted(page for page, _pid, _age in stage.stuck)
     assert [p.rsplit("/", 1)[-1] for p in stuck] \

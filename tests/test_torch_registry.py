@@ -187,7 +187,15 @@ print(json.dumps({"modules": names,
                  "train.segment.segments", "train.segment.regions",
                  "train.segment.binarize", "batch.core.deskew",
                  "train.draw", "train.synth", "batch.utils",
-                 "batch.utils.evaluate"):
+                 "batch.utils.evaluate", "batch.annotate",
+                 "batch.annotate.utils", "batch.annotate.contours",
+                 "batch.annotate.grid", "batch.annotate.flow",
+                 "batch.annotate.lines", "batch.annotate.layout",
+                 "batch.utils.dewarp", "batch.utils.thumbnail",
+                 "batch.utils.signature", "batch.utils.rtext",
+                 "batch.utils.stats", "batch.utils.reset",
+                 "batch.utils.cleanup", "core.lingrid",
+                 "pagexml.transcriptions"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
@@ -285,3 +293,24 @@ def test_lines_order_compose_entry_points_need_cuda_unless_told_cpu(stage):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert getattr(mod, proc)({"device": "cpu"}).device.type == "cpu"
+
+
+INSPECTION_CLIS = ["annotate.contours", "annotate.grid", "annotate.flow",
+                   "annotate.lines", "annotate.layout", "utils.dewarp",
+                   "utils.thumbnail", "utils.signature", "utils.rtext",
+                   "utils.stats", "utils.reset", "utils.cleanup"]
+
+
+@pytest.mark.parametrize("cli", INSPECTION_CLIS)
+def test_inspection_clis_need_cuda_unless_told_cpu(tmp_path, cli):
+    """The annotate renders and the corpus utilities take --device
+    (default cuda) and raise without a card; --device cpu runs them."""
+    import importlib
+    mod = importlib.import_module("origami_tpu_torch.batch." + cli)
+    extra = {"utils.rtext": ["-o", str(tmp_path / "o")],
+             "utils.reset": ["-a", "ocr"]}.get(cli, [])
+    argv = extra + ["--lock-strategy", "NONE", str(tmp_path)]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(argv)
+    mod.main(argv + ["--device", "cpu"])     # an empty corpus
