@@ -181,6 +181,22 @@ Phases (any failure exits non-zero before the result line):
      SKEW_EQUAL of the angles equal, the rest within SKEW_STEP). The
      kernels line's dewarp_u8 row lists the renders' cold launches in
      launches_by_path, beside phase 12's count.
+ 18. scale-out for serving and the flagship graph: (a) build_flagship
+     (batch=2) at full width with the students' weights in all 5
+     members of each net, in float32 and bf16, on the fixture pages
+     against JAX's label maps (tests/data/torch_flagship,
+     scripts/make_torch_flagship_fixture.py) at FLAGSHIP_BARS; the bf16
+     graph's warm ms a page (CUDA events, median of FLAGSHIP_REPS), peak
+     memory and top device ops, and one page of the random-init graph;
+     (b) SegmentationPredictor over make_mesh() (every visible card)
+     against mesh=None on 3 pages: equal maps; (c) two processes of the
+     segment CLI on the one card, joined through
+     ORIGAMI_TPU_COORDINATOR, over MULTIHOST_PAGES copies of the fixture
+     pages: each page once, by the process its hash names, every map at
+     the students_bf16 bar against the fixture's JAX segment.zip, and
+     sauvola_packed 1 a page over both (the kernels line's
+     sauvola_packed row lists them in launches_by_path); (d)
+     parallel.dryrun.dryrun_multichip over every visible card.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -1743,14 +1759,15 @@ def check_grid(device, lane_row):
         short = torch.empty((n_gy, 8, 2), device=device)
 
         def run_h(cols=n_gx, dst=grid_h):
-            ops._launch(ops.kernels.origami_grid_scan_h, ops._ptr(h_xy),
-                        ops._ptr(h_phi), ops._ptr(h_mask), n_h, n_gy, cols,
-                        25.0, -50.0, ops._ptr(dst))
+            ops._launch(h_xy.device, ops.kernels.origami_grid_scan_h,
+                        ops._ptr(h_xy), ops._ptr(h_phi), ops._ptr(h_mask),
+                        n_h, n_gy, cols, 25.0, -50.0, ops._ptr(dst))
 
         def run_v(rows_=n_gy):
-            ops._launch(ops.kernels.origami_grid_scan_v, ops._ptr(grid_h),
-                        ops._ptr(v_xy), ops._ptr(v_phi), ops._ptr(v_mask),
-                        n_v, rows_, n_gx, 25.0, ops._ptr(out), None)
+            ops._launch(grid_h.device, ops.kernels.origami_grid_scan_v,
+                        ops._ptr(grid_h), ops._ptr(v_xy), ops._ptr(v_phi),
+                        ops._ptr(v_mask), n_v, rows_, n_gx, 25.0,
+                        ops._ptr(out), None)
 
         run_h()
         gh_plain = grid.scan_h_plain(h_xy, h_phi, h_mask, n_gy, n_gx, 25)
@@ -1850,7 +1867,7 @@ def host_path_ab(device):
     mods = (ops, gather, grid, binarize)
     current = {m: (m._launch, m._ptr) for m in mods}
 
-    def earlier_launch(fn, *args):
+    def earlier_launch(dev, fn, *args):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(_build.library(), fn.__name__)(*args, stream)
         if rc != 0:
@@ -5120,6 +5137,264 @@ def check_inspection(workdir, device="cuda"):
     return launched
 
 
+# ------------------------------------------------------------ phase 18
+
+FLAGSHIP_REF = ROOT / "tests" / "data" / "torch_flagship"
+# phase 18a: the flagship's label maps against JAX's, with SEG_MODES'
+# bars (float32 with TF32 off, bf16)
+FLAGSHIP_BARS = {"float32": SEG_MODES["students_f32"][2],
+                 "bfloat16": SEG_MODES["students_bf16"][2]}
+FLAGSHIP_PAGES = ("synth0000", "synth0001")
+FLAGSHIP_REPS = 5
+# phase 18c: the pages of the two-process segment run's corpus (copies
+# of the fixture pages)
+MULTIHOST_PAGES = 4
+
+
+def flagship_graph(dtype, device):
+    """build_flagship(batch=2) at full width with the nets' convolutions
+    in `dtype` (REGION_NET and SEP_NET given it in the module's
+    namespace, as scripts/make_torch_flagship_fixture.py does for JAX):
+    (segment, (stack_a, stack_b, images)) with the random members."""
+    from origami_tpu_torch.models import flagship
+    saved = flagship.REGION_NET, flagship.SEP_NET
+    flagship.REGION_NET = dict(saved[0], dtype=dtype)
+    flagship.SEP_NET = dict(saved[1], dtype=dtype)
+    try:
+        return flagship.build_flagship(batch=2, device=device)
+    finally:
+        flagship.REGION_NET, flagship.SEP_NET = saved
+
+
+def load_students(stack_a, stack_b):
+    """The students' weights into every member of each stack."""
+    from origami_tpu_torch.models import registry
+    for group, stack in (("region", stack_a), ("separator", stack_b)):
+        state = registry.load_model(ROOT / STUDENTS / group / "00",
+                                    "cpu")[0].state_dict()
+        for member in stack:
+            member.load_state_dict(state)
+
+
+def check_flagship(device, failed):
+    """Phase 18a: the flagship graph with the students in all 5 members,
+    float32 and bf16, on the fixture pages against JAX's label maps; the
+    bf16 graph's warm ms a page, peak memory and top device ops; one page
+    of the random-init graph as bench.py runs it."""
+    import torch
+    from origami_tpu_torch.core import _png
+    ref = np.load(FLAGSHIP_REF / "labels.npz")
+    pages = torch.from_numpy(np.stack([
+        _png.read_gray(FIXTURE / (stem + ".png"))
+        for stem in FLAGSHIP_PAGES]).astype(np.float32)).to(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        segment, (stack_a, stack_b, images) = flagship_graph(dtype, device)
+        if dtype == torch.bfloat16:
+            # the random-init graph on one of its own pages (bench.py
+            # times batches of 4 the same way, the first call apart)
+            one = images[:1]
+            segment(stack_a, stack_b, one)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reg, sep = segment(stack_a, stack_b, one)
+            torch.cuda.synchronize()
+            log("  random-init graph, one %dx%d page: %.1f ms wall, maps "
+                "%s and %s, %d region classes present" % (
+                    images.shape[1], images.shape[2],
+                    (time.perf_counter() - t0) * 1e3, tuple(reg.shape),
+                    tuple(sep.shape), int(reg.unique().numel())))
+        load_students(stack_a, stack_b)
+        got = segment(stack_a, stack_b, pages)
+        shares = {}
+        for net, labels in zip(("regions", "separators"), got):
+            want = ref["%s_%s" % (net, name)]
+            labels = labels.cpu().numpy()
+            if labels.shape != want.shape or labels.dtype != np.uint8:
+                failed.append("flagship %s %s: %s %s, expected %s u8" % (
+                    name, net, labels.dtype, labels.shape, want.shape))
+                continue
+            shares[net] = float((labels == want).mean())
+            if shares[net] < FLAGSHIP_BARS[name]:
+                failed.append("flagship %s %s: %.6f of the pixels equal to "
+                              "JAX's, below %.3f" % (
+                                  name, net, shares[net],
+                                  FLAGSHIP_BARS[name]))
+        log("  flagship %s, students x 5: equal pixels %s (gate %.3f)" % (
+            name, json.dumps(shares), FLAGSHIP_BARS[name]))
+    # the bf16 graph (the flagship as it ships) with the students
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_cuda(lambda: segment(stack_a, stack_b, pages),
+                   reps=FLAGSHIP_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    prof = profiled(lambda: segment(stack_a, stack_b, pages))
+    log("  flagship bf16 warm: %.2f ms a page (CUDA events, median of %d "
+        "calls of %d pages); peak device memory %.0f MiB; device time of "
+        "a profiled call %s" % (
+            ms / len(FLAGSHIP_PAGES), FLAGSHIP_REPS, len(FLAGSHIP_PAGES),
+            peak, fmt_ms(_device_ms(prof))))
+    log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=10))
+    return ms / len(FLAGSHIP_PAGES), peak
+
+
+def check_sharded_predictor(device, failed):
+    """Phase 18b: SegmentationPredictor over a mesh of every visible card
+    against the unsharded predictor on 3 pages: equal maps."""
+    import torch
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core.predict import SegmentationPredictor
+    from origami_tpu_torch.parallel.mesh import make_mesh
+    pages = [_png.read_gray(FIXTURE / (stem + ".png"))
+             for stem in FLAGSHIP_PAGES] + [_png.read_gray(REAL_SCAN)]
+    # every visible card (one "cpu" entry in a rehearsal on the CPU)
+    mesh = make_mesh() if torch.device(device).type == "cuda" \
+        else make_mesh([device])
+    sharded = SegmentationPredictor(ROOT / STUDENTS, mesh=mesh)
+    plain = SegmentationPredictor(ROOT / STUDENTS, device=device)
+    got, want = sharded.predict_batch(pages), plain.predict_batch(pages)
+    same = [all(np.array_equal(g.by_name(n).labels, w.by_name(n).labels)
+                for n in ("regions", "separators"))
+            for g, w in zip(got, want)]
+    if len(got) != len(pages) or not all(same):
+        failed.append("sharded predictor over %d cards: %d pages, equal "
+                      "to the unsharded maps %s" % (
+                          len(mesh.devices), len(got), same))
+    log("  SegmentationPredictor over a mesh of %d card(s), %d pages (pads "
+        "to %d): maps equal to mesh=None: %s" % (
+            len(mesh.devices), len(pages),
+            -(-len(pages) // len(mesh.devices)) * len(mesh.devices), same))
+
+
+def multihost_corpus(dst, n_processes=2):
+    """MULTIHOST_PAGES copies of the fixture pages, named as
+    tests/test_multihost.py:44-52 names them (page000.png, ...), keeping
+    only names that leave every process's hash share a page -> {name:
+    (source stem, the process its hash names)}."""
+    from origami_tpu_torch.parallel.multihost import stable_shard
+    dst.mkdir()
+    pages, i = {}, 0
+    while len(pages) < MULTIHOST_PAGES:
+        name = "page%03d.png" % i
+        shard = stable_shard(dst / name, n_processes)
+        missing = set(range(n_processes)) - {p for _, p in pages.values()}
+        i += 1
+        if MULTIHOST_PAGES - len(pages) <= len(missing) \
+                and shard not in missing:
+            continue
+        stem = FLAGSHIP_PAGES[len(pages) % len(FLAGSHIP_PAGES)]
+        pages[name] = (stem, shard)
+        shutil.copy(FIXTURE / (stem + ".png"), dst / name)
+    return pages
+
+
+def check_multihost_segment(workdir, device, failed):
+    """Phase 18c: two processes of the segment CLI (the students, bf16),
+    joined through ORIGAMI_TPU_COORDINATOR, each on the card its process
+    id names modulo the cards (one card: both on it): each page
+    once, by its hashed process, each segment.zip at the students_bf16
+    bar against the fixture's JAX one, sauvola_packed 1 a page summed
+    over both. -> (sauvola_packed launches, {process: pages})."""
+    import os
+    import socket
+    from origami_tpu_torch.core.segment import Segmentation
+    corpus = workdir / "multihost"
+    pages = multihost_corpus(corpus)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    launch = ("ORIGAMI_TPU_COORDINATOR", "ORIGAMI_TPU_NUM_PROCESSES",
+              "ORIGAMI_TPU_PROCESS_ID", "MASTER_ADDR", "WORLD_SIZE",
+              "RANK", "LOCAL_RANK")
+    base = {k: v for k, v in os.environ.items() if k not in launch}
+    procs = []
+    t0 = time.time()
+    for pid in range(2):
+        env = dict(base, ORIGAMI_TPU_COORDINATOR="127.0.0.1:%d" % port,
+                   ORIGAMI_TPU_NUM_PROCESSES="2",
+                   ORIGAMI_TPU_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "origami_tpu_torch.batch.detect.segment",
+             "-m", STUDENTS, "--plain", "--device", str(device),
+             str(corpus)], cwd=str(ROOT),
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.time() - t0
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise PhaseError("segment CLI, process %d of 2, exited %d:\n%s"
+                             % (pid, p.returncode, err[-4000:]))
+    assigned, done, launched = {}, [], 0
+    for pid, (out, _) in enumerate(outs):
+        for line in out.splitlines():
+            if "pages assigned" in line:
+                assigned[pid] = int(line.split(": ")[1].split()[0])
+            elif line.startswith("["):
+                done.append((pid, Path(line.split()[-1]).name))
+            elif line.startswith('{"kernel_launches"'):
+                launched += json.loads(line)["kernel_launches"].get(
+                    "sauvola_packed", 0)
+    if sorted(assigned) != [0, 1] or min(assigned.values()) == 0 \
+            or sum(assigned.values()) != len(pages):
+        failed.append("multihost: pages assigned %s of %d" % (
+            assigned, len(pages)))
+    if sorted(n for _, n in done) != sorted(pages) or any(
+            pages[n][1] != pid for pid, n in done):
+        failed.append("multihost: pages done (process, page) %s, hashed %s"
+                      % (done, {n: p for n, (_, p) in pages.items()}))
+    bar = SEG_MODES["students_bf16"][2]
+    low = {}
+    for name, (stem, _) in pages.items():
+        got = Segmentation.open(corpus / (Path(name).stem + ".out")
+                                / "segment.zip")
+        ref = Segmentation.open(FIXTURE / (stem + ".out") / "segment.zip")
+        for net in ("regions", "separators"):
+            a, b = got.by_name(net).labels, ref.by_name(net).labels
+            share = float((a == b).mean()) if a.shape == b.shape else 0.0
+            if share < bar:
+                low["%s %s" % (name, net)] = share
+    if low:
+        failed.append("multihost: equal pixels below %.3f: %s" % (bar, low))
+    if launched != len(pages):
+        failed.append("multihost: sauvola_packed launches %d, expected %d"
+                      % (launched, len(pages)))
+    import torch
+    cards = min(2, torch.cuda.device_count()) \
+        if torch.device(device).type == "cuda" else 0
+    log("  two segment processes on %d card(s): assigned %s, done %s, "
+        "sauvola_packed %d for %d pages, every map at the students_bf16 "
+        "bar: %s; %.1f s wall" % (
+            cards, json.dumps(assigned), done, launched, len(pages),
+            not low, wall))
+    return launched, assigned
+
+
+def check_scale_out(workdir, device="cuda"):
+    """Phase 18: the flagship graph, the sharded predictor, two segment
+    processes on the card and the dry run. -> (sauvola_packed launches
+    of the two-process run, the flagship's warm ms a page, its peak
+    MiB)."""
+    import torch
+    from origami_tpu_torch.parallel.dryrun import dryrun_multichip
+    failed = []
+    ms, peak = check_flagship(device, failed)
+    check_sharded_predictor(device, failed)
+    launched, _ = check_multihost_segment(workdir, device, failed)
+    t0 = time.time()
+    n = torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+    dryrun_multichip(n, device)
+    log("  dryrun_multichip(%d): ok (%.1f s)" % (n, time.time() - t0))
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return launched, ms, peak
+
+
 # ---------------------------------------------------------------- main
 
 def main():
@@ -5131,13 +5406,14 @@ def main():
             or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
             or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
             or not TRAIN_REF.is_dir() or not GT_REF.is_dir() \
-            or not INSPECT_REF.is_dir():
+            or not INSPECT_REF.is_dir() or not FLAGSHIP_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
               "tests/data/torch_layout/, tests/data/torch_compose/, "
-              "tests/data/torch_train/, tests/data/torch_gt/ or "
-              "tests/data/torch_inspect/ missing)",
+              "tests/data/torch_train/, tests/data/torch_gt/, "
+              "tests/data/torch_inspect/ or tests/data/torch_flagship/ "
+              "missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -5368,6 +5644,13 @@ def main():
         inspect_launches = check_inspection(work)
         log("  (phase 17: %.1f s)" % (time.time() - t17))
 
+        log("== phase 18: the flagship ensemble graph, the sharded "
+            "predictor, two segment processes on the card and the dry "
+            "run (%s)" % smi)
+        t18 = time.time()
+        multihost_launches, _, _ = check_scale_out(work)
+        log("  (phase 18: %.1f s)" % (time.time() - t18))
+
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
              for k in whole["banded"]}
@@ -5377,8 +5660,11 @@ def main():
     total["remap_affine"] = affine_launches
     # phase 17's renders dewarp pages too (cold page caches): their
     # launches stand beside the chain's, not in its count
+    # phase 18's two segment processes binarize their pages too
     by_path = {"dewarp_u8": {"chain": total["dewarp_u8"],
-                             "inspection": inspect_launches}}
+                             "inspection": inspect_launches},
+               "sauvola_packed": {"chain": total["sauvola_packed"],
+                                  "multihost": multihost_launches}}
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

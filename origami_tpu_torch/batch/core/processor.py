@@ -7,8 +7,10 @@ lock strategy, record each page's status in runtime.json — a failure is
 captured with its traceback and the batch loop keeps going.
 
 Every processor carries a `torch.device` (the `device` option, "cuda"
-unless the caller asks for "cpu"); the JAX runtime's multihost sharding
-and compile cache stay out. The host stages (`POOLED`: contours, flow,
+unless the caller asks for "cpu"). Under a multi-process launch
+(parallel.multihost) each process queues only its hashed share of the
+pages (:371-390); the JAX runtime's compile cache has no counterpart.
+The host stages (`POOLED`: contours, flow,
 dewarp, layout, lines, order, compose) run in `--processes` spawned
 workers under a `Watchdog` that `--alive` times (:40-147, :442-470);
 each worker opens its own CUDA context, and the kernel launches it
@@ -319,9 +321,22 @@ class Processor:
         return _mutex.make_mutex(self._lock_strategy)
 
     def traverse(self, path):
+        from origami_tpu_torch.parallel import multihost
+        multi = multihost.maybe_initialize()
         if not self._plain:
             print("running %s." % self.processor_name, flush=True)
         queued = self._build_queue(path)
+        if multi:
+            # deterministic sharding over the processes: each queues only
+            # the pages whose stable hash lands on its rank (the locks
+            # still guard against overlapping fleets)
+            index, count = multihost.process_info()
+            keep = set(multihost.my_pages(
+                [p for _, p, _ in queued], index=index, count=count))
+            queued = [(j, p, kw) for j, (_, p, kw) in enumerate(
+                q for q in queued if q[1] in keep)]
+            print("host %d/%d: %d pages assigned."
+                  % (index, count, len(queued)), flush=True)
         self._mutex = self._make_mutex(path)
         profiler = device_trace = None
         if self._profile:

@@ -6,7 +6,8 @@ PIL's convert("L")), upload to the page's device once as u8, dewarp
 there through the dewarp kernel and binarize there through the Sauvola
 kernel. Process-wide LRUs keyed by (path, mtime) keep every stage of a
 process from decoding, uploading, dewarping or binarizing a page twice
-(page.py:39-117); `set_cache_budget` sizes them for a pipelined runner.
+(page.py:39-117); `set_cache_budget` sizes them for a pipelined runner,
+and `cache_stats` counts each one's hits, misses and evictions.
 """
 
 from __future__ import annotations
@@ -32,6 +33,19 @@ _BINARIZED_LRU = collections.OrderedDict()     # bool host masks
 # and dewarped) a page. A runner that keeps several waves of pages alive
 # raises it (set_cache_budget), so that no page is derived twice.
 _PAGES = 24
+
+# hits, misses and evictions of each cache, under the JAX package's
+# names where it has the cache (page.py:91-116). Only keyed lookups
+# count: a page whose file cannot be stat'ed has no key and never uses
+# the caches. An eviction in a pipelined run means a page derived twice.
+CACHE_STATS = collections.defaultdict(lambda: [0, 0, 0])
+
+
+def cache_stats():
+    """{cache: dict(hits, misses, evictions)} since the process started
+    (or CACHE_STATS was cleared)."""
+    return {k: dict(hits=v[0], misses=v[1], evictions=v[2])
+            for k, v in CACHE_STATS.items()}
 
 
 def set_cache_budget(pages_in_flight):
@@ -65,19 +79,24 @@ def is_image(path):
     return Path(path).suffix.lower() in _IMAGE_SUFFIXES
 
 
-def _lru_get(lru, key):
-    if key is not None and key in lru:
+def _lru_get(lru, key, name):
+    if key is None:
+        return None
+    if key in lru:
+        CACHE_STATS[name][0] += 1
         lru.move_to_end(key)
         return lru[key]
+    CACHE_STATS[name][1] += 1
     return None
 
 
-def _lru_put(lru, key, value):
+def _lru_put(lru, key, value, name):
     if key is None:
         return
     lru[key] = value
     while len(lru) > (2 * _PAGES if lru is _BINARIZED_LRU else _PAGES):
         lru.popitem(last=False)
+        CACHE_STATS[name][2] += 1
 
 
 class Page:
@@ -113,10 +132,10 @@ class Page:
         """Grayscale u8 (H, W) numpy pixels."""
         if self._pixels is None:
             key = self._file_key()
-            px = _lru_get(_PIXELS_LRU, key)
+            px = _lru_get(_PIXELS_LRU, key, "pixels")
             if px is None:
                 px = _png.read_gray(self._path)
-                _lru_put(_PIXELS_LRU, key, px)
+                _lru_put(_PIXELS_LRU, key, px, "pixels")
             self._pixels = px
         return self._pixels
 
@@ -124,11 +143,11 @@ class Page:
     def device_pixels(self):
         """The warped page as a u8 tensor on the page's device."""
         key = self._file_key(str(self._device))
-        dev = _lru_get(_DEVICE_PIXELS_LRU, key)
+        dev = _lru_get(_DEVICE_PIXELS_LRU, key, "device_pixels")
         if dev is None:
             dev = torch.from_numpy(np.ascontiguousarray(self.warped)) \
                 .to(self._device)
-            _lru_put(_DEVICE_PIXELS_LRU, key, dev)
+            _lru_put(_DEVICE_PIXELS_LRU, key, dev, "device_pixels")
         return dev
 
     def _grid_fp(self):
@@ -142,11 +161,11 @@ class Page:
         if self._grid is None:
             return None
         key = self._file_key(str(self._device), self._grid_fp())
-        dev = _lru_get(_DEWARPED_LRU, key)
+        dev = _lru_get(_DEWARPED_LRU, key, "dewarped")
         if dev is None:
             from origami_tpu_torch.core.dewarp import Dewarper
             dev = Dewarper(self.device_pixels, self._grid).dewarped_dev
-            _lru_put(_DEWARPED_LRU, key, dev)
+            _lru_put(_DEWARPED_LRU, key, dev, "dewarped")
         return dev
 
     @property
@@ -156,10 +175,10 @@ class Page:
         if self._grid is None:
             return None
         key = self._file_key(str(self._device), self._grid_fp())
-        px = _lru_get(_DEWARPED_HOST_LRU, key)
+        px = _lru_get(_DEWARPED_HOST_LRU, key, "dewarped_host")
         if px is None:
             px = self.dewarped_dev.cpu().numpy()
-            _lru_put(_DEWARPED_HOST_LRU, key, px)
+            _lru_put(_DEWARPED_HOST_LRU, key, px, "dewarped_host")
         return px
 
     def pixels(self, dewarped=False):
@@ -170,13 +189,13 @@ class Page:
         """Sauvola mask (True = paper) of a u8 page on the device, as a
         numpy bool array. The kernel packs it to a bit per pixel, so the
         device writes and the host receives an eighth of the mask."""
-        out = _lru_get(_BINARIZED_LRU, key)
+        out = _lru_get(_BINARIZED_LRU, key, "binarized")
         if out is None:
             from origami_tpu_torch.ops.binarize import sauvola_packed
             packed = sauvola_packed(pixels_dev, 15).cpu().numpy()
             out = np.unpackbits(packed, axis=1)[
                 :, : pixels_dev.shape[1]].astype(bool)
-            _lru_put(_BINARIZED_LRU, key, out)
+            _lru_put(_BINARIZED_LRU, key, out, "binarized")
         return out
 
     @property

@@ -34,11 +34,18 @@ from origami_tpu_torch.core.segment import Prediction, Segmentation
 
 class _EnsembleGraph:
     """(resize -> tile -> ensemble -> stitch -> vote) for one net group,
-    shared by all pages."""
+    shared by all pages. Each device of the mesh holds a replica of the
+    ensemble (the first device the loaded members themselves) and runs
+    its block of the page batch, its pages one after the other; N
+    devices run N blocks at once. Without a mesh of its own a predictor
+    is the one-device case."""
 
-    def __init__(self, models, meta):
+    def __init__(self, models, meta, mesh):
         from origami_tpu_torch.ops.tiling import TileLayout
-        self._models = models
+        from origami_tpu_torch.parallel.mesh import Mesh, replicate
+        # `models` sit on the mesh's first device
+        self._replicas = [models] + replicate(Mesh(mesh.devices[1:]),
+                                              models)
         self._meta = meta
         full_w, full_h = meta["full_size"]
         self._full_hw = (full_h, full_w)
@@ -47,7 +54,7 @@ class _EnsembleGraph:
         self._n_classes = len(meta["classes"])
 
     @torch.no_grad()
-    def __call__(self, images):
+    def _run(self, models, images):
         """images (B, H, W) u8 on the models' device -> label maps
         (B, full_h, full_w) u8 on that device. Pages run one after the
         other: a page's tile batch fills the card, and running pages
@@ -58,10 +65,17 @@ class _EnsembleGraph:
         for img in images:
             net_in = resize(img.float(), self._full_hw, "area") / 255.0
             tiles = self._layout.extract(net_in[..., None])
-            probs = ensemble_apply(self._models, tiles)
+            probs = ensemble_apply(models, tiles)
             stitched = self._layout.stitch_logits(probs, self._n_classes)
             out.append(torch.argmax(stitched, dim=-1).to(torch.uint8))
         return torch.stack(out)
+
+    def __call__(self, blocks):
+        """One u8 page block (b, H, W) a device of the mesh, each on its
+        device -> its label maps (b, full_h, full_w), left on the
+        devices. Every block is issued before anything is copied back."""
+        return [self._run(models, block)
+                for models, block in zip(self._replicas, blocks)]
 
     @property
     def meta(self):
@@ -86,12 +100,20 @@ def _pad_batch(pages):
 
 
 def _to_host(tensors):
-    """The tensors as numpy arrays, through one device-to-host copy."""
-    flat = torch.cat([t.reshape(-1) for t in tensors]).cpu().numpy()
-    out, i = [], 0
-    for t in tensors:
-        out.append(flat[i: i + t.numel()].reshape(tuple(t.shape)))
-        i += t.numel()
+    """The tensors as numpy arrays, through one device-to-host copy a
+    device."""
+    out = [None] * len(tensors)
+    by_device = {}
+    for i, t in enumerate(tensors):
+        by_device.setdefault(t.device, []).append(i)
+    for idx in by_device.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx]).cpu() \
+            .numpy()
+        o = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[o: o + n].reshape(tuple(tensors[i].shape))
+            o += n
     return out
 
 
@@ -100,12 +122,21 @@ class SegmentationPredictor:
 
     Models directory layout: <path>/<group>/<k>/ with group in
     {"region", "separator"}. `dtype` is the convolutions' type: bf16 on
-    the main path, float32 for parity runs."""
+    the main path, float32 for parity runs. `mesh`
+    (parallel.mesh.make_mesh) shards each page batch over its devices in
+    place of the one `device`."""
 
     def __init__(self, models_path, target="quality", device=None,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, mesh=None):
         from origami_tpu_torch.models import registry
-        self._device = _device.resolve(device)
+        from origami_tpu_torch.parallel.mesh import Mesh
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        self._mesh = mesh if mesh is not None \
+            else Mesh([_device.resolve(device)])
+        # the members load on the mesh's first device; the others take
+        # replicas
+        self._device = self._mesh.devices[0]
         self._graphs = []
         models_path = Path(models_path)
         for group, name in (("region", "regions"),
@@ -121,22 +152,31 @@ class SegmentationPredictor:
                 members = members[:1]
             models, meta = registry.load_ensemble(members, self._device,
                                                   conv_dtype=dtype)
-            self._graphs.append(_EnsembleGraph(models,
-                                               dict(meta, name=name)))
+            self._graphs.append(_EnsembleGraph(
+                models, dict(meta, name=name), self._mesh))
 
     def predict_batch(self, pages):
         """pages: list of (H, W) uint8 arrays -> list of Segmentation."""
+        from origami_tpu_torch.parallel.mesh import shard_batch
         batch, sizes = _pad_batch(pages)
         _, H, W = batch.shape
-        # one upload shared by the region and separator graphs
-        batch = torch.from_numpy(batch).to(self._device)
-        outs = _to_host([g(batch) for g in self._graphs])
+        # padded with its last page to a multiple of the data axis, then
+        # one upload a device, shared by the region and separator graphs
+        n = len(self._mesh.devices)
+        pad = (-len(batch)) % n
+        if pad:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], pad, 0)])
+        blocks = shard_batch(self._mesh, batch)
+        k = len(batch) // n
+        outs = [g(blocks) for g in self._graphs]
+        host = _to_host([t for o in outs for t in o])
         segs = []
         for i, (h, w) in enumerate(sizes):
             preds = []
-            for g, labels in zip(self._graphs, outs):
+            for j, g in enumerate(self._graphs):
                 meta = g.meta
-                lab = labels[i]
+                # page i is row i % k of the block i // k
+                lab = host[j * n + i // k][i % k]
                 # crop away the pad-bucket fraction: the raster then maps
                 # 1:1 onto the page again (stages rescale rasters of any
                 # size to page coordinates)
@@ -276,11 +316,12 @@ class AutoSegmentationPredictor:
     numpy; the components are geometry/contour_trace's."""
 
     def __init__(self, models_path=None, target="quality", device=None,
-                 dtype=torch.bfloat16, min_ink_coverage=0.45,
+                 dtype=torch.bfloat16, mesh=None, min_ink_coverage=0.45,
                  min_t_density=0.012, trained=None, heuristic=None):
         if trained is None:
-            trained = SegmentationPredictor(models_path, target=target,
-                                            device=device, dtype=dtype)
+            trained = SegmentationPredictor(
+                models_path, target=target, dtype=dtype, mesh=mesh,
+                device=None if mesh is not None else device)
         self._trained = trained
         self._heuristic = heuristic or HeuristicSegmentationPredictor(
             device=device)

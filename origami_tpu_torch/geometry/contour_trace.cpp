@@ -720,16 +720,19 @@ void fill_poly(uint8_t* img, int h, int w, const int32_t* pts, int n,
     int64_t t0x = (px0 + (1 << (kShift - 1))) >> kShift, t0y = py0;
     int64_t t1x = (px1 + (1 << (kShift - 1))) >> kShift, t1y = py1;
     cv_line(img, h, w, (int)t0x, (int)t0y, (int)t1x, (int)t1y, v);
-    // an edge with an end off the image starts from its clipped ends,
-    // as CollectPolyEdges does
+    // an edge with an end off the image runs through its clipped ends,
+    // as OpenCV 5's CollectPolyEdges does. Where the clipped part is
+    // level (one point on the border), the edge keeps its own rows and
+    // takes the clipped columns, so it runs along the border: its spans
+    // are clamped onto the canvas's edge column
     int64_t cx0 = px0, cy0 = py0, cx1 = px1, cy1 = py1;
     if ((uint64_t)t0x >= (uint64_t)w || (uint64_t)t1x >= (uint64_t)w ||
         (uint64_t)t0y >= (uint64_t)h || (uint64_t)t1y >= (uint64_t)h) {
       clip_line_l(w, h, t0x, t0y, t1x, t1y);
+      cx0 = t0x << kShift;
+      cx1 = t1x << kShift;
       if (t0y != t1y) {
-        cx0 = t0x << kShift;
         cy0 = t0y;
-        cx1 = t1x << kShift;
         cy1 = t1y;
       }
     }

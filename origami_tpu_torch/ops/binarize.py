@@ -166,8 +166,9 @@ def _sauvola_launch(name, image, window_size, k, r, border, packed):
     shape = (h, -(-w // 8)) if packed else (h, w)
     out = torch.empty(shape, dtype=torch.uint8, device=dev)
     if out.numel():
-        _launch(kernels.origami_sauvola_u8, _ptr(image), h, w, window_size,
-                float(k), float(r), _BORDERS[border], int(packed), _ptr(out))
+        _launch(dev, kernels.origami_sauvola_u8, _ptr(image), h, w,
+                window_size, float(k), float(r), _BORDERS[border],
+                int(packed), _ptr(out))
         launches.add(name)
     return out
 

@@ -59,7 +59,7 @@ def take_along_axis(src, idx, axis):
     r, c = idx.shape
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     if out.numel():
-        _launch(kernels.origami_take_along_axis_f32, _ptr(src),
+        _launch(dev, kernels.origami_take_along_axis_f32, _ptr(src),
                 src.shape[axis], _ptr(idx), r, c, axis, _ptr(out))
         launches.add("take_along_axis_lane" if axis == 1
                      else "take_along_axis_sublane")

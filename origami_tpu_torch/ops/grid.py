@@ -185,11 +185,11 @@ def grid_scan(h_xy, h_phi, h_mask, v_xy, v_phi, v_mask, n_gy, n_gx, res,
     res_f = float(res)
     grid_h = torch.empty((n_gy, n_gx, 2), dtype=torch.float32, device=dev)
     out = torch.empty((n_gy, n_gx, 2), dtype=torch.float32, device=dev)
-    _launch(kernels.origami_grid_scan_h, _ptr(h_xy), _ptr(h_phi),
+    _launch(dev, kernels.origami_grid_scan_h, _ptr(h_xy), _ptr(h_phi),
             _ptr(h_mask), n_h, n_gy, n_gx, res_f, -pad_cells * res_f,
             _ptr(grid_h))
     launches.add("grid_scan_h")
-    _launch(kernels.origami_grid_scan_v, _ptr(grid_h), _ptr(v_xy),
+    _launch(dev, kernels.origami_grid_scan_v, _ptr(grid_h), _ptr(v_xy),
             _ptr(v_phi), _ptr(v_mask), n_v, n_gy, n_gx, res_f, _ptr(out),
             None if best is None else _ptr(best))
     launches.add("grid_scan_v")

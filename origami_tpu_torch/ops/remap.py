@@ -379,12 +379,17 @@ def _check(t, name, dtype, ndim, device):
 kernels = _build.entries
 
 
-def _launch(fn, *args):
-    """Call the bound C entry point `fn` with `args` and the current
-    device's current stream (its raw handle: no torch.cuda.Stream object
-    is built per call); raise on a CUDA error."""
-    rc = fn(*args,
-            torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
+def _launch(dev, fn, *args):
+    """Call the bound C entry point `fn` with `args` on the card `dev`
+    (the tensors' card, made current for the call where it is not) and
+    that card's current stream (its raw handle: no torch.cuda.Stream
+    object is built per call); raise on a CUDA error."""
+    index = dev.index
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError("%s: CUDA error %d at launch" % (fn.__name__, rc))
 
@@ -425,8 +430,9 @@ def remap(image, map_xy, fill=0.0, border="fill_taps"):
     if out.numel():
         h, w = image.shape
         p = _ptr(map_xy)
-        _launch(kernels.origami_remap_f32, _ptr(image), 1, h, w, p, p + 4, 2,
-                oh, ow, float(fill), int(border == "hard"), _ptr(out))
+        _launch(dev, kernels.origami_remap_f32, _ptr(image), 1, h, w, p,
+                p + 4, 2, oh, ow, float(fill), int(border == "hard"),
+                _ptr(out))
         launches.add("remap")
     return out
 
@@ -461,8 +467,9 @@ def remap_batch(images, maps, fill=0.0, border="hard"):
     out = torch.empty((b, oh, ow), dtype=torch.float32, device=dev)
     if out.numel():
         _, h, w = images.shape
-        _launch(kernels.origami_remap_f32, _ptr(images), b, h, w, *ptrs,
-                stride, oh, ow, float(fill), int(border == "hard"), _ptr(out))
+        _launch(dev, kernels.origami_remap_f32, _ptr(images), b, h, w,
+                *ptrs, stride, oh, ow, float(fill), int(border == "hard"),
+                _ptr(out))
         launches.add("remap_batch")
     return out
 
@@ -509,9 +516,9 @@ def dewarp_u8(page_u8, hv, res, fill=255.0, border="hard",
     out = torch.empty((gh * res, gw * res), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = page_u8.shape
-        _launch(kernels.origami_dewarp_u8, _ptr(page_u8), h, w, _ptr(hv), gh,
-                gw, res, float(fill), int(border == "fill_taps"), _ptr(out),
-                staged)
+        _launch(dev, kernels.origami_dewarp_u8, _ptr(page_u8), h, w,
+                _ptr(hv), gh, gw, res, float(fill),
+                int(border == "fill_taps"), _ptr(out), staged)
         launches.add("dewarp_u8")
     return out
 
@@ -532,8 +539,8 @@ def dewarp_f32(image, hv, res, fill=0.0, staged_tiles=None):
     out = torch.empty((gh * res, gw * res), dtype=torch.float32, device=dev)
     if out.numel():
         h, w = image.shape
-        _launch(kernels.origami_dewarp_f32, _ptr(image), h, w, _ptr(hv), gh,
-                gw, res, float(fill), _ptr(out), staged)
+        _launch(dev, kernels.origami_dewarp_f32, _ptr(image), h, w,
+                _ptr(hv), gh, gw, res, float(fill), _ptr(out), staged)
         launches.add("dewarp_f32")
     return out
 
@@ -578,7 +585,7 @@ def strips_dewarped(dew_u8, frames, widths, out_h, out_w, fill=255.0):
     out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = dew_u8.shape
-        _launch(kernels.origami_strips_dewarped, _ptr(dew_u8), h, w,
+        _launch(dev, kernels.origami_strips_dewarped, _ptr(dew_u8), h, w,
                 _ptr(frames), _ptr(widths), None, n, int(out_h), int(out_w),
                 float(fill), _ptr(out), out.numel())
         launches.add("strips_dewarped")
@@ -602,7 +609,7 @@ def strips_dewarped_page(dew_u8, frames, widths, desc, out, out_h, max_w,
                                           out_h, max_w, fill)
     if n and out_h > 0 and max_w > 0:
         h, w = dew_u8.shape
-        _launch(kernels.origami_strips_dewarped, _ptr(dew_u8), h, w,
+        _launch(dev, kernels.origami_strips_dewarped, _ptr(dew_u8), h, w,
                 _ptr(frames), _ptr(widths), _ptr(desc), n, int(out_h),
                 int(max_w), float(fill), _ptr(out), out.numel())
         launches.add("strips_dewarped")
@@ -625,8 +632,8 @@ def strips_through_grid(page_u8, hv, res, frames, widths, out_h, out_w,
     out = torch.empty((n, out_h, out_w), dtype=torch.uint8, device=dev)
     if out.numel():
         h, w = page_u8.shape
-        _launch(kernels.origami_strips_through_grid, _ptr(page_u8), h, w,
-                _ptr(hv), gh, gw, float(res), _ptr(frames), _ptr(widths),
+        _launch(dev, kernels.origami_strips_through_grid, _ptr(page_u8), h,
+                w, _ptr(hv), gh, gw, float(res), _ptr(frames), _ptr(widths),
                 None, n, int(out_h), int(out_w), float(fill), _ptr(out),
                 out.numel())
         launches.add("strips_through_grid")
@@ -651,8 +658,8 @@ def strips_through_grid_page(page_u8, hv, res, frames, widths, desc, out,
     if n and out_h > 0 and max_w > 0:
         h, w = page_u8.shape
         gh, gw = hv.shape[:2]
-        _launch(kernels.origami_strips_through_grid, _ptr(page_u8), h, w,
-                _ptr(hv), gh, gw, float(res), _ptr(frames), _ptr(widths),
+        _launch(dev, kernels.origami_strips_through_grid, _ptr(page_u8), h,
+                w, _ptr(hv), gh, gw, float(res), _ptr(frames), _ptr(widths),
                 _ptr(desc), n, int(out_h), int(max_w), float(fill), _ptr(out),
                 out.numel())
         launches.add("strips_through_grid")
@@ -703,8 +710,8 @@ def affine_warp(image, matrix, out_hw, fill=0.0):
     out = torch.empty((oh, ow), dtype=torch.float32, device=dev)
     if out.numel():
         h, w = image.shape
-        _launch(kernels.origami_remap_affine_f32, _ptr(image), h, w, *m, oh,
-                ow, float(fill), _ptr(out))
+        _launch(dev, kernels.origami_remap_affine_f32, _ptr(image), h, w,
+                *m, oh, ow, float(fill), _ptr(out))
         launches.add("remap_affine")
     return out
 

@@ -195,7 +195,9 @@ print(json.dumps({"modules": names,
                  "batch.utils.signature", "batch.utils.rtext",
                  "batch.utils.stats", "batch.utils.reset",
                  "batch.utils.cleanup", "core.lingrid",
-                 "pagexml.transcriptions"):
+                 "pagexml.transcriptions", "parallel",
+                 "parallel.multihost", "parallel.mesh", "parallel.dryrun",
+                 "models.flagship"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
