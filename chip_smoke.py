@@ -196,7 +196,20 @@ Phases (any failure exits non-zero before the result line):
      the students_bf16 bar against the fixture's JAX segment.zip, and
      sauvola_packed 1 a page over both (the kernels line's
      sauvola_packed row lists them in launches_by_path); (d)
-     parallel.dryrun.dryrun_multichip over every visible card.
+     parallel.dryrun.dryrun_multichip over every visible card;
+ 19. mesh training (parallel/{mesh,sharding}.py, train/mesh.py): (a)
+     the trainers on meshes of repeated card entries (MESH_PARITY: the
+     U-Nets on a model axis of 2, the recognizer on data axes of 2 and
+     4) against phase 14b's JAX numbers at its bars; (b) the region
+     trainer on a 2 x 2 mesh, 2 pages a step, warp on, against the
+     one-device trainer with the same seeds at the same bars,
+     remap_batch exactly MESH_WARP_LAUNCHES a step (the kernels line's
+     remap_batch row lists the mesh run in launches_by_path), ms a step
+     and each card's peak memory of both; (c)
+     parallel.dryrun.dryrun_multichip over every visible card with its
+     training half. On several cards the meshes take the cards in turn.
+
+Each phase prints its seconds.
 
 Phase 2 also holds the Sauvola kernel (both borders, u8 mask and
 bit-packed, windows 15, 31, 33, 41, 63, 101, 259 and 513) against its
@@ -3621,15 +3634,18 @@ def parity_pool(device, charset):
     return bucket, (x, widths, labels, pad), [(r[0], r[1]) for r in rows]
 
 
-def port_parity_run(name, corpus, device):
-    """One PARITY_RUNS entry through the port's trainer, float32: ->
+def port_parity_run(name, corpus, device, mesh=None):
+    """One PARITY_RUNS entry through the port's trainer, float32, on
+    `mesh` (parallel.mesh.make_mesh; None: the one device): ->
     (losses, [leaf norms after each step])."""
     import numpy as np
     import torch
     from origami_tpu_torch.models import registry
+    from origami_tpu_torch.parallel.mesh import make_mesh
     from origami_tpu_torch.train import bootstrap
     from origami_tpu_torch.train.segment.data import class_weights
     run = PARITY_RUNS[name]
+    mesh = mesh or make_mesh([device])
     tree, meta = registry.load_params(ROOT / run["start"])
     losses, norms = [], []
     if run["trainer"] == "recognizer":
@@ -3640,13 +3656,14 @@ def port_parity_run(name, corpus, device):
             learning_rate=run["learning_rate"], steps=PARITY_STEPS,
             warmup=PARITY_STEPS, conv_features=tuple(meta["conv_features"]),
             lstm_features=meta["lstm_features"])
-        tr = RecognizerTrainer(cfg, device=device, dtype=torch.float32)
-        tr.model.load_state_dict(registry.params_from_flax(tree))
+        tr = RecognizerTrainer(cfg, mesh=mesh, dtype=torch.float32)
+        tr.load_state_dict(registry.params_from_flax(tree))
         bucket, pool, _ = parity_pool(device, meta["charset"])
         tr.attach_pool({bucket: pool})
         for idx in PARITY_STRIPS:
             losses.append(float(tr.train_on_bucket(bucket, idx)))
-            norms.append(leaf_norms(registry.flax_params(tr.model)))
+            norms.append(leaf_norms(registry.flax_params(
+                tr.model, tr.state_dict())))
         return losses, norms
     images, labels, _ = bootstrap.load_corpus_arrays(corpus, run["kind"],
                                                      TRAIN_FULL)
@@ -3660,8 +3677,8 @@ def port_parity_run(name, corpus, device):
             warmup=PARITY_WARMUP,
             class_weights=class_weights(list(labels), 4),
             band_dontcare=run["band"])
-        tr = SegmentationTrainer(cfg, device=device, dtype=torch.float32)
-        tr.model.load_state_dict(registry.unet_params_from_flax(tree, meta))
+        tr = SegmentationTrainer(cfg, mesh=mesh, dtype=torch.float32)
+        tr.load_state_dict(registry.unet_params_from_flax(tree, meta))
         tr.attach_dataset(images, labels)
         model, step = tr.model, tr.train_on_indices
     else:
@@ -3674,56 +3691,64 @@ def port_parity_run(name, corpus, device):
             tile_hw=(TRAIN_FULL[1], TRAIN_FULL[0]),
             learning_rate=run["learning_rate"], steps=PARITY_STEPS,
             warmup=PARITY_WARMUP)
-        tr = Distiller(cfg, [teacher], device=device, dtype=torch.float32)
-        tr.student.load_state_dict(registry.unet_params_from_flax(
+        tr = Distiller(cfg, [teacher], mesh=mesh, dtype=torch.float32)
+        tr.load_state_dict(registry.unet_params_from_flax(
             noisy_tree(tree), meta))
         tr.attach_dataset(images, labels)
         model, step = tr.student, tr.distill_on_indices
     for idx in PARITY_PAGES:
         losses.append(float(step(np.asarray(idx))))
-        norms.append(leaf_norms(registry.flax_params(model)))
+        norms.append(leaf_norms(registry.flax_params(model,
+                                                     tr.state_dict())))
     return losses, norms
+
+
+def parity_verdict(name, losses, norms, t0, label="parity"):
+    """Hold a PARITY_RUNS entry's port numbers against the JAX trainer's
+    in TRAIN_REF: the first loss within PARITY_FIRST (the recognizer's
+    PARITY_FIRST_CTC), the later losses and every leaf's norm after every
+    step within PARITY_LATER, relative; log the line. -> the failure, or
+    None."""
+    ref = json.loads((TRAIN_REF / (name + ".json")).read_text())
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    norm_err = 0.0
+    worst = None
+    for got, want in zip(norms, ref["leaf_norms"]):
+        if set(got) != set(want):
+            return "%s: leaves %s" % (name, sorted(set(got)
+                                                   ^ set(want))[:5])
+        for k, w in want.items():
+            e = abs(got[k] - w) / max(abs(w), 1e-30)
+            if e > norm_err:
+                norm_err, worst = e, k
+    first = PARITY_FIRST_CTC \
+        if PARITY_RUNS[name]["trainer"] == "recognizer" else PARITY_FIRST
+    ok = loss_err[0] <= first and max(loss_err) <= PARITY_LATER \
+        and norm_err <= PARITY_LATER
+    log("  %s %-18s losses %s (JAX %s): relative %s; leaf norms "
+        "worst %.2e (%s); %.1f s  %s" % (
+            label, name, ["%.6f" % v for v in losses],
+            ["%.6f" % v for v in ref["losses"]],
+            ["%.1e" % e for e in loss_err], norm_err, worst,
+            time.time() - t0, "ok" if ok else "FAIL"))
+    if not ok:
+        return "%s %s: loss errors %s (first <= %g, later <= %g), leaf " \
+               "norm %.2e at %s" % (label, name, loss_err, first,
+                                    PARITY_LATER, norm_err, worst)
+    return None
 
 
 def check_train_parity(workdir, device="cuda"):
     """Phase 14b: each PARITY_RUNS entry against the JAX trainer's numbers
-    in TRAIN_REF (3 steps): the first loss within PARITY_FIRST, the later
-    losses and every leaf's norm after every step within PARITY_LATER,
-    relative."""
+    in TRAIN_REF (3 steps), at parity_verdict's bars."""
     corpus = train_corpus(workdir / "train_parity")
     failed = []
     for name in PARITY_RUNS:
-        ref = json.loads((TRAIN_REF / (name + ".json")).read_text())
         t0 = time.time()
         losses, norms = port_parity_run(name, corpus, device)
-        loss_err = [abs(a - b) / abs(b) for a, b in zip(losses,
-                                                        ref["losses"])]
-        norm_err = 0.0
-        worst = None
-        for got, want in zip(norms, ref["leaf_norms"]):
-            if set(got) != set(want):
-                failed.append("%s: leaves %s" % (name, sorted(
-                    set(got) ^ set(want))[:5]))
-                break
-            for k, w in want.items():
-                e = abs(got[k] - w) / max(abs(w), 1e-30)
-                if e > norm_err:
-                    norm_err, worst = e, k
-        first = PARITY_FIRST_CTC \
-            if PARITY_RUNS[name]["trainer"] == "recognizer" else PARITY_FIRST
-        ok = loss_err[0] <= first and max(loss_err) <= PARITY_LATER \
-            and norm_err <= PARITY_LATER
-        log("  parity %-18s losses %s (JAX %s): relative %s; leaf norms "
-            "worst %.2e (%s); %.1f s  %s" % (
-                name, ["%.6f" % v for v in losses],
-                ["%.6f" % v for v in ref["losses"]],
-                ["%.1e" % e for e in loss_err], norm_err, worst,
-                time.time() - t0, "ok" if ok else "FAIL"))
-        if not ok:
-            failed.append("%s: loss errors %s (first <= %g, later <= %g), "
-                          "leaf norm %.2e at %s" % (
-                              name, loss_err, first, PARITY_LATER,
-                              norm_err, worst))
+        err = parity_verdict(name, losses, norms, t0)
+        if err:
+            failed.append(err)
     if failed:
         raise PhaseError("; ".join(failed))
 
@@ -5395,7 +5420,177 @@ def check_scale_out(workdir, device="cuda"):
     return launched, ms, peak
 
 
+# ------------------------------------------------------------ phase 19
+
+# phase 19a: the mesh trainers against phase 14b's JAX numbers, at its
+# bars: (run, mesh entries, model_parallel). The U-Nets on a model axis
+# of 2 (one page a step runs on its group's first device; every split
+# leaf and its moments rest in two halves), the recognizer's 8 strips a
+# step over data axes of 2 and 4
+MESH_PARITY = (("segment_region", 2, 2), ("segment_separator", 2, 2),
+               ("distill_region", 2, 2), ("recognizer", 2, 1),
+               ("recognizer", 4, 1))
+# phase 19b: the region trainer from the shipped student's weights,
+# float32, warp on (WARP_AMPLITUDE, seed 5), 2 pages a step on a 2 x 2
+# mesh against the one-device trainer, at phase 14b's bars: each page is
+# its group's block, so remap_batch launches exactly MESH_WARP_LAUNCHES a
+# step on the mesh
+MESH_WARP_PAGES = ([0, 1], [2, 3], [1, 2])
+MESH_WARP_LAUNCHES = 2
+
+
+def mesh_devices(n, device="cuda"):
+    """n mesh entries over the visible cards in turn: every entry
+    "cuda:0" on one card (the code paths, not the speed of a mesh);
+    "cpu" entries in a rehearsal on the CPU."""
+    import torch
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    cards = torch.cuda.device_count()
+    return ["cuda:%d" % (i % cards) for i in range(n)]
+
+
+def check_mesh_parity(workdir, device="cuda"):
+    """Phase 19a: each MESH_PARITY run against the JAX trainer's numbers
+    at parity_verdict's bars."""
+    from origami_tpu_torch.parallel.mesh import make_mesh
+    corpus = train_corpus(workdir / "mesh_parity")
+    failed = []
+    for name, n, m in MESH_PARITY:
+        t0 = time.time()
+        mesh = make_mesh(mesh_devices(n, device), model_parallel=m)
+        losses, norms = port_parity_run(name, corpus, device, mesh)
+        err = parity_verdict(name, losses, norms, t0,
+                             label="mesh %d x %d" % (n // m, m))
+        if err:
+            failed.append(err)
+    if failed:
+        raise PhaseError("; ".join(failed))
+
+
+def mesh_warp_run(images, labels, cfg, state, mesh):
+    """MESH_WARP_PAGES through SegmentationTrainer on `mesh` from `state`,
+    float32, warp on: -> dict(losses, norms (leaf norms after each
+    step), launches (remap_batch a step), ms (the mean host ms of steps
+    1-2, each ending in a synchronize of every card), peak_mib ({card:
+    peak allocated MiB}))."""
+    import torch
+    from origami_tpu_torch.models import registry
+    from origami_tpu_torch.ops import remap
+    from origami_tpu_torch.train.segment.train import SegmentationTrainer
+    tr = SegmentationTrainer(cfg, mesh=mesh, dtype=torch.float32)
+    tr.load_state_dict(state)
+    tr.attach_dataset(images, labels, warp_amplitude=WARP_AMPLITUDE, seed=5)
+    cards = sorted({d for d in mesh.devices if d.type == "cuda"}, key=str)
+
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    sync()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    out = dict(losses=[], norms=[], launches=[], times=[])
+    for idx in MESH_WARP_PAGES:
+        before = remap.launches["remap_batch"]
+        t0 = time.time()
+        loss = tr.train_on_indices(idx)
+        sync()
+        out["times"].append((time.time() - t0) * 1e3)
+        out["launches"].append(remap.launches["remap_batch"] - before)
+        out["losses"].append(float(loss))
+        out["norms"].append(leaf_norms(registry.flax_params(
+            tr.model, tr.state_dict())))
+    out["ms"] = statistics.mean(out["times"][1:])
+    out["peak_mib"] = {str(d): torch.cuda.max_memory_allocated(d) / 2 ** 20
+                       for d in cards}
+    return out
+
+
+def check_mesh_warp(workdir, device="cuda"):
+    """Phase 19b: the region trainer on a 2 x 2 mesh against the
+    one-device trainer (MESH_WARP_PAGES); the launch counts set to 0
+    just before the mesh run and read just after. -> remap_batch's
+    launches in the mesh run."""
+    from origami_tpu_torch.models import registry
+    from origami_tpu_torch.parallel.mesh import make_mesh
+    from origami_tpu_torch.train import bootstrap
+    from origami_tpu_torch.train.segment.data import class_weights
+    from origami_tpu_torch.train.segment.train import TrainConfig
+    run = PARITY_RUNS["segment_region"]
+    tree, meta = registry.load_params(ROOT / run["start"])
+    images, labels, _ = bootstrap.load_corpus_arrays(
+        train_corpus(workdir / "mesh_warp"), "region", TRAIN_FULL)
+    cfg = TrainConfig(
+        num_classes=4, width=meta["width"], s2d=meta["s2d"],
+        tile_hw=(TRAIN_FULL[1], TRAIN_FULL[0]),
+        learning_rate=run["learning_rate"], steps=PARITY_STEPS,
+        warmup=PARITY_WARMUP, class_weights=class_weights(list(labels), 4))
+    state = registry.unet_params_from_flax(tree, meta)
+    one = mesh_warp_run(images, labels, cfg, state,
+                        make_mesh(mesh_devices(1, device)))
+    reset_launches()
+    mesh = mesh_warp_run(images, labels, cfg, state, make_mesh(
+        mesh_devices(4, device), model_parallel=2))
+    launched = sum(mesh["launches"])
+    loss_err = [abs(a - b) / abs(b)
+                for a, b in zip(mesh["losses"], one["losses"])]
+    norm_err, worst = 0.0, None
+    for got, want in zip(mesh["norms"], one["norms"]):
+        for k, w in want.items():
+            e = abs(got[k] - w) / max(abs(w), 1e-30)
+            if e > norm_err:
+                norm_err, worst = e, k
+    steps = len(MESH_WARP_PAGES)
+    ok = loss_err[0] <= PARITY_FIRST and max(loss_err) <= PARITY_LATER \
+        and norm_err <= PARITY_LATER \
+        and mesh["launches"] == [MESH_WARP_LAUNCHES] * steps \
+        and one["launches"] == [1] * steps
+    for name, r in (("1 x 1", one), ("2 x 2", mesh)):
+        log("  region trainer, warp on, %s mesh: losses %s; remap_batch "
+            "launches a step %s; %.1f ms a step (steps 1-2), peak %s MiB"
+            % (name, ["%.6f" % v for v in r["losses"]], r["launches"],
+               r["ms"], ", ".join("%s %.0f" % kv
+                                  for kv in r["peak_mib"].items())))
+    log("  2 x 2 against 1 x 1: losses relative %s (first <= %g, later <= "
+        "%g); leaf norms worst %.2e (%s); %d remap_batch launches in the "
+        "mesh run  %s" % (["%.1e" % e for e in loss_err], PARITY_FIRST,
+                          PARITY_LATER, norm_err, worst, launched,
+                          "ok" if ok else "FAIL"))
+    if not ok:
+        raise PhaseError("mesh warp run: loss errors %s, leaf norm %.2e at "
+                         "%s, remap_batch launches a step %s (1 x 1: %s)"
+                         % (loss_err, norm_err, worst, mesh["launches"],
+                            one["launches"]))
+    return launched
+
+
+def check_mesh_training(workdir, device="cuda"):
+    """Phase 19: 19a, 19b, and (19c) dryrun_multichip over the visible
+    cards with its training half. -> remap_batch's launches in 19b's
+    mesh run."""
+    import torch
+    from origami_tpu_torch.parallel.dryrun import dryrun_multichip
+    check_mesh_parity(workdir, device)
+    launched = check_mesh_warp(workdir, device)
+    t0 = time.time()
+    n = torch.cuda.device_count() if torch.device(device).type == "cuda" \
+        else 1
+    dryrun_multichip(n, device)
+    log("  dryrun_multichip(%d) with its training half: ok (%.1f s)"
+        % (n, time.time() - t0))
+    return launched
+
+
 # ---------------------------------------------------------------- main
+
+def phase_seconds(n, t0):
+    """Log phase n's seconds since t0 -> the time now (the next phase's
+    start)."""
+    now = time.time()
+    log("  (phase %d: %.1f s)" % (n, now - t0))
+    return now
+
 
 def main():
     import torch
@@ -5423,6 +5618,7 @@ def main():
     t_start = time.time()
 
     log("== phase 1: build")
+    t_phase = time.time()
     smi = smi_line()
     log("card: %s (torch %s, CUDA %s)" % (smi, torch.__version__,
                                           torch.version.cuda))
@@ -5446,6 +5642,7 @@ def main():
     for line in nvcc_log.splitlines():
         if "registers" in line or line.startswith("==") or "spill" in line:
             log("  " + line.strip())
+    t_phase = phase_seconds(1, t_phase)
 
     log("== phase 2: kernels vs plain versions (median of %d, CUDA "
         "events; %s)" % (REPS, smi))
@@ -5454,6 +5651,7 @@ def main():
     rows.update(check_grid(device, rows["take_along_axis_lane"]))
     host_path_ab(device)
     device_groups_ab(device)
+    t_phase = phase_seconds(2, t_phase)
 
     log("== phase 3: OCR CLI on the card vs the JAX references (%s)"
         % smi)
@@ -5503,6 +5701,7 @@ def main():
                 failed.append("%s: launch counts: %s" % (mode, starved))
         if failed:
             raise PhaseError("; ".join(failed))
+        t_phase = phase_seconds(3, t_phase)
 
         log("== phase 4: OCR stage throughput, single model, warm (%s)"
             % smi)
@@ -5517,6 +5716,7 @@ def main():
                 tp["prof_wall_s"], tp["device_ms"],
                 100.0 * tp["device_ms"] / 1e3 / tp["prof_wall_s"]))
         log(tp["profile"])
+        t_phase = phase_seconds(4, t_phase)
 
         log("== phase 5: segment CLI on the card vs the JAX references "
             "(%s; the float32 run with TF32 off)" % smi)
@@ -5544,6 +5744,7 @@ def main():
                               % (mode, r["launches"], want))
         if failed:
             raise PhaseError("; ".join(failed))
+        t_phase = phase_seconds(5, t_phase)
 
         log("== phase 6: segment stage throughput, students in bf16, warm "
             "(%s)" % smi)
@@ -5558,10 +5759,12 @@ def main():
                 stp["prof_wall_s"], stp["device_ms"],
                 100.0 * stp["device_ms"] / 1e3 / stp["prof_wall_s"]))
         log(stp["profile"])
+        t_phase = phase_seconds(6, t_phase)
 
         log("== phase 7: flow and dewarp CLIs on the card vs the JAX "
             "stages (%s)" % smi)
         check_flow_dewarp(work)
+        t_phase = phase_seconds(7, t_phase)
 
         log("== phase 8: flow and dewarp stage throughput, warm (%s)" % smi)
         ftp = flow_dewarp_throughput(work)
@@ -5572,6 +5775,7 @@ def main():
             "(median of 5), %d device launches (kernels and copies; %d of "
             "them the grid scan kernels), %.3f ms device time"
             % (g["wall_ms"], g["launches"], g["scans"], g["device_ms"]))
+        t_phase = phase_seconds(8, t_phase)
 
         log("== phase 9: the chain segment -> contours -> flow -> dewarp -> "
             "layout on the card, each stage's CLI, vs the JAX stages (%s)"
@@ -5579,6 +5783,7 @@ def main():
         check_layout_on_jax_inputs(work)
         check_chain_from_jax_segmentation(work)
         check_port_chain(work)
+        t_phase = phase_seconds(9, t_phase)
 
         log("== phase 10: contours and layout stage throughput, warm (%s)"
             % smi)
@@ -5591,6 +5796,7 @@ def main():
             lambda dst: chain_corpus(dst, True)))
         log_throughput("layout", stage_throughput(
             work, "layout", LayoutDetectionProcessor, layout_corpus))
+        t_phase = phase_seconds(10, t_phase)
 
         log("== phase 11: lines, order and compose CLIs on the card vs the "
             "JAX stages, and their warm throughput (%s)" % smi)
@@ -5605,56 +5811,62 @@ def main():
                 ("order", ReadingOrderProcessor, order_corpus),
                 ("compose", ComposeProcessor, compose_corpus)):
             log_throughput(stage, stage_throughput(work, stage, cls, make))
+        t_phase = phase_seconds(11, t_phase)
 
         log("== phase 12: the whole chain from the page images through "
             "PipelinedRunner on the card (%s)" % smi)
         whole = check_whole_chain(work)
+        t_phase = phase_seconds(12, t_phase)
 
         log("== phase 13: OCR --binarize, -m auto:, PagePipeline and the "
             "export CLIs on the card (%s)" % smi)
         check_inference_surface(work)
+        t_phase = phase_seconds(13, t_phase)
 
         log("== phase 14: training on the card: the warp kernel, the JAX "
             "trainers' numbers, the main path, --processes (%s)" % smi)
-        t14 = time.time()
         rows.update(check_train_warp(work))
         check_train_parity(work)
         train_launches = check_train_main_path(work)
         check_processes(work)
-        log("  (phase 14: %.1f s)" % (time.time() - t14))
+        t_phase = phase_seconds(14, t_phase)
 
         log("== phase 15: ground-truth generation, segmentation evaluation "
             "and the affine-warp helpers on the card vs the JAX package "
             "(%s)" % smi)
-        t15 = time.time()
         gt_rows, affine_launches = check_ground_truth(work)
         rows["remap_affine"] = gt_rows["remap_affine"]
-        log("  (phase 15: %.1f s)" % (time.time() - t15))
+        t_phase = phase_seconds(15, t_phase)
 
         log("== phase 16: the synthetic corpus, recognizer evaluation and "
             "training, the chain's scores and the bootstrap CLI on the "
             "card vs the JAX package (%s)" % smi)
-        t16 = time.time()
         check_synth(work)
-        log("  (phase 16: %.1f s)" % (time.time() - t16))
+        t_phase = phase_seconds(16, t_phase)
 
         log("== phase 17: the annotate renders, the corpus utilities and "
             "patch_skew_samples on the card vs the JAX package (%s)" % smi)
-        t17 = time.time()
         inspect_launches = check_inspection(work)
-        log("  (phase 17: %.1f s)" % (time.time() - t17))
+        t_phase = phase_seconds(17, t_phase)
 
         log("== phase 18: the flagship ensemble graph, the sharded "
             "predictor, two segment processes on the card and the dry "
             "run (%s)" % smi)
-        t18 = time.time()
         multihost_launches, _, _ = check_scale_out(work)
-        log("  (phase 18: %.1f s)" % (time.time() - t18))
+        t_phase = phase_seconds(18, t_phase)
+
+        log("== phase 19: mesh training: the trainers on meshes against "
+            "the JAX numbers, the region trainer on a 2 x 2 mesh with the "
+            "warp against one device, the dry run's training half (%s)"
+            % smi)
+        mesh_launches = check_mesh_training(work)
+        phase_seconds(19, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
              for k in whole["banded"]}
-    # the training warp's kernel: its launches in phase 14c's run
+    # the training warp's kernel: its launches in phase 14c's run; phase
+    # 19b's mesh run stands beside it
     total["remap_batch"] = train_launches["remap_batch"]
     # the affine warp's: its launches in phase 15's deskew_pair and lines
     total["remap_affine"] = affine_launches
@@ -5664,7 +5876,9 @@ def main():
     by_path = {"dewarp_u8": {"chain": total["dewarp_u8"],
                              "inspection": inspect_launches},
                "sauvola_packed": {"chain": total["sauvola_packed"],
-                                  "multihost": multihost_launches}}
+                                  "multihost": multihost_launches},
+               "remap_batch": {"training": total["remap_batch"],
+                               "mesh training": mesh_launches}}
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

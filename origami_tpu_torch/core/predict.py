@@ -123,8 +123,9 @@ class SegmentationPredictor:
     Models directory layout: <path>/<group>/<k>/ with group in
     {"region", "separator"}. `dtype` is the convolutions' type: bf16 on
     the main path, float32 for parity runs. `mesh`
-    (parallel.mesh.make_mesh) shards each page batch over its devices in
-    place of the one `device`."""
+    (parallel.mesh.make_mesh) shards each page batch over its data axis
+    in place of the one `device`, a block on the first device of each
+    data group (a model axis holds no more of a forward)."""
 
     def __init__(self, models_path, target="quality", device=None,
                  dtype=torch.bfloat16, mesh=None):
@@ -132,8 +133,8 @@ class SegmentationPredictor:
         from origami_tpu_torch.parallel.mesh import Mesh
         if mesh is not None and device is not None:
             raise ValueError("pass a mesh or a device, not both")
-        self._mesh = mesh if mesh is not None \
-            else Mesh([_device.resolve(device)])
+        self._mesh = Mesh(mesh.devices[::mesh.model_parallel]) \
+            if mesh is not None else Mesh([_device.resolve(device)])
         # the members load on the mesh's first device; the others take
         # replicas
         self._device = self._mesh.devices[0]

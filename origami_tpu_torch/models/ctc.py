@@ -1,7 +1,7 @@
 """CTC loss and decoding for the line recognizer.
 
 Port of origami_tpu/models/ctc.py: `ctc_loss` is the batch mean of
-optax.ctc_loss per sequence (:19-24), `greedy_decode` runs on the
+optax.ctc_loss per sequence (:19-24, `ctc_losses`), `greedy_decode` runs on the
 logits' device (:26-54), `ids_to_text` and the host prefix
 `beam_search_decode` (for --decoder beam) are copied as they are.
 """
@@ -64,12 +64,16 @@ def _optax_ctc(logprobs, logit_paddings, labels, label_paddings):
 
 
 def ctc_loss(logits, logit_paddings, labels, label_paddings):
-    """Mean CTC loss over the batch, optax.ctc_loss's per sequence with
-    blank 0. logits (B, T, K) float, logit_paddings (B, T) and
-    label_paddings (B, N) (1 = padding), labels (B, N) int. Rows whose
-    labels fit their frames go through F.ctc_loss; the others through
-    optax's own recursion (_optax_ctc), which gives them optax's large
-    finite loss."""
+    """Mean CTC loss over the batch (ctc_losses' mean)."""
+    return ctc_losses(logits, logit_paddings, labels, label_paddings).mean()
+
+
+def ctc_losses(logits, logit_paddings, labels, label_paddings):
+    """optax.ctc_loss per sequence with blank 0 -> (B,). logits (B, T, K)
+    float, logit_paddings (B, T) and label_paddings (B, N) (1 =
+    padding), labels (B, N) int. Rows whose labels fit their frames go
+    through F.ctc_loss; the others through optax's own recursion
+    (_optax_ctc), which gives them optax's large finite loss."""
     logprobs = torch.log_softmax(logits.float(), dim=-1)
     labels = labels.long()
     input_lens = (logits.shape[1] - logit_paddings.sum(1)).round().long()
@@ -89,7 +93,7 @@ def ctc_loss(logits, logit_paddings, labels, label_paddings):
         per = per.index_put(
             (rows,), _optax_ctc(logprobs[rows], logit_paddings[rows],
                                 labels[rows], label_paddings[rows]))
-    return per.mean()
+    return per
 
 
 def greedy_decode(logits, logit_paddings):

@@ -47,14 +47,17 @@ def _sorted_tree(tree):
     return tree
 
 
-def flax_params(model):
-    """The flax param tree (numpy) of a port LineRecognizer or UNet."""
+def flax_params(model, state=None):
+    """The flax param tree (numpy) of a port LineRecognizer or UNet, from
+    its own state_dict or from `state` (the whole parameters of a mesh
+    trainer, parallel/sharding.py)."""
     from origami_tpu_torch.models.recognizer import LineRecognizer
     from origami_tpu_torch.models.unet import UNet
+    sd = model.state_dict() if state is None else state
     if isinstance(model, LineRecognizer):
-        return params_to_flax(model.state_dict())
+        return params_to_flax(sd)
     if isinstance(model, UNet):
-        return unet_params_to_flax(model.state_dict())
+        return unet_params_to_flax(sd)
     raise TypeError("no flax layout for %s" % type(model).__name__)
 
 
@@ -287,6 +290,21 @@ def unet_params_to_flax(sd):
     tree["Conv_%d" % n] = {"kernel": conv("head.weight"),
                            "bias": _np(sd["head.bias"])}
     return _sorted_tree(tree)
+
+
+def init_and_save(path, meta, seed=0):
+    """Write a model directory of freshly initialized parameters (the
+    port's flax-default initializers, drawn from a torch.Generator
+    seeded with `seed`) for a U-Net or recognizer meta."""
+    gen = torch.Generator().manual_seed(seed)
+    if meta.get("kind") == "recognizer":
+        from origami_tpu_torch.models.recognizer import init_recognizer
+        model = init_recognizer(build_recognizer(meta), gen)
+    else:
+        from origami_tpu_torch.models.unet import init_unet
+        model = init_unet(build_unet(meta), gen)
+    save_model(path, meta, model)
+    return model
 
 
 def build_unet(meta, dtype=torch.bfloat16):

@@ -25,7 +25,9 @@ Port of origami_tpu/train/bootstrap.py:
     python -m origami_tpu_torch.train.bootstrap --work DIR \
         [--phases gen,seg,distill,ocr,eval] [--device cuda]
 
-Each trainer and evaluator takes `device` (cuda unless "cpu") and the
+Each trainer and evaluator takes `device` (cuda unless "cpu") or a
+`mesh` (parallel.mesh.make_mesh: the trainers run on it as train/mesh.py
+says, the evaluators' predictor shards its pages over it), and the
 convolutions' `dtype` (bf16, the JAX trainers' and the stage's numeric
 mode; float32 for parity runs). `on_step(kind, member,
 step, loss)` is called after every step with the loss as a device tensor
@@ -79,8 +81,8 @@ def meta_for(kind, classes, full_size, width, s2d):
 def train_segmentation(corpus_dir, out_dir, kind, members=5, steps=600,
                        width=1.0, s2d=4, full_size=(1280, 2432),
                        batch=2, learning_rate=3e-4, seed=0,
-                       warp_amplitude=10.0, log_every=50, device=None,
-                       dtype=torch.bfloat16, on_step=None):
+                       warp_amplitude=10.0, log_every=50, mesh=None,
+                       device=None, dtype=torch.bfloat16, on_step=None):
     """Train a k-member ensemble for one kind; returns final losses.
     Member m is written to `out_dir/kind/%02d`."""
     from origami_tpu_torch.train.segment.data import class_weights, k_folds
@@ -110,8 +112,8 @@ def train_segmentation(corpus_dir, out_dir, kind, members=5, steps=600,
             warmup=max(10, min(100, steps // 10)),
             learning_rate=learning_rate, class_weights=cw,
             band_dontcare=band)
-        trainer = SegmentationTrainer(cfg, seed=seed + m, device=device,
-                                      dtype=dtype)
+        trainer = SegmentationTrainer(cfg, mesh=mesh, seed=seed + m,
+                                      device=device, dtype=dtype)
         # the member's rows live on the card; each step sends indices
         trainer.attach_dataset(images[idx], labels[idx],
                                warp_amplitude=warp_amplitude,
@@ -154,7 +156,7 @@ def _gt_at(lp, shape):
 
 
 def eval_segmentation(models_path, val_dir, target="quality", batch=4,
-                      device=None, dtype=torch.bfloat16):
+                      mesh=None, device=None, dtype=torch.bfloat16):
     """Per-kind, per-class IoU of the serving predictor vs GT masks.
 
     Aggregates intersections/unions over the whole validation set (not
@@ -165,7 +167,7 @@ def eval_segmentation(models_path, val_dir, target="quality", batch=4,
     from origami_tpu_torch.train.segment.data import page_pairs
 
     predictor = SegmentationPredictor(models_path, target=target,
-                                      device=device, dtype=dtype)
+                                      device=device, dtype=dtype, mesh=mesh)
     kinds = {"region": "regions", "separator": "separators"}
     gts = {kind: dict(page_pairs(val_dir, kind)) for kind in kinds}
     pages = sorted(set(gts["region"]) | set(gts["separator"]))
@@ -194,7 +196,7 @@ def eval_segmentation(models_path, val_dir, target="quality", batch=4,
 
 
 def eval_separator_tolerant(models_path, val_dir, target="quality",
-                            tol=3, batch=4, device=None,
+                            tol=3, batch=4, mesh=None, device=None,
                             dtype=torch.bfloat16):
     """Functional separator quality: recall/precision at +-tol px.
 
@@ -206,7 +208,7 @@ def eval_separator_tolerant(models_path, val_dir, target="quality",
     from origami_tpu_torch.train.segment.data import page_pairs
 
     predictor = SegmentationPredictor(models_path, target=target,
-                                      device=device, dtype=dtype)
+                                      device=device, dtype=dtype, mesh=mesh)
     classes = KIND_CLASSES["separator"]
     k = 2 * tol + 1
 
@@ -253,19 +255,21 @@ def eval_separator_tolerant(models_path, val_dir, target="quality",
 def distill_students(models_path, corpus_dir, out_dir, steps=800,
                      batch=2, seed=0, student_cfg=None,
                      learning_rate=2e-4, kinds=("region", "separator"),
-                     device=None, dtype=torch.bfloat16, on_step=None):
+                     mesh=None, device=None, dtype=torch.bfloat16,
+                     on_step=None):
     """Fold each trained ensemble (`models_path/<kind>/*`) into ONE
     student per kind, written to `out_dir/<kind>/00`.
 
     student_cfg: {kind: dict(width=..., s2d=...)}; defaults to the
     teacher's own architecture. `kinds`: the kinds to distill (the JAX
     function does both)."""
-    from origami_tpu_torch.device import resolve
     from origami_tpu_torch.models import registry
     from origami_tpu_torch.train.segment.distill import (DistillConfig,
                                                          Distiller)
+    from origami_tpu_torch.train.mesh import mesh_or_device
 
-    dev = resolve(device)
+    mesh = mesh_or_device(mesh, device)
+    dev = mesh.devices[0]
     models_path = Path(models_path)
     out_dir = Path(out_dir)
     losses = {}
@@ -284,7 +288,7 @@ def distill_students(models_path, corpus_dir, out_dir, steps=800,
             tile_hw=(full_h, full_w), steps=steps,
             warmup=max(10, min(100, steps // 10)),
             learning_rate=learning_rate)
-        distiller = Distiller(cfg, teachers, seed=seed, device=dev,
+        distiller = Distiller(cfg, teachers, mesh=mesh, seed=seed,
                               dtype=dtype)
         images, labels, _ = load_corpus_arrays(
             corpus_dir, kind, (full_w, full_h))
@@ -344,8 +348,8 @@ def pool_buckets(pool, charset, height, max_text_len=None):
 def train_recognizer_pool(pool, out_dir, charset, steps=2000, batch=64,
                           height=48, seed=0, learning_rate=1e-3,
                           conv_features=(64, 128, 256), lstm_features=256,
-                          max_text_len=None, log_every=50, device=None,
-                          dtype=torch.bfloat16, on_step=None):
+                          max_text_len=None, log_every=50, mesh=None,
+                          device=None, dtype=torch.bfloat16, on_step=None):
     """Train the CTC recognizer on a pool of (strip u8 (height, w),
     text) pairs: one width bucket a step, chosen by bucket size, `batch`
     rows drawn from it. Saves the model to `out_dir`; returns the last
@@ -357,7 +361,8 @@ def train_recognizer_pool(pool, out_dir, charset, steps=2000, batch=64,
         warmup=max(20, min(200, steps // 10)),
         learning_rate=learning_rate, conv_features=conv_features,
         lstm_features=lstm_features)
-    trainer = RecognizerTrainer(cfg, seed=seed, device=device, dtype=dtype)
+    trainer = RecognizerTrainer(cfg, mesh=mesh, seed=seed, device=device,
+                                dtype=dtype)
     buckets, counts = pool_buckets(pool, charset, height, max_text_len)
     trainer.attach_pool(buckets)
     keys = sorted(buckets)
@@ -402,8 +407,8 @@ def train_recognizer_synth(out_dir, steps=2000, batch=64, height=48,
                            seed=0, learning_rate=1e-3,
                            conv_features=(64, 128, 256),
                            lstm_features=256, max_text_len=None,
-                           n_pool=6000, log_every=50, device=None,
-                           dtype=torch.bfloat16, on_step=None):
+                           n_pool=6000, log_every=50, mesh=None,
+                           device=None, dtype=torch.bfloat16, on_step=None):
     """Train the CTC recognizer on synthetic line strips, rendered into
     a pool once on the host (synth_pool); returns the last loss."""
     from origami_tpu_torch.train.synth import CHARSET
@@ -415,8 +420,8 @@ def train_recognizer_synth(out_dir, steps=2000, batch=64, height=48,
         pool, out_dir, CHARSET, steps=steps, batch=batch, height=height,
         seed=seed, learning_rate=learning_rate,
         conv_features=conv_features, lstm_features=lstm_features,
-        max_text_len=max_text_len, log_every=log_every, device=device,
-        dtype=dtype, on_step=on_step)
+        max_text_len=max_text_len, log_every=log_every, mesh=mesh,
+        device=device, dtype=dtype, on_step=on_step)
 
 
 def recognizer_predictions(model_dir, n=200, seed=123_456, height=None,

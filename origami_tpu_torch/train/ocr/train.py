@@ -7,6 +7,11 @@ device-resident strip pool from which each step gathers its rows, so the
 host sends only indices. The LSTM honours each row's length (packed
 sequences) and MaskedGroupNorm ignores width padding, as the JAX
 model's, so padded rows get the JAX gradients.
+
+On a mesh (train/mesh.py) the parameters stay whole on every device, as
+the JAX trainer replicates them, and the strips are cut over the data
+axis; the loss is the mean over the whole batch, so each block
+back-propagates its sequences' summed loss over the global batch size.
 """
 
 from __future__ import annotations
@@ -16,10 +21,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from origami_tpu_torch.device import resolve
 from origami_tpu_torch.models import ctc as ctc_lib
 from origami_tpu_torch.models import recognizer as rec_lib
 from origami_tpu_torch.ops.remap import _div
+from origami_tpu_torch.train.mesh import MeshModel, mesh_or_device, upload
 from origami_tpu_torch.train.segment.train import (ScheduledAdamW,
                                                    warmup_cosine_decay)
 
@@ -38,61 +43,83 @@ class OCRTrainConfig:
 
 class RecognizerTrainer:
     """`dtype` is the convolutions' (bf16, as the JAX trainer's model;
-    float32 for parity runs); the LSTM and head run in float32."""
+    float32 for parity runs); the LSTM and head run in float32. `mesh`
+    or `device`, not both: no mesh is a one-device mesh on `device`.
+    `model` is the first device's replica."""
 
-    def __init__(self, cfg, seed=0, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg, mesh=None, seed=0, device=None,
+                 dtype=torch.bfloat16):
         self.cfg = cfg
-        self.device = resolve(device)
-        self.model = rec_lib.LineRecognizer(
+        self.mesh = mesh_or_device(mesh, device)
+        self.device = self.mesh.devices[0]
+        model = rec_lib.LineRecognizer(
             cfg.num_symbols, conv_features=tuple(cfg.conv_features),
             lstm_features=cfg.lstm_features, height=cfg.height,
             dtype=dtype)
-        rec_lib.init_recognizer(self.model,
-                                torch.Generator().manual_seed(seed))
-        self.model.to(self.device)
+        rec_lib.init_recognizer(model, torch.Generator().manual_seed(seed))
         sched = warmup_cosine_decay(cfg.learning_rate, cfg.warmup,
                                     max(cfg.steps, cfg.warmup + 1))
-        self.optimizer = ScheduledAdamW(self.model.parameters(), sched,
-                                        weight_decay=cfg.weight_decay)
+        self.net = MeshModel(self.mesh, model, lambda ps: ScheduledAdamW(
+            ps, sched, weight_decay=cfg.weight_decay), split=False)
+        self.model = self.net.replicas[0]
+        self.optimizer = self.net.optimizers[0]
 
-    def _update(self, images, widths, labels, label_pad):
-        self.optimizer.zero_grad()
-        logits, pad = self.model(images, widths=widths)
-        loss = ctc_lib.ctc_loss(logits, pad, labels, label_pad)
-        loss.backward()
-        self.optimizer.step()
-        return loss.detach()
+    def state_dict(self):
+        return self.net.state_dict()
+
+    def load_state_dict(self, sd):
+        self.net.load_state_dict(sd)
+
+    def _update(self, parts, blocks):
+        """One update; blocks: {device index: (images, widths, labels,
+        label_pad)} on their devices, for the blocks `parts`. -> the mean
+        CTC loss over every block's rows."""
+        b = sum(len(x) for x, _, _, _ in blocks.values())
+
+        def run_block(k, replica, rows):
+            images, widths, labels, label_pad = blocks[k]
+            logits, pad = replica(images, widths=widths)
+            total = ctc_lib.ctc_losses(logits, pad, labels, label_pad).sum()
+            (total / b).backward()
+            return total.detach()
+
+        return self.net.step(parts, run_block) / b
 
     def train_step(self, images, widths, labels, label_pad):
         """images (B, H, W, 1) float in [0, 1] (ink high), widths (B,),
         labels (B, L) int, label_pad (B, L) (1 = padding)."""
-        def dev(a, dtype=None):
-            t = torch.as_tensor(np.asarray(a))
-            return t.to(self.device, dtype) if dtype else t.to(self.device)
-        return float(self._update(dev(images, torch.float32),
-                                  dev(widths, torch.float32),
-                                  dev(labels, torch.long),
-                                  dev(label_pad, torch.float32)))
+        arrays = [torch.as_tensor(np.asarray(a)).to(dtype) for a, dtype in (
+            (images, torch.float32), (widths, torch.float32),
+            (labels, torch.long), (label_pad, torch.float32))]
+        parts = self.net.blocks(len(arrays[0]))
+        return float(self._update(parts, self.net.scatter(parts, arrays)))
 
     # -- device-resident-pool path -----------------------------------------
     def attach_pool(self, buckets):
         """buckets: {bucket_width: (strips_u8 (N, H, Wb), widths (N,),
-        labels (N, L), label_pad (N, L))}, moved to the card once."""
+        labels (N, L), label_pad (N, L))}, moved once to each device of
+        the mesh."""
         self._pool = {
-            k: (torch.as_tensor(np.asarray(s, np.uint8)).to(self.device),
-                torch.as_tensor(np.asarray(w, np.float32)).to(self.device),
-                torch.as_tensor(np.asarray(l, np.int64)).to(self.device),
-                torch.as_tensor(np.asarray(p, np.float32)).to(self.device))
+            k: upload(self.mesh, [np.asarray(s, np.uint8),
+                                  np.asarray(w, np.float32),
+                                  np.asarray(l, np.int64),
+                                  np.asarray(p, np.float32)])
             for k, (s, w, l, p) in buckets.items()}
 
     def train_on_bucket(self, bucket, idx):
-        """One step on pool rows `idx` of one width bucket; returns the
-        loss as a device tensor (float() only when logging)."""
-        strips, widths, labels, pad = self._pool[bucket]
-        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
-        s = strips[idx].float()
-        x = (1.0 - _div(s, 255.0))[..., None]
-        return self._update(x, widths[idx], labels[idx], pad[idx])
+        """One step on pool rows `idx` of one width bucket, cut over the
+        mesh; returns the loss as a device tensor (float() only when
+        logging)."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64))
+        devices = self.mesh.devices
+        parts = self.net.blocks(len(idx))
+        blocks = {}
+        for k, rows in parts:
+            strips, widths, labels, pad = self._pool[bucket][devices[k]]
+            sel = idx[rows].to(devices[k])
+            x = (1.0 - _div(strips[sel].float(), 255.0))[..., None]
+            blocks[k] = (x, widths[sel], labels[sel], pad[sel])
+        return self._update(parts, blocks)
 
     def save(self, path, charset):
         from origami_tpu_torch.models import registry

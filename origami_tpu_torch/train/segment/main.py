@@ -10,8 +10,9 @@ Port of origami_tpu/train/segment/main.py on argparse:
 `gen` cuts each page of CORPUS (images with <stem>.labels.<kind>.png)
 into tiles, warping extra variants on the device; `train` trains a U-Net
 on the tiles (their batches read from disk each step, as the JAX
-command does) and writes a model directory that the segment stage of
-either package loads. Both run on cuda unless --device cpu.
+command does) over a data-parallel mesh of every visible card and writes
+a model directory that the segment stage of either package loads. Both
+run on cuda unless --device cpu (`train` then on a one-device CPU mesh).
 """
 
 from __future__ import annotations
@@ -34,6 +35,13 @@ def gen(args):
                      augmentations=args.augmentations, device=args.device)
     names = ds.generate(args.output)
     print("wrote %d tiles to %s" % (len(names), args.output))
+
+
+def train_mesh(device):
+    """The training mesh: every visible card for "cuda" (the JAX command
+    trains over every local device), the one device named otherwise."""
+    from origami_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh() if device == "cuda" else make_mesh([device])
 
 
 def train(args):
@@ -66,7 +74,8 @@ def train(args):
     cfg = TrainConfig(num_classes=len(codes), width=width, s2d=s2d,
                       tile_hw=tile_hw, learning_rate=args.learning_rate,
                       steps=args.steps)
-    trainer = SegmentationTrainer(cfg, seed=args.seed, device=args.device)
+    trainer = SegmentationTrainer(cfg, mesh=train_mesh(args.device),
+                                  seed=args.seed)
 
     rng = np.random.default_rng(args.seed)
     for step in range(args.steps):

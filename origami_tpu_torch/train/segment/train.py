@@ -12,7 +12,14 @@ learning rate of 0 at step 0 (the first update moves only the moments;
 adamw's decay is scaled by the same rate), and `ScheduledAdamW` is
 optax.adamw's defaults (b1 0.9, b2 0.999, eps 1e-8, the decay applied to
 every parameter) with the decay the caller gives, never torch's 0.01.
-One mesh axis stays out: parameters and batch live on one card.
+
+The trainer runs on a (data x model) mesh as the JAX trainer does
+(train/mesh.py): parameters split by parallel/sharding.py's rules, the
+batch cut over the data axis. The loss is the weighted mean over the
+whole batch: its denominator depends on the labels alone, so it is
+summed over every block before any forward, and each block
+back-propagates its weighted sum over that global denominator. Without
+a mesh the trainer is the one-device case.
 """
 
 from __future__ import annotations
@@ -26,9 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from origami_tpu_torch.device import resolve
 from origami_tpu_torch.models import unet as unet_lib
 from origami_tpu_torch.ops.remap import _div
+from origami_tpu_torch.train.mesh import MeshModel, mesh_or_device, upload
 
 
 @dataclass
@@ -99,15 +106,12 @@ def make_optimizer(cfg, params):
     return ScheduledAdamW(params, sched, weight_decay=cfg.weight_decay)
 
 
-def weighted_ce_loss(logits, labels, class_weights, band_dontcare=None):
-    """Mean class-weighted cross entropy. logits (B, H, W, K), labels
-    (B, H, W) int. band_dontcare=(background_idx, radius, factor)
-    softens background pixels within `radius` of any foreground GT pixel
-    by `factor` (a max pool of the foreground, as lax.reduce_window
-    "SAME"); GT foreground keeps full weight."""
-    labels = labels.long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    per_px = -torch.gather(logp, -1, labels[..., None])[..., 0]
+def loss_weights(labels, class_weights, band_dontcare=None):
+    """Each pixel's loss weight: its class weight, times `factor` for
+    background pixels within `radius` of any foreground GT pixel where
+    band_dontcare=(background_idx, radius, factor) (a max pool of the
+    foreground, as lax.reduce_window "SAME"); GT foreground keeps full
+    weight. labels (B, H, W) long -> (B, H, W) float32."""
     w = class_weights[labels]
     if band_dontcare is not None:
         bg, radius, factor = band_dontcare
@@ -116,11 +120,26 @@ def weighted_ce_loss(logits, labels, class_weights, band_dontcare=None):
         band = F.max_pool2d(fg, k, stride=1, padding=int(radius))[:, 0]
         w = w * torch.where((band > 0) & (labels == bg), float(factor),
                             1.0)
-    # both sums in float64: the quotient is then the float32 rounding of
-    # the exact one, which JAX's float32 sums stay within a few ulp of
-    num = torch.sum(per_px * w, dtype=torch.float64)
+    return w
+
+
+def weighted_ce_sum(logits, labels, weights):
+    """sum(cross entropy x weight) in float64. logits (B, H, W, K),
+    labels (B, H, W) long."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    per_px = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return torch.sum(per_px * weights, dtype=torch.float64)
+
+
+def weighted_ce_loss(logits, labels, class_weights, band_dontcare=None):
+    """Mean class-weighted cross entropy. logits (B, H, W, K), labels
+    (B, H, W) int. Both sums in float64: the quotient is then the
+    float32 rounding of the exact one, which JAX's float32 sums stay
+    within a few ulp of."""
+    labels = labels.long()
+    w = loss_weights(labels, class_weights, band_dontcare)
     den = torch.clamp(torch.sum(w, dtype=torch.float64), min=1e-6)
-    return (num / den).float()
+    return (weighted_ce_sum(logits, labels, w) / den).float()
 
 
 def _forward(model, remat):
@@ -129,101 +148,113 @@ def _forward(model, remat):
     return model
 
 
-def make_train_step(model, optimizer, class_weights, remat=True,
-                    band_dontcare=None):
-    """step(images (B, H, W, 1) float, labels (B, H, W) int) -> the loss
-    (a detached 0-dim tensor); one optimizer update."""
-    apply = _forward(model, remat)
-
-    def step(images, labels):
-        optimizer.zero_grad()
-        loss = weighted_ce_loss(apply(images), labels, class_weights,
-                                band_dontcare)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    return step
-
-
-def make_dataset_train_step(model, optimizer, class_weights,
-                            warp_amplitude=0.0, remat=True,
-                            band_dontcare=None):
-    """step(images_u8 (N, H, W), labels_u8 (N, H, W), idx (B,) long,
-    generator) over a DEVICE-RESIDENT corpus: gather, warp augmentation
-    (per-sample amplitude uniform in [0, A), one remap_batch launch) and
-    normalization run on the card."""
-    from origami_tpu_torch.train.segment.warp import (
-        displacement_field, random_coarse, warp_batch)
-    apply = _forward(model, remat)
-
-    def step(images_u8, labels_u8, idx, generator):
-        imgs = images_u8[idx].float()
-        labs = labels_u8[idx].long()
-        if warp_amplitude > 0:
-            n = imgs.shape[0]
-            amps = torch.rand((n,), generator=generator) * warp_amplitude
-            coarse = random_coarse(generator, n, amps).to(imgs.device)
-            fields = displacement_field(coarse, imgs.shape[1:])
-            imgs, labs = warp_batch(imgs, labs, fields)
-        x = _div(imgs, 255.0)[..., None]
-        optimizer.zero_grad()
-        loss = weighted_ce_loss(apply(x), labs, class_weights,
-                                band_dontcare)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    return step
-
-
 class SegmentationTrainer:
-    """Owns the U-Net on its device, the optimizer and the step.
+    """Owns the U-Net on its mesh, the optimizer and the step.
     `dtype` is the convolutions' (bf16, as the JAX trainer's U-Net;
-    float32 for parity runs); parameters are float32."""
+    float32 for parity runs); parameters are float32. `mesh`
+    (parallel.mesh.make_mesh) or `device`, not both: no mesh is a
+    one-device mesh on `device`. `model` is the first device's replica
+    (its split leaves are empty at rest; `state_dict()` gathers)."""
 
-    def __init__(self, cfg, seed=0, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg, mesh=None, seed=0, device=None,
+                 dtype=torch.bfloat16):
         self.cfg = cfg
-        self.device = resolve(device)
-        self.model = unet_lib.create_unet(cfg.num_classes, width=cfg.width,
-                                          s2d=cfg.s2d, dtype=dtype)
-        unet_lib.init_unet(self.model, torch.Generator().manual_seed(seed))
-        self.model.to(self.device)
-        self.optimizer = make_optimizer(cfg, self.model.parameters())
+        self.mesh = mesh_or_device(mesh, device)
+        self.device = self.mesh.devices[0]
+        model = unet_lib.create_unet(cfg.num_classes, width=cfg.width,
+                                     s2d=cfg.s2d, dtype=dtype)
+        unet_lib.init_unet(model, torch.Generator().manual_seed(seed))
+        self.net = MeshModel(self.mesh, model,
+                             lambda ps: make_optimizer(cfg, ps))
+        self.model = self.net.replicas[0]
+        self.optimizer = self.net.optimizers[0]
         cw = cfg.class_weights if cfg.class_weights is not None \
             else np.ones((cfg.num_classes,))
-        self.class_weights = torch.as_tensor(
-            np.asarray(cw, np.float32)).to(self.device)
-        self._step = make_train_step(self.model, self.optimizer,
-                                     self.class_weights, remat=cfg.remat,
-                                     band_dontcare=cfg.band_dontcare)
+        self._cw = {d: w for d, [w] in upload(
+            self.mesh, [np.asarray(cw, np.float32)]).items()}
+        self._apply = [_forward(r, cfg.remat) for r in self.net.replicas]
+
+    def state_dict(self):
+        return self.net.state_dict()
+
+    def load_state_dict(self, sd):
+        self.net.load_state_dict(sd)
+
+    def _step(self, parts, blocks):
+        """One update over the blocks `parts` of the net's `blocks`;
+        blocks: {device index: (x (b, H, W, 1) float, labels (b, H, W)
+        long)} on their devices. The loss is the weighted mean over every
+        block's pixels: the weights' sum is taken over all blocks before
+        any forward."""
+        devices = self.mesh.devices
+        weights = {k: loss_weights(lab, self._cw[devices[k]],
+                                   self.cfg.band_dontcare)
+                   for k, (_, lab) in blocks.items()}
+        den = torch.clamp(sum(torch.sum(w, dtype=torch.float64)
+                              .to(self.device) for w in weights.values()),
+                          min=1e-6)
+
+        def run_block(k, replica, rows):
+            x, lab = blocks[k]
+            num = weighted_ce_sum(self._apply[k](x), lab, weights[k])
+            (num / den.to(num.device)).float().backward()
+            return num.detach()
+
+        return (self.net.step(parts, run_block) / den).float()
 
     def train_step(self, images, labels):
         """images (B, H, W, 1) float32, labels (B, H, W) int."""
-        loss = self._step(torch.as_tensor(images).to(self.device),
-                          torch.as_tensor(labels).to(self.device))
-        return float(loss)
+        images = torch.as_tensor(images)
+        parts = self.net.blocks(len(images))
+        blocks = self.net.scatter(parts,
+                                  (images, torch.as_tensor(labels).long()))
+        return float(self._step(parts, blocks))
 
     # -- device-resident-corpus path ---------------------------------------
     def attach_dataset(self, images_u8, labels_u8, warp_amplitude=0.0,
                        seed=0):
-        """Upload the whole (N, H, W) uint8 corpus to the card once;
-        train_on_indices then sends only indices."""
-        self._data = (
-            torch.as_tensor(np.asarray(images_u8, np.uint8)).to(self.device),
-            torch.as_tensor(np.asarray(labels_u8, np.uint8)).to(self.device))
-        self._data_step = make_dataset_train_step(
-            self.model, self.optimizer, self.class_weights,
-            warp_amplitude=warp_amplitude, remat=self.cfg.remat,
-            band_dontcare=self.cfg.band_dontcare)
+        """Upload the whole (N, H, W) uint8 corpus once to each device of
+        the mesh; train_on_indices then sends only indices."""
+        self._data = upload(self.mesh, [np.asarray(images_u8, np.uint8),
+                                        np.asarray(labels_u8, np.uint8)])
+        self._warp = warp_amplitude
         self._data_gen = torch.Generator().manual_seed(seed)
 
     def train_on_indices(self, idx):
-        """One step on corpus rows `idx`. Returns the loss as a DEVICE
-        tensor: convert it (float()) only when logging."""
-        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device)
-        return self._data_step(*self._data, idx, self._data_gen)
+        """One step on corpus rows `idx`: each block gathers its rows on
+        its device and, with the warp on, warps them there (one
+        remap_batch launch a block) through fields drawn for the whole
+        batch from the trainer's one generator, so a mesh run takes the
+        one-device run's fields. Returns the loss as a DEVICE tensor:
+        convert it (float()) only when logging."""
+        from origami_tpu_torch.train.segment.warp import (
+            displacement_field, random_coarse, warp_batch)
+        idx = torch.as_tensor(np.asarray(idx, np.int64))
+        n = len(idx)
+        coarse = None
+        if self._warp > 0:
+            # per-sample amplitude in [0, A): every page is warped a
+            # random amount
+            amps = torch.rand((n,), generator=self._data_gen) * self._warp
+            coarse = random_coarse(self._data_gen, n, amps)
+        devices = self.mesh.devices
+        parts = self.net.blocks(n)
+        blocks = {}
+        for k, rows in parts:
+            images_u8, labels_u8 = self._data[devices[k]]
+            sel = idx[rows].to(devices[k])
+            imgs = images_u8[sel].float()
+            labs = labels_u8[sel].long()
+            if coarse is not None:
+                fields = displacement_field(coarse[rows].to(devices[k]),
+                                            imgs.shape[1:])
+                imgs, labs = warp_batch(imgs, labs, fields)
+            blocks[k] = (_div(imgs, 255.0)[..., None], labs)
+        return self._step(parts, blocks)
 
     def save(self, path, meta):
+        """The model directory of the whole parameters (a one-device
+        trainer's bytes for the same parameters)."""
         from origami_tpu_torch.models import registry
-        registry.save_model(path, meta, self.model)
+        registry.save_model(path, meta, registry.flax_params(
+            self.model, self.state_dict()))

@@ -30,7 +30,7 @@ from origami_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
     (2, 0, True)])
 def test_shard_batch(n_devices, batch, sharded):
     mesh = make_mesh(["cpu"] * n_devices)
-    assert mesh.shape == {"data": n_devices}
+    assert mesh.shape == {"data": n_devices, "model": 1}
     x = np.arange(batch * 6, dtype=np.float32).reshape(batch, 2, 3)
     parts = shard_batch(mesh, x)
     assert len(parts) == n_devices
