@@ -208,6 +208,23 @@ Phases (any failure exits non-zero before the result line):
      and each card's peak memory of both; (c)
      parallel.dryrun.dryrun_multichip over every visible card with its
      training half. On several cards the meshes take the cards in turn.
+ 20. the operator tools (tool/) and the remote runner (batch/remote) on
+     a copy of the OCR fixture pages against the JAX tools' outputs
+     (tests/data/torch_tools, scripts/make_torch_tools_fixture.py): (a)
+     tool.sample (seed 0, 2 lines a type), annotate set, harmonize
+     default, export at 48 px and with --binarize sauvola, annotate
+     export-image, each CLI's main on the card: the rows, texts and
+     sets.json equal, the strips within TOOLS_GRAY gray levels, the
+     binarized strips equal on TOOLS_BIN_EQUAL of their pixels, each
+     strip equal to its plain version on the CPU, remap_batch 1 a line
+     and sauvola 1 a line under --binarize; (b) the four web tools on
+     port 0 through every route: the JSON bodies equal and the images the
+     arrays JAX encodes, pick_web's /image dewarp_u8 1 a page cold and 0
+     warm; xycut and cluster print what JAX prints; (c) remote -m
+     heuristic through ssh/scp shims against a direct run of the two
+     stages, its task DB DONE and a second run of no page. The kernels
+     line's remap_batch, sauvola, sauvola_packed and dewarp_u8 rows list
+     these launches in launches_by_path.
 
 Each phase prints its seconds.
 
@@ -250,6 +267,7 @@ true, "device": {...}}. Imports nothing of JAX or origami_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import statistics
@@ -5582,6 +5600,623 @@ def check_mesh_training(workdir, device="cuda"):
     return launched
 
 
+# ------------------------------------------------------------ phase 20
+# The operator tools (origami_tpu_torch/tool) and the remote runner
+# (batch/remote) on a copy of the OCR fixture pages (their reliable
+# artifacts and grids), held against the JAX tools' outputs in
+# tests/data/torch_tools (scripts/make_torch_tools_fixture.py): the
+# sampled rows, the harmonized texts, the exported names, texts and
+# sets.json equal; the strips within TOOLS_GRAY gray levels, the
+# binarized strips equal on TOOLS_BIN_EQUAL of their pixels (ROADMAP
+# C10); the web tools' JSON bodies equal and their images the arrays the
+# JAX tools hand their encoders.
+TOOLS_REF = ROOT / "tests" / "data" / "torch_tools"
+TOOLS_PER_TYPE = 2
+TOOLS_SEED = 0
+TOOLS_HEIGHT = 48
+TOOLS_BINARIZE = "sauvola"
+TOOLS_GRAY = 1
+TOOLS_BIN_EQUAL = 0.999
+WEB_JSON_INLINE = 2000
+# the page the remote runner pulls through the ssh/scp shims
+REMOTE_PAGE = "synth0000"
+# shell shims for the remote runner: `ssh HOST CMD` runs CMD here, `scp`
+# copies with cp and drops the HOST: prefixes
+SSH_SHIM = '#!/bin/sh\nshift\nexec sh -c "$*"\n'
+SCP_SHIM = ('#!/bin/sh\nargs=""\nfor a in "$@"; do case "$a" in\n'
+            '  -q) ;;\n  -r) ;;\n  *:*) args="$args ${a#*:}" ;;\n'
+            '  *) args="$args $a" ;;\nesac; done\nexec cp -r $args\n')
+
+
+def tools_corpus(dst):
+    """The OCR fixture pages with their artifacts (tests/data/torch_ocr/
+    full: segment.zip, dewarp.zip, contours.3.zip, lines.3.zip,
+    tables.json, runtime.json)."""
+    dst.mkdir(parents=True)
+    for png in sorted(FIXTURE.glob("*.png")):
+        shutil.copy(png, dst / png.name)
+        shutil.copytree(FIXTURE / (png.stem + ".out"),
+                        dst / (png.stem + ".out"))
+    return dst
+
+
+def tools_pages(corpus):
+    return sorted(corpus.glob("*.png"))
+
+
+def db_rows(db_path, corpus):
+    """The annotation DB's rows in their order, page paths relative to
+    the corpus."""
+    import sqlite3
+    conn = sqlite3.connect(str(db_path))
+    try:
+        rows = conn.execute(
+            "SELECT page_path, line_path, annotation, author, training, "
+            "validation FROM lines ORDER BY rowid").fetchall()
+    finally:
+        conn.close()
+    return [[str(Path(r[0]).relative_to(corpus))] + list(r[1:])
+            for r in rows]
+
+
+def db_schema(db_path):
+    """PRAGMA table_info of the lines table."""
+    import sqlite3
+    conn = sqlite3.connect(str(db_path))
+    try:
+        return [list(r) for r in conn.execute("PRAGMA table_info(lines)")]
+    finally:
+        conn.close()
+
+
+def exported(out):
+    """-> (names of the PNGs, {text file: text}, sets.json's object)."""
+    names = sorted(p.stem for p in out.glob("*.png"))
+    texts = {p.name: p.read_text() for p in sorted(out.glob("*.gt.txt"))}
+    return names, texts, json.loads((out / "sets.json").read_text())
+
+
+def placeholder(text, corpus):
+    """`text` with the corpus's path written as {corpus}."""
+    return text.replace(str(corpus), "{corpus}")
+
+
+def web_routes(tool, corpus, line):
+    """[(method, route, JSON body or None)] that drive every route of
+    `tool`, in order; `line` is (page path, line path) of a sampled
+    row."""
+    from urllib.parse import quote
+    pages = [str(p) for p in tools_pages(corpus)]
+    q = ["page=" + quote(p) for p in pages]
+    page, path = line
+    if tool == "annotate_web":
+        strip = "/strip?page=%s&line=%s" % (quote(page), quote(path))
+        return [("GET", "/", None), ("GET", "/lines", None),
+                ("GET", "/lines?only_blank=1", None), ("GET", strip, None),
+                ("GET", "/strip?page=%s&line=x/y" % quote(page), None),
+                ("POST", "/save", dict(page=page, line=path,
+                                       text="edited line")),
+                ("POST", "/save", dict(page=page, line="regions/NEW/0",
+                                       text="")),
+                ("GET", "/lines?only_blank=1", None),
+                ("GET", "/nowhere", None)]
+    if tool == "pick_web":
+        return [("GET", "/", None), ("GET", "/pages", None)] + [
+            ("GET", "/lines?" + x, None) for x in q] + [
+            ("GET", "/image?" + x, None) for x in q] + [
+            ("GET", "/image?" + q[0], None),
+            ("POST", "/toggle", dict(page=page, line=path, picked=False)),
+            ("POST", "/toggle", dict(page=pages[1], line=path,
+                                     picked=True)),
+            ("GET", "/lines?" + q[0], None), ("POST", "/nowhere", {})]
+    if tool == "cluster_web":
+        return [("GET", "/", None), ("GET", "/clusters", None),
+                ("GET", "/thumb?" + q[0], None),
+                ("GET", "/image?" + q[1], None),
+                ("GET", "/thumb?page=elsewhere.png", None)]
+    if tool == "xycut_web":
+        return [("GET", "/", None), ("GET", "/pages", None)] + [
+            ("GET", "/tree?" + x, None) for x in q] + [
+            ("GET", "/image?" + q[1], None), ("GET", "/nowhere", None)]
+    raise ValueError(tool)
+
+
+def drive_web(handler, routes, on_response=None):
+    """Serve `handler` on 127.0.0.1, port 0, in a thread and request
+    `routes` in order -> [(status, content type, body bytes)].
+    on_response(i) runs after the i-th response."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import HTTPServer
+    server = HTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    out = []
+    try:
+        for i, (method, route, body) in enumerate(routes):
+            data = None if body is None else json.dumps(body).encode()
+            req = urllib.request.Request(base + route, data=data,
+                                         method=method)
+            if data is not None:
+                req.add_header("Content-Type", "application/json")
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    out.append((r.status, r.headers["Content-Type"],
+                                r.read()))
+            except urllib.error.HTTPError as e:
+                out.append((e.code, e.headers["Content-Type"], e.read()))
+            if on_response is not None:
+                on_response(i)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    return out
+
+
+def web_record(responses, corpus):
+    """JSON-comparable records of drive_web's responses: JSON and text
+    bodies with the corpus path as {corpus} (a JSON body longer than
+    WEB_JSON_INLINE characters by the digest of its sorted dump), HTML
+    by digest, images
+    left out (status only: the port sends PNG where the JAX tools send
+    JPEG, ROADMAP C8)."""
+    rec = []
+    for status, ctype, body in responses:
+        if ctype.startswith("image/"):
+            ctype = "image"
+        if ctype.startswith("application/json"):
+            value = json.loads(placeholder(body.decode("utf8"), corpus))
+            text = json.dumps(value, sort_keys=True)
+            if len(text) > WEB_JSON_INLINE:
+                value = {"digest": digest(text)}
+        elif ctype.startswith("text/html"):
+            value = digest(body.decode("utf8"))
+        elif ctype.startswith("text/plain"):
+            value = placeholder(body.decode("utf8"), corpus)
+        else:
+            value = None
+        rec.append([status, ctype.split(";")[0], value])
+    return rec
+
+
+@contextlib.contextmanager
+def with_path(cmd_dir):
+    """Put cmd_dir at the front of PATH for the block."""
+    import os
+    old = os.environ["PATH"]
+    os.environ["PATH"] = str(cmd_dir) + os.pathsep + old
+    try:
+        yield
+    finally:
+        os.environ["PATH"] = old
+
+
+def write_shims(bin_dir):
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    for name, text in (("ssh", SSH_SHIM), ("scp", SCP_SHIM)):
+        (bin_dir / name).write_text(text)
+        (bin_dir / name).chmod(0o755)
+    return bin_dir
+
+
+def label_maps(segment_zip):
+    """{member: decoded label map} of a segment.zip's PNGs, and its
+    other members' bytes."""
+    from origami_tpu_torch.core import _png
+    out = {}
+    with zipfile.ZipFile(segment_zip) as zf:
+        for name in sorted(zf.namelist()):
+            data = zf.read(name)
+            out[name] = _png.decode_paletted(data)[0] \
+                if name.endswith(".png") else data
+    return out
+
+
+def same_artifacts(a_out, b_out):
+    """Differences between two .out folders' segment.zip label maps and
+    contours.*.zip members."""
+    bad = []
+    a, b = label_maps(a_out / "segment.zip"), label_maps(
+        b_out / "segment.zip")
+    if a.keys() != b.keys() or any(
+            not np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+            for k in a):
+        bad.append("segment.zip")
+    names = sorted(p.name for p in a_out.glob("contours.*.zip"))
+    if not names or names != sorted(p.name for p in
+                                    b_out.glob("contours.*.zip")):
+        bad.append("contours files %s" % names)
+    for name in names:
+        if read_zip(a_out / name) != read_zip(b_out / name):
+            bad.append(name)
+    return bad
+
+
+def check_remote(workdir, device="cuda"):
+    """Phase 20c: `batch.remote -m heuristic` over one fixture page
+    through ssh/scp shims at the front of PATH, against a direct run of
+    the port's segment and contours stages on the same page; the task DB
+    DONE and a second run that processes nothing. -> (launches of the
+    remote run, seconds)."""
+    import io
+    import sqlite3
+    from origami_tpu_torch.batch.remote import runner
+    remote = workdir / "remote_host"
+    remote.mkdir(parents=True)
+    shutil.copy(FIXTURE / (REMOTE_PAGE + ".png"), remote)
+    direct = workdir / "remote_direct"
+    direct.mkdir()
+    shutil.copy(FIXTURE / (REMOTE_PAGE + ".png"), direct)
+    local = workdir / "remote_local"
+    args = ["--host", "archive", "--remote-dir", str(remote),
+            "--work-dir", str(local), "-m", "heuristic",
+            "--device", str(device)]
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    with with_path(write_shims(workdir / "shims")), quiet:
+        reset_launches()
+        t0 = time.time()
+        n = runner.main(args)
+        _sync(device)
+        seconds = time.time() - t0
+        launched = {k: v for k, v in launch_counts().items() if v}
+        again = runner.main(args)
+        for stage in runner.remote_stages("heuristic", device):
+            stage.traverse(direct)
+    conn = sqlite3.connect(str(local / "remote.tasks.db"))
+    tasks = conn.execute("SELECT remote_path, status FROM tasks").fetchall()
+    conn.close()
+    bad = same_artifacts(remote / (REMOTE_PAGE + ".out"),
+                         direct / (REMOTE_PAGE + ".out"))
+    if n != 1 or again != 0 or tasks != [(REMOTE_PAGE + ".png", "DONE")]:
+        bad.append("processed %d then %d pages, tasks %s" % (n, again,
+                                                             tasks))
+    want = {"sauvola": 1, "sauvola_packed": 1} \
+        if str(device) != "cpu" else {}
+    if launched != want:
+        bad.append("launches %s, expected %s" % (launched, want))
+    log("  (c) remote -m heuristic through the ssh/scp shims: %d page "
+        "pushed back, segment.zip label maps and contours.*.zip equal to "
+        "the direct run; tasks %s; second run %d pages; launches %s; "
+        "%.2f s  %s" % (n, tasks, again, json.dumps(launched), seconds,
+                        "ok" if not bad else "FAIL " + "; ".join(bad)))
+    if bad:
+        raise PhaseError("remote runner: %s" % "; ".join(bad))
+    return launched, seconds
+
+
+def tools_chain(corpus, work, ref, device):
+    """Phase 20a: sample -> annotate set (the fixture's raw texts, two
+    rows' split flags) -> harmonize default -> export at TOOLS_HEIGHT,
+    plain and --binarize -> annotate export-image, each through its
+    CLI's main() on `device`; the launch counts set to 0 just before
+    each export and read just after. -> dict of what they wrote."""
+    import io
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import page as page_cache
+    from origami_tpu_torch.tool import annotate, export, harmonize, sample
+    from origami_tpu_torch.tool.lineload import AnnotationDB
+    db = work / "annotations.db"
+    dev = ["--device", str(device)]
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    out = {}
+    with quiet:
+        sample.main([str(corpus), "--db-path", str(db), "--per-type",
+                     str(TOOLS_PER_TYPE), "--seed", str(TOOLS_SEED),
+                     "--plain"] + dev)
+    out["rows"] = db_rows(db, corpus)
+    out["schema"] = db_schema(db)
+    with quiet:
+        for page, line, *_ in out["rows"]:
+            key = page + ":" + line
+            annotate.main(["set", "--db-path", str(db), "--page",
+                           str(corpus / page), "--line", line, "--text",
+                           ref["raw_texts"][key]] + dev)
+    for key, (training, validation) in ref["splits"].items():
+        page, line = key.split(":")
+        AnnotationDB(db).set_split(corpus / page, line, training,
+                                   validation)
+    with quiet:
+        harmonize.main(["default", "--db-path", str(db)] + dev)
+    out["harmonized"] = db_rows(db, corpus)
+    page_cache.clear_caches()
+    for name, extra in (("export", []),
+                        ("export_bin", ["--binarize", TOOLS_BINARIZE])):
+        reset_launches()
+        t0 = time.time()
+        with quiet:
+            export.main(["--db-path", str(db), "-o", str(work / name),
+                         "--line-height", str(TOOLS_HEIGHT)] + extra + dev)
+        _sync(device)
+        out[name + "_s"] = time.time() - t0
+        out[name + "_launches"] = {k: v for k, v in launch_counts().items()
+                                   if v}
+        names, texts, sets = exported(work / name)
+        out[name] = dict(names=names, texts=texts, sets=sets)
+        out[name + "_strips"] = {
+            n: _png.read(work / name / (n + ".png")) for n in names}
+    page, line = out["rows"][0][:2]
+    with quiet:
+        annotate.main(["export-image", "--db-path", str(db), "--page",
+                       str(corpus / page), "--line", line, "-o",
+                       str(work / "line.png"), "--line-height",
+                       str(TOOLS_HEIGHT)] + dev)
+    out["export_image"] = _png.read(work / "line.png")
+    out["db"] = db
+    return out
+
+
+def tools_strips():
+    """The JAX strips of tests/data/torch_tools/strips.npz, by name
+    (strip/<name>, bin/<name>): the file holds each strip's row
+    differences modulo 256, which deflate better."""
+    with np.load(TOOLS_REF / "strips.npz") as z:
+        return {k: np.cumsum(z[k], axis=0, dtype=np.uint8)
+                for k in z.files}
+
+
+def strip_errors(got, ref_npz, prefix, bar_gray=None, bar_equal=None):
+    """Strips against the JAX ones: shapes equal, then within bar_gray
+    gray levels or equal on bar_equal of their pixels -> (failures,
+    worst gray difference or least equal share)."""
+    bad, worst = [], (0 if bar_gray is not None else 1.0)
+    for name, px in got.items():
+        want = ref_npz[prefix + name]
+        if want.shape != px.shape:
+            bad.append("%s shape %s against %s" % (name, px.shape,
+                                                   want.shape))
+            continue
+        if bar_gray is not None:
+            d = int(np.abs(want.astype(int) - px).max()) if px.size else 0
+            worst = max(worst, d)
+            if d > bar_gray:
+                bad.append("%s: %d gray levels" % (name, d))
+        else:
+            same = float((want == px).mean()) if px.size else 1.0
+            worst = min(worst, same)
+            if same < bar_equal:
+                bad.append("%s: %.5f of the pixels equal" % (name, same))
+    return bad, worst
+
+
+def plain_strip_errors(corpus, out):
+    """Phase 20a on the card: each exported strip against the same line
+    through the plain versions on the CPU (dewarp, remap_batch, Sauvola):
+    equal."""
+    from origami_tpu_torch.core.binarize import from_string
+    from origami_tpu_torch.tool.lineload import load_line_image
+    binarize = from_string(TOOLS_BINARIZE, device="cpu")
+    bad = []
+    for page, line, *_ in out["harmonized"]:
+        name = Path(page).stem + "-" + line.replace("/", "-")
+        plain = load_line_image(corpus / page, line, TOOLS_HEIGHT,
+                                device="cpu")
+        if not np.array_equal(plain, out["export_strips"][name]):
+            bad.append("strip %s differs from its plain version" % name)
+        if not np.array_equal(binarize(plain),
+                              out["export_bin_strips"][name]):
+            bad.append("binarized strip %s differs from its plain "
+                       "version" % name)
+    return bad
+
+
+def check_tool_chain(corpus, work, ref, device):
+    """Phase 20a's gates. -> the launch counts of the two exports."""
+    out = tools_chain(corpus, work, ref, device)
+    n = len(out["rows"])
+    bad = []
+    for key in ("rows", "harmonized", "schema"):
+        if out[key] != ref[key]:
+            bad.append("%s differ from JAX's" % key)
+    for key in ("export", "export_bin"):
+        if out[key] != ref[key]:
+            bad.append("%s names, texts or sets.json differ from JAX's"
+                       % key)
+    strips = tools_strips()
+    b, gray = strip_errors(out["export_strips"], strips, "strip/",
+                           bar_gray=TOOLS_GRAY)
+    bad += b
+    b, equal = strip_errors(out["export_bin_strips"], strips, "bin/",
+                            bar_equal=TOOLS_BIN_EQUAL)
+    bad += b
+    b, _ = strip_errors({ref["export_image"]: out["export_image"]}, strips,
+                        "strip/", bar_gray=TOOLS_GRAY)
+    bad += b
+    on_card = str(device) != "cpu"
+    if on_card:
+        bad += plain_strip_errors(corpus, out)
+    want = {"export": {"remap_batch": n}, "export_bin": {
+        "remap_batch": n, "sauvola": n}} if on_card else {}
+    for key in ("export", "export_bin"):
+        got = {k: v for k, v in out[key + "_launches"].items()
+               if k in ("remap_batch", "sauvola")}
+        if on_card and got != want[key]:
+            bad.append("%s launches %s, expected %s" % (key, got,
+                                                        want[key]))
+    log("  (a) sample (%d rows), annotate set, harmonize, export and "
+        "export --binarize %s (%d lines each), annotate export-image: "
+        "rows, texts and sets.json equal to JAX's; strips max %d gray "
+        "level (bar %d), binarized strips >= %.5f equal (bar %.3f)%s; "
+        "launches %s (cold page cache) and %s; %.2f s and %.2f s  %s" % (
+            n, TOOLS_BINARIZE, len(out["export"]["names"]), gray,
+            TOOLS_GRAY, equal, TOOLS_BIN_EQUAL,
+            "; each equal to its plain version" if on_card else "",
+            json.dumps(out["export_launches"]),
+            json.dumps(out["export_bin_launches"]), out["export_s"],
+            out["export_bin_s"],
+            "ok" if not bad else "FAIL " + "; ".join(bad)))
+    if bad:
+        raise PhaseError("tools: %s" % "; ".join(bad))
+    return out
+
+
+def image_digest(body):
+    from origami_tpu_torch.core import _png
+    return digest(_png.decode(body))
+
+
+def write_signatures(corpus, device):
+    """utils.signature over the corpus (cluster_web reads it)."""
+    import io
+    from origami_tpu_torch.batch.utils.signature import main as signature
+    with contextlib.redirect_stdout(io.StringIO()):
+        signature([str(corpus), "--lock-strategy", "NONE", "--plain",
+                   "--device", str(device)])
+
+
+def tool_db(work, db, tool):
+    """A copy of the chain's DB for one web tool: each tool starts from
+    the DB phase 20a left."""
+    copy = work / ("%s.db" % tool)
+    shutil.copy(db, copy)
+    return copy
+
+
+def port_web_handler(tool, corpus, db, device):
+    from origami_tpu_torch.tool import (annotate_web, cluster_web, pick_web,
+                                        xycut_web)
+    pages = tools_pages(corpus)
+    if tool == "annotate_web":
+        return annotate_web.make_handler(str(db), TOOLS_HEIGHT, device)
+    if tool == "pick_web":
+        return pick_web.make_handler(str(db), pages, "reliable", device)
+    if tool == "cluster_web":
+        return cluster_web.make_handler(
+            cluster_web.compute_clusters(corpus, 8))
+    return xycut_web.make_handler(pages, "reliable", 0.005, device)
+
+
+WEB_TOOLS = ("annotate_web", "pick_web", "cluster_web", "xycut_web")
+
+
+def web_tool_errors(tool, corpus, work, ref, rows, device):
+    """Phase 20b for one web tool: served on port 0 over a copy of the
+    chain's DB and driven through every route (web_routes); JSON and text
+    bodies equal to JAX's, images the arrays JAX hands its encoder (the
+    strip within TOOLS_GRAY gray levels); pick_web's /image one dewarp_u8
+    launch a page cold and none warm. -> (failures, a note, dewarp_u8
+    launches of the cold /image requests)."""
+    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import page as page_cache
+    pages = tools_pages(corpus)
+    line = (str(corpus / rows[0][0]), rows[0][1])
+    routes = web_routes(tool, corpus, line)
+    counts, bad, launched = [], [], 0
+
+    def count_dewarps(i):
+        counts.append(launch_counts().get("dewarp_u8", 0))
+        reset_launches()
+
+    page_cache.clear_caches()
+    handler = port_web_handler(tool, corpus,
+                               tool_db(work, work / "annotations.db", tool),
+                               device)
+    t0 = time.time()
+    reset_launches()
+    got = drive_web(handler, routes, count_dewarps)
+    note = "%s %d routes %.2f s" % (tool, len(routes), time.time() - t0)
+    want = ref["web"][tool]
+    rec = web_record(got, corpus)
+    for i, ((method, route, _), r, w) in enumerate(zip(
+            routes, rec, want["records"])):
+        if r != w:
+            bad.append("%s %s %s: %s against JAX's %s" % (
+                tool, method, placeholder(route, corpus), str(r)[:200],
+                str(w)[:200]))
+        key = str(i)
+        if key not in want["images"]:
+            continue
+        px = _png.decode(got[i][2])
+        if tool == "annotate_web":
+            b, _ = strip_errors({want["images"][key]: px}, tools_strips(),
+                                "strip/", bar_gray=TOOLS_GRAY)
+            bad += ["%s %s" % (tool, e) for e in b]
+        elif digest(px) != want["images"][key]:
+            bad.append("%s %s: the image differs from the array JAX "
+                       "encodes" % (tool, placeholder(route, corpus)))
+    if len(rec) != len(want["records"]):
+        bad.append("%s: %d responses, JAX %d" % (tool, len(rec),
+                                                 len(want["records"])))
+    if tool == "pick_web" and str(device) != "cpu":
+        image = [counts[i] for i, (_, r, _) in enumerate(routes)
+                 if r.startswith("/image")]
+        launched = sum(image[:len(pages)])
+        if image != [1] * len(pages) + [0]:
+            bad.append("pick_web /image dewarp_u8 launches %s, expected 1 "
+                       "a page cold, 0 warm" % image)
+        note += ", /image dewarp_u8 %s" % image
+    return bad, note, launched
+
+
+def check_web_tools(corpus, work, ref, out, device):
+    """Phase 20b: web_tool_errors for each web tool. -> dewarp_u8
+    launches of pick_web's cold /image requests."""
+    write_signatures(corpus, device)
+    bad, notes, launched = [], [], 0
+    for tool in WEB_TOOLS:
+        b, note, n = web_tool_errors(tool, corpus, work, ref, out["rows"],
+                                     device)
+        bad += b
+        notes.append(note)
+        launched += n
+    log("  (b) the web tools on port 0, every route: JSON bodies equal to "
+        "JAX's, images the arrays JAX encodes; %s  %s" % (
+            "; ".join(notes), "ok" if not bad else "FAIL " + "; ".join(
+                bad)))
+    if bad:
+        raise PhaseError("web tools: %s" % "; ".join(bad))
+    return launched
+
+
+def check_cli_printouts(corpus, ref, device):
+    """xycut and cluster print what the JAX CLIs print."""
+    import io
+    from origami_tpu_torch.tool import cluster, xycut
+    bad = []
+    for page in tools_pages(corpus):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            xycut.main([str(page), "--device", str(device)])
+        if buf.getvalue() != ref["xycut"][page.stem]:
+            bad.append("xycut of %s" % page.stem)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cluster.main([str(corpus), "-k", "2", "--device", str(device)])
+    if placeholder(buf.getvalue(), corpus) != ref["cluster"]:
+        bad.append("cluster")
+    return bad
+
+
+def check_tools(workdir, device="cuda"):
+    """Phase 20: (a) the sample -> harmonize -> export chain and annotate
+    export-image, (b) the web tools, xycut and cluster, (c) the remote
+    runner. -> ({kernel: {path: launches}}, seconds)."""
+    t0 = time.time()
+    ref = json.loads((TOOLS_REF / "tools.json").read_text())
+    work = workdir / "tools"
+    corpus = tools_corpus(work / "corpus")
+    out = check_tool_chain(corpus, work, ref, device)
+    web = check_web_tools(corpus, work, ref, out, device)
+    bad = check_cli_printouts(corpus, ref, device)
+    log("  xycut and cluster printouts equal to JAX's  %s" % (
+        "ok" if not bad else "FAIL " + "; ".join(bad)))
+    if bad:
+        raise PhaseError("tool printouts: %s" % "; ".join(bad))
+    remote, _ = check_remote(work, device)
+    by_path = {
+        "remap_batch": {"tools export": out["export_launches"].get(
+            "remap_batch", 0)},
+        "sauvola": {"tools export --binarize": out[
+            "export_bin_launches"].get("sauvola", 0),
+            "remote": remote.get("sauvola", 0)},
+        "sauvola_packed": {"remote": remote.get("sauvola_packed", 0)},
+        "dewarp_u8": {"pick_web": web},
+    }
+    return by_path, time.time() - t0
+
+
 # ---------------------------------------------------------------- main
 
 def phase_seconds(n, t0):
@@ -5601,14 +6236,15 @@ def main():
             or not SEG_REF.is_dir() or not FLOW_REF.is_dir() \
             or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
             or not TRAIN_REF.is_dir() or not GT_REF.is_dir() \
-            or not INSPECT_REF.is_dir() or not FLAGSHIP_REF.is_dir():
+            or not INSPECT_REF.is_dir() or not FLAGSHIP_REF.is_dir() \
+            or not TOOLS_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
               "tests/data/torch_layout/, tests/data/torch_compose/, "
               "tests/data/torch_train/, tests/data/torch_gt/, "
-              "tests/data/torch_inspect/ or tests/data/torch_flagship/ "
-              "missing)",
+              "tests/data/torch_inspect/, tests/data/torch_flagship/ or "
+              "tests/data/torch_tools/ missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -5860,7 +6496,14 @@ def main():
             "warp against one device, the dry run's training half (%s)"
             % smi)
         mesh_launches = check_mesh_training(work)
-        phase_seconds(19, t_phase)
+        t_phase = phase_seconds(19, t_phase)
+
+        log("== phase 20: the operator tools and the remote runner: "
+            "sample, harmonize, export, annotate export-image, the web "
+            "tools and remote -m heuristic on the card vs the JAX tools "
+            "(%s)" % smi)
+        tools_by_path, _ = check_tools(work)
+        phase_seconds(20, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
@@ -5879,6 +6522,10 @@ def main():
                                   "multihost": multihost_launches},
                "remap_batch": {"training": total["remap_batch"],
                                "mesh training": mesh_launches}}
+    # phase 20's tools: the line export, its Sauvola, pick_web's pages
+    # and the remote runner's segment stage
+    for name, paths in tools_by_path.items():
+        by_path.setdefault(name, {}).update(paths)
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

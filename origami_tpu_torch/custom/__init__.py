@@ -1,1 +1,2 @@
-"""Corpus-specific rule sets: layouts (detect.layout --layout NAME)."""
+"""Corpus-specific rule sets: layouts (detect.layout --layout NAME) and
+harmonization schemas (tool.harmonize NAME)."""

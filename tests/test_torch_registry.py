@@ -197,7 +197,14 @@ print(json.dumps({"modules": names,
                  "batch.utils.cleanup", "core.lingrid",
                  "pagexml.transcriptions", "parallel",
                  "parallel.multihost", "parallel.mesh", "parallel.dryrun",
-                 "models.flagship"):
+                 "models.flagship", "tool", "tool.lineload",
+                 "tool.harmonize", "tool.export", "tool.split",
+                 "tool.merge", "tool.pick", "tool.annotate", "tool.sample",
+                 "tool.cluster", "tool.xycut", "tool.annotate_web",
+                 "tool.pick_web", "tool.cluster_web", "tool.xycut_web",
+                 "custom.harmonizations", "custom.harmonizations.default",
+                 "custom.harmonizations.bbz", "batch.remote",
+                 "batch.remote.runner", "batch.remote.__main__"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
