@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero before the result line):
 
   1. build the CUDA kernels from origami_tpu_torch/csrc with nvcc
-     (sm_90a) and, beside them, the host geometry library
-     (origami_tpu_torch/geometry/native.cpp and contour_trace.cpp, g++);
+     (sm_90a) and, beside them, the host library
+     (origami_tpu_torch/geometry/native.cpp and contour_trace.cpp, the
+     image codecs origami_tpu_torch/core/png.cpp, jpeg.cpp and tiff.cpp;
+     g++);
      print ptxas' register report and the card's name and power limit;
   2. hold each kernel entry point against its plain PyTorch version on
      the card at the main path's shapes (the fixture pages, 1312x1920,
@@ -225,6 +227,25 @@ Phases (any failure exits non-zero before the result line):
      stages, its task DB DONE and a second run of no page. The kernels
      line's remap_batch, sauvola, sauvola_packed and dewarp_u8 rows list
      these launches in launches_by_path.
+ 21. page images in every format the JAX package reads (core/_image.py
+     and the decoders under it; tests/data/torch_formats,
+     scripts/make_torch_formats_fixture.py): (a) every fixture file
+     (JPEG qualities, samplings, restarts, progressive and smoothed
+     progressive files; TIFF none, PackBits, LZW, Deflate, CCITT RLE,
+     G3 1-D and 2-D, G4, both fill orders, strips and tiles, both byte
+     orders; BMP 1-32 bits and RLE; PNG 1-16 bits and Adam7; the two
+     fixture pages as JPEG, one progressive, one G4 TIFF) decodes to
+     PIL's convert("L") digest and PIL's size, and the kinds the port
+     does not read (arithmetic, lossless, 12-bit and CMYK JPEG, JPEG
+     2000, JPEG-in-TIFF) raise a ValueError naming them; (b) the two
+     pages as baseline gray JPEGs through PipelinedRunner on the main
+     path: every page COMPLETED, launches exactly phase 12's, page.txt
+     within PORT_CHAIN_MAX_CER of the JAX chain's on the same JPEG
+     pages (the kernels line lists these launches in
+     launches_by_path); (c) host decode ms a page of each page file
+     beside the PNG of the same pixels, with the card's name and power
+     limit, and of the PNG page written as BMP and TIFF (uncompressed;
+     Deflate with the predictor), which must decode to its pixels.
 
 Each phase prints its seconds.
 
@@ -2900,15 +2921,15 @@ def page_text(path):
 
 
 def compare_chain_text(corpus, name, failed, min_identical, max_cer,
-                       min_lines=0):
+                       min_lines=0, ref_dir=COMPOSE_REF, pattern="*.png"):
     """Hold each page's composed text against the JAX chain's
-    (tests/data/torch_compose): at least `min_identical` of its lines and
-    `min_lines` lines identical, CER <= `max_cer`; -> (share of lines
-    identical, CER)."""
+    (tests/data/torch_compose, or `ref_dir`'s): at least `min_identical`
+    of its lines and `min_lines` lines identical, CER <= `max_cer`;
+    -> (share of lines identical, CER)."""
     same = n = errs = chars = 0
-    for png in sorted(corpus.glob("*.png")):
+    for png in sorted(corpus.glob(pattern)):
         got = page_text(corpus / (png.stem + ".out") / "compose.zip")
-        ref = page_text(COMPOSE_REF / (png.stem + ".out") / "compose.zip")
+        ref = page_text(ref_dir / (png.stem + ".out") / "compose.zip")
         s, k, e, c = text_diff(got, ref)
         same, n, errs, chars = same + s, n + k, errs + e, chars + c
     share, cer = same / max(n, 1), errs / max(chars, 1)
@@ -6217,6 +6238,217 @@ def check_tools(workdir, device="cuda"):
     return by_path, time.time() - t0
 
 
+# ---------------------------------------------------------------- phase 21
+
+FORMATS_REF = ROOT / "tests" / "data" / "torch_formats"
+FORMATS_PAGES = ("synth0000", "synth0001")
+# page files timed in phase 21c, each beside the PNG of its pixels
+FORMATS_TIMED = ("synth0000.jpg", "synth0001.jpg",
+                 "synth0000.progressive.jpg", "synth0001.g4.tif")
+DECODE_REPS = 5
+
+
+def check_decode_parity():
+    """Phase 21 (a): every file of tests/data/torch_formats through
+    core/_image.py: PIL's pixels (by digest) and size, or the ValueError
+    that names a kind the port does not read. -> files checked."""
+    import hashlib
+    from origami_tpu_torch.core import _image
+    manifest = json.loads((FORMATS_REF / "manifest.json").read_text())
+    bad, kinds = [], {}
+    for rel, want in sorted(manifest.items()):
+        path = FORMATS_REF / rel
+        kind = path.suffix
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if "raises" in want:
+            try:
+                _image.read_gray(path)
+            except ValueError as e:
+                if want["raises"] not in str(e):
+                    bad.append("%s: %s" % (rel, e))
+            else:
+                bad.append("%s: read, expected a ValueError naming %s"
+                           % (rel, want["raises"]))
+            continue
+        px = _image.read_gray(path)
+        got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+        size = list(_image.read_size(path))
+        if got != want["sha256"] or size != want["size"] \
+                or [px.shape[1], px.shape[0]] != want["size"]:
+            bad.append("%s: size %s, pixels %s" % (
+                rel, size, "equal" if got == want["sha256"] else "DIFFER"))
+    log("  decode parity: %d files (%s) against PIL's digests and sizes: "
+        "%d differ  %s" % (len(manifest), ", ".join(
+            "%d %s" % (v, k) for k, v in sorted(kinds.items())), len(bad),
+            "ok" if not bad else "FAIL " + "; ".join(bad[:10])))
+    if bad:
+        raise PhaseError("decode parity: %s" % "; ".join(bad[:10]))
+    return len(manifest)
+
+
+def check_jpeg_chain(workdir, device="cuda"):
+    """Phase 21 (b): the two fixture pages as baseline gray JPEGs through
+    PipelinedRunner on the main path (the students in bf16, banded
+    strips), the launch counts set to 0 just before the run and read just
+    after it: every page COMPLETED in every stage, each kernel's launches
+    per page as WHOLE_CHAIN_LAUNCHES says (phase 12's), page.txt within
+    PORT_CHAIN_MAX_CER of the JAX chain's on the same JPEG pages
+    (tests/data/torch_formats/chain). -> launches."""
+    import torch
+    from origami_tpu_torch.batch.detect.flow import kernel_launches
+    from origami_tpu_torch.batch.runner import PipelinedRunner
+    corpus = workdir / "jpeg_chain"
+    corpus.mkdir(parents=True)
+    for stem in FORMATS_PAGES:
+        shutil.copy(FORMATS_REF / "pages" / (stem + ".jpg"), corpus)
+    stages = chain_stages(device, str(ROOT / STUDENTS), "banded")
+    reset_launches()
+    t0 = time.perf_counter()
+    PipelinedRunner(stages, wave_size=1).run(corpus)
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    failed, seconds = [], {}
+    pages = sorted(corpus.glob("*.jpg"))
+    for page in pages:
+        rt = json.loads((corpus / (page.stem + ".out") / "runtime.json")
+                        .read_text())
+        for stage, _ in stages:
+            entry = rt.get(STAGE_KEYS[stage], {})
+            if entry.get("status") != "COMPLETED":
+                failed.append("JPEG chain, %s on %s: %s" % (
+                    stage, page.name, entry.get("traceback", entry)))
+                continue
+            seconds[stage] = seconds.get(stage, 0.0) + entry["elapsed"]
+    bad = whole_chain_launch_errors("banded", launches, len(pages), device)
+    log("  JPEG chain (students, banded) %d pages: %.2f s wall; stage "
+        "seconds %s; launches %s  %s" % (
+            len(pages), wall, json.dumps(seconds), json.dumps(
+                {k: v for k, v in launches.items() if v}),
+            "ok" if not bad and not failed else "FAIL"))
+    if bad:
+        failed.append("JPEG chain: launches (got, expected per page) %s"
+                      % bad)
+    if not failed:
+        compare_chain_text(corpus, "JPEG chain vs the JAX chain on the same "
+                           "JPEG pages", failed, 0.0, PORT_CHAIN_MAX_CER,
+                           ref_dir=FORMATS_REF / "chain", pattern="*.jpg")
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return launches
+
+
+def write_bmp(path, px):
+    """uint8 (H, W) gray -> an 8-bit BMP with a gray-ramp palette, rows
+    bottom-up (the card's machine has no PIL to write one)."""
+    import struct
+    h, w = px.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = px[::-1]
+    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+    palette[:, 3] = 0
+    off = 14 + 40 + 1024
+    path.write_bytes(
+        b"BM" + struct.pack("<IHHI", off + rows.size, 0, 0, off)
+        + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, rows.size, 2835,
+                      2835, 256, 0) + palette.tobytes() + rows.tobytes())
+
+
+def write_tiff(path, px, deflate):
+    """uint8 (H, W) gray -> a MinIsBlack TIFF in strips of 64 rows:
+    uncompressed, or Deflate with the horizontal predictor."""
+    import struct
+    import zlib
+    h, w = px.shape
+    rps = 64
+    chunks = []
+    for y in range(0, h, rps):
+        s = px[y: y + rps]
+        if deflate:
+            s = np.diff(s, axis=1, prepend=np.uint8(0))
+            chunks.append(zlib.compress(s.tobytes()))
+        else:
+            chunks.append(s.tobytes())
+    data = bytearray(b"II*\x00\x00\x00\x00\x00")
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+    arrays = {}
+    for tag, vals in ((273, offsets), (279, [len(c) for c in chunks])):
+        arrays[tag] = len(data)
+        data += struct.pack("<%dI" % len(vals), *vals)
+    entries = [(256, 4, w), (257, 4, h), (258, 3, 8),
+               (259, 3, 8 if deflate else 1), (262, 3, 1),
+               (273, 4, None), (277, 3, 1), (278, 4, rps), (279, 4, None),
+               (317, 3, 2 if deflate else 1)]
+    data[4:8] = struct.pack("<I", len(data))
+    data += struct.pack("<H", len(entries))
+    for tag, typ, val in entries:
+        if val is None:
+            data += struct.pack("<HHII", tag, typ, len(chunks), arrays[tag])
+        elif typ == 3:
+            data += struct.pack("<HHIHH", tag, typ, 1, val, 0)
+        else:
+            data += struct.pack("<HHII", tag, typ, 1, val)
+    data += struct.pack("<I", 0)
+    path.write_bytes(bytes(data))
+
+
+def decode_timings(workdir):
+    """Phase 21 (c): host ms to decode each timed page file
+    (core/_image.read_gray, the file read included; median of
+    DECODE_REPS after one warm-up), beside the PNG of the same pixels;
+    then the PNG fixture page written here as BMP and as TIFF (none;
+    Deflate with the predictor), each decoded to its pixels exactly.
+    -> {file: (ms, png ms)}."""
+    from origami_tpu_torch.core import _image, _png
+    page = _png.read_gray(FIXTURE / (FORMATS_PAGES[0] + ".png"))
+    written = []
+    for name, write in (("bmp", write_bmp),
+                        ("tif", lambda p, x: write_tiff(p, x, False)),
+                        ("deflate.tif", lambda p, x: write_tiff(p, x, True))):
+        path = workdir / ("%s.%s" % (FORMATS_PAGES[0], name))
+        write(path, page)
+        if not np.array_equal(_image.read_gray(path), page):
+            raise PhaseError("%s does not decode to its pixels" % path.name)
+        written.append(path)
+    rows = {}
+    for path in [FORMATS_REF / "pages" / n for n in FORMATS_TIMED] \
+            + written:
+        name = path.name
+        px = _image.read_gray(path)
+        png = workdir / (name + ".png")
+        _png.write_gray(png, px)
+        times = {}
+        for key, p in (("file", path), ("png", png)):
+            _image.read_gray(p)
+            ts = []
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                _image.read_gray(p)
+                ts.append(1e3 * (time.perf_counter() - t0))
+            times[key] = statistics.median(ts)
+        rows[name] = (times["file"], times["png"])
+        log("  decode %-26s %dx%d %7d bytes: %.2f ms a page; the PNG of "
+            "its pixels (%d bytes) %.2f ms" % (
+                name, px.shape[1], px.shape[0], path.stat().st_size,
+                times["file"], png.stat().st_size, times["png"]))
+    return rows
+
+
+def check_image_formats(workdir, device="cuda"):
+    """Phase 21: (a) decode parity, (b) the chain on the JPEG pages, (c)
+    decode timings. -> (launches of (b), seconds)."""
+    t0 = time.time()
+    check_decode_parity()
+    launches = check_jpeg_chain(workdir, device)
+    decode_timings(workdir)
+    return launches, time.time() - t0
+
+
 # ---------------------------------------------------------------- main
 
 def phase_seconds(n, t0):
@@ -6237,14 +6469,15 @@ def main():
             or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
             or not TRAIN_REF.is_dir() or not GT_REF.is_dir() \
             or not INSPECT_REF.is_dir() or not FLAGSHIP_REF.is_dir() \
-            or not TOOLS_REF.is_dir():
+            or not TOOLS_REF.is_dir() or not FORMATS_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
               "tests/data/torch_layout/, tests/data/torch_compose/, "
               "tests/data/torch_train/, tests/data/torch_gt/, "
-              "tests/data/torch_inspect/, tests/data/torch_flagship/ or "
-              "tests/data/torch_tools/ missing)",
+              "tests/data/torch_inspect/, tests/data/torch_flagship/, "
+              "tests/data/torch_tools/ or tests/data/torch_formats/ "
+              "missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -6503,7 +6736,21 @@ def main():
             "tools and remote -m heuristic on the card vs the JAX tools "
             "(%s)" % smi)
         tools_by_path, _ = check_tools(work)
-        phase_seconds(20, t_phase)
+        t_phase = phase_seconds(20, t_phase)
+
+        log("== phase 21: page images in every format the JAX package "
+            "reads: decode parity against PIL, the chain on the JPEG "
+            "pages, host decode times (%s)" % smi)
+        jpeg_launches, _ = check_image_formats(work)
+        # exactly phase 12's, but where a count is bounded (a banded run's
+        # strips_through_grid: lines past the banded profiles)
+        differ = {k: (v, whole["banded"][k]) for k, v in
+                  jpeg_launches.items() if v != whole["banded"][k]
+                  and ("banded", k) not in WHOLE_CHAIN_AT_MOST}
+        if differ:
+            raise PhaseError("JPEG chain launches (got, phase 12's) %s"
+                             % differ)
+        phase_seconds(21, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
@@ -6526,6 +6773,10 @@ def main():
     # and the remote runner's segment stage
     for name, paths in tools_by_path.items():
         by_path.setdefault(name, {}).update(paths)
+    # phase 21's JPEG pages on the main path: phase 12's launches again
+    for name, n in jpeg_launches.items():
+        if n:
+            by_path.setdefault(name, {})["jpeg chain"] = n
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

@@ -183,9 +183,10 @@ class ThumbnailProcessor(PageProcessor):
         return [("output", Output(Artifact.THUMBNAIL))]
 
     def process(self, page_path, output):
-        from origami_tpu_torch.core import _png
+        from origami_tpu_torch.core import _image, _png
         _png.write_gray(output.path(Artifact.THUMBNAIL),
-                        thumbnail(_png.read_gray(page_path), self._max_size))
+                        thumbnail(_image.read_gray(page_path),
+                                  self._max_size))
 
 
 def add_options(p):

@@ -1,0 +1,84 @@
+"""Page images in the formats that PIL opens for the JAX package.
+
+`read(path)` -> uint8 (H, W) gray or (H, W, 3) RGB, `read_gray(path)`
+-> PIL's `np.asarray(Image.open(path).convert("L"))`, `read_size(path)`
+-> PIL's `Image.open(path).size` from the header alone. The reader is
+chosen by the file's magic bytes, not its suffix, as PIL chooses it: PNG
+(core/_png.py), JPEG (core/_jpeg.py), TIFF (core/_tiff.py) and BMP
+(core/_bmp.py). JPEG 2000 and anything else raise ValueError naming the
+format; nothing falls back to another reader.
+"""
+
+from __future__ import annotations
+
+from origami_tpu_torch.core import _bmp, _jpeg, _png, _tiff
+
+_JP2 = (b"\x00\x00\x00\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51")
+
+
+def kind(head):
+    """The format of a file from its first bytes: "png", "jpeg", "tiff",
+    "bmp", "jpeg2000" or None."""
+    if head.startswith(_png._SIG):
+        return "png"
+    if head[:3] == b"\xff\xd8\xff":
+        return "jpeg"
+    if _tiff.is_tiff(head) or head[:4] in (b"II+\x00", b"MM\x00+"):
+        return "tiff"
+    if _bmp.is_bmp(head):
+        return "bmp"
+    if any(head.startswith(m) for m in _JP2):
+        return "jpeg2000"
+    return None
+
+
+def _unsupported(k, path):
+    if k == "jpeg2000":
+        return ValueError("%s: JPEG 2000 is not supported (the port has no "
+                          "JPEG 2000 decoder)" % path)
+    return ValueError("%s: not a PNG, JPEG, TIFF or BMP file" % path)
+
+
+def decode(data, what="data", gray=False):
+    """Image bytes -> uint8 (H, W) or (H, W, 3); `gray`: PIL's
+    convert("L")."""
+    k = kind(data[:16])
+    if k == "jpeg":
+        return _jpeg.decode(data, gray=gray)
+    if k == "png":
+        px = _png.decode(data, what)
+    elif k == "tiff":
+        px = _tiff.decode(data)
+    elif k == "bmp":
+        px = _bmp.decode(data)
+    else:
+        raise _unsupported(k, what)
+    return _png.to_gray(px) if gray else px
+
+
+def read(path):
+    with open(path, "rb") as f:
+        return decode(f.read(), path)
+
+
+def read_gray(path):
+    with open(path, "rb") as f:
+        return decode(f.read(), path, gray=True)
+
+
+def read_size(path):
+    """(width, height) from the file's header, without decoding."""
+    with open(path, "rb") as f:
+        head = f.read(256)
+        k = kind(head)
+        if k == "png":
+            return _png.read_size(path)
+        if k == "bmp":
+            return _bmp.read_size(head)
+        if k in ("jpeg", "tiff"):
+            data = head + f.read()
+            if k == "tiff":
+                return _tiff.read_size(data)
+            w, h, _ = _jpeg.info(data)
+            return w, h
+    raise _unsupported(k, path)

@@ -1,16 +1,19 @@
-"""A small PNG reader and writer: zlib + numpy (un)filtering.
+"""A PNG reader and writer: zlib, numpy and the host library's unfilter.
 
-Reads what the corpora of this project hold (PIL-written pages): 8-bit
-grayscale or RGB and 1-bit grayscale (PIL's mode "1", read as 0 and 255,
-as its `convert("L")` gives), non-interlaced. Everything else raises
-ValueError. `read_gray` converts color the way PIL's `convert("L")` does
-(ITU-R 601-2 luma in 16-bit fixed point), so pixels match the reference
-loader exactly. `encode_bilevel` / `write_bilevel` write the 1-bit
-grayscale PNG that PIL writes for a mode "1" image. `encode_rgb` /
-`write_rgb` write 8-bit RGB (colour type 2): the annotation renders.
-`encode_paletted` / `decode_paletted` write and read the paletted label
-maps of segment.zip (colour type 3 with a PLTE chunk).
-Keeps the port free of PIL.
+Reads every PNG that PIL reads, as PIL's `convert("L")` and
+`convert("RGB")` give it: gray at 1, 2, 4, 8 and 16 bits (1-bit as 0 and
+255, 2 and 4 bits scaled to 0-255, 16 bits clipped at 255 as PIL's
+"I;16" -> "L"), RGB at 8 and 16 bits (16: the high bytes), paletted
+at 1-8 bits (through the palette), gray + alpha and RGBA (the alpha
+dropped), plain or Adam7-interlaced. `read_gray` converts colour the
+way PIL's `convert("L")` does (ITU-R 601-2 luma in 16-bit fixed point),
+so pixels match the reference loader exactly. The row filters are
+undone in C++ (png.cpp, in the port's host library).
+`encode_bilevel` / `write_bilevel` write the 1-bit grayscale PNG that
+PIL writes for a mode "1" image. `encode_rgb` / `write_rgb` write 8-bit
+RGB (colour type 2): the annotation renders. `encode_paletted` /
+`decode_paletted` write and read the paletted label maps of segment.zip
+(colour type 3 with a PLTE chunk). Keeps the port free of PIL.
 """
 
 from __future__ import annotations
@@ -21,7 +24,13 @@ import zlib
 import numpy as np
 
 _SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3}
+# samples a pixel of each colour type
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data):
@@ -45,41 +54,17 @@ def read_size(path):
 
 
 def _unfilter(raw, h, stride, bpp):
-    """Undo the per-row PNG filters (types 0-4) of `raw`."""
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        ftype = rows[y, 0]
-        line = rows[y, 1:].astype(np.int32)
-        if ftype == 0:
-            cur = line
-        elif ftype == 2:
-            cur = (line + prev) & 0xFF
-        elif ftype == 1:
-            # Sub: a running sum per interleaved channel
-            cur = (np.cumsum(line.reshape(-1, bpp), axis=0) & 0xFF) \
-                .reshape(stride)
-        elif ftype in (3, 4):
-            # Average / Paeth: nonlinear left recurrences, per byte
-            # (on Python ints: numpy scalar indexing is slower here)
-            lin, up = line.tolist(), prev.tolist()
-            res = [0] * stride
-            for x in range(stride):
-                a = res[x - bpp] if x >= bpp else 0
-                b = up[x]
-                if ftype == 3:
-                    p = (a + b) >> 1
-                else:
-                    c = up[x - bpp] if x >= bpp else 0
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                res[x] = (lin[x] + p) & 0xFF
-            cur = np.asarray(res, np.int32)
-        else:
-            raise ValueError("bad PNG filter type %d" % ftype)
-        out[y] = cur
-        prev = cur
+    """Undo the per-row PNG filters (types 0-4) of `raw` (h rows of
+    1 + stride bytes) -> uint8 (h, stride)."""
+    from origami_tpu_torch.geometry.native_bindings import _U8P, library
+    raw = np.frombuffer(raw, np.uint8)
+    if raw.size < h * (stride + 1):
+        raise ValueError("PNG image data ends early")
+    out = np.empty((h, stride), np.uint8)
+    bad = library().png_unfilter(raw.ctypes.data_as(_U8P), h, stride, bpp,
+                                 out.ctypes.data_as(_U8P))
+    if bad:
+        raise ValueError("bad PNG filter type in row %d" % (-bad - 1))
     return out
 
 
@@ -98,9 +83,45 @@ def _parse(data, what="data"):
             plte = body
     if ihdr is None:
         raise ValueError("PNG without IHDR")
-    if ihdr[6] != 0:
-        raise ValueError("interlaced PNGs are not supported")
     return ihdr, plte, zlib.decompress(b"".join(idat))
+
+
+def _samples(rows, w, depth, ch):
+    """Unfiltered rows -> (h, w, ch) samples: uint8 below 16 bits (the
+    raw values), uint16 at 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        px = rows[:, : 2 * w * ch].reshape(h, w * ch, 2).astype(np.uint16)
+        return ((px[..., 0] << 8) | px[..., 1]).reshape(h, w, ch)
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1)[:, : w * depth]
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        px = (bits.reshape(h, w, depth) * weights).sum(axis=-1,
+                                                        dtype=np.uint8)
+        return px[..., None]
+    return rows[:, : w * ch].reshape(h, w, ch)
+
+
+def _pixels(raw, w, h, depth, ctype, interlace):
+    """The decompressed image data -> (h, w, samples) of the file's
+    depth, Adam7 passes put in place."""
+    ch = _CHANNELS[ctype]
+    bpp = max(1, depth * ch // 8)
+    if not interlace:
+        stride = (w * ch * depth + 7) // 8
+        return _samples(_unfilter(raw, h, stride, bpp), w, depth, ch)
+    out = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * ch * depth + 7) // 8
+        n = ph * (stride + 1)
+        rows = _unfilter(raw[off: off + n], ph, stride, bpp)
+        out[y0::dy, x0::dx] = _samples(rows, pw, depth, ch)
+        off += n
+    return out
 
 
 def read(path):
@@ -110,24 +131,41 @@ def read(path):
 
 
 def decode(data, what="data"):
-    """Decode PNG bytes into uint8 (H, W) or (H, W, C)."""
-    (w, h, depth, ctype, _c, _f, _i), _plte, raw = _parse(data, what)
-    if depth == 1 and ctype == 0:
-        rows = _unfilter(raw, h, (w + 7) // 8, 1)
-        bits = np.unpackbits(rows, axis=1)[:, :w]
-        return np.ascontiguousarray(bits * np.uint8(255))
-    if depth != 8 or ctype not in _CHANNELS:
+    """Decode PNG bytes into uint8 (H, W) gray or (H, W, 3) RGB, as PIL's
+    convert("L") / convert("RGB") give the file's pixels."""
+    (w, h, depth, ctype, _c, _f, interlace), plte, raw = _parse(data, what)
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1:
         raise ValueError("unsupported PNG (depth %d, color type %d)"
                          % (depth, ctype))
-    ch = _CHANNELS[ctype]
-    px = _unfilter(raw, h, w * ch, ch)
-    return px.reshape(h, w, ch)[..., 0] if ch == 1 else px.reshape(h, w, ch)
+    px = _pixels(raw, w, h, depth, ctype, interlace)
+    if ctype == 3:
+        if plte is None:
+            raise ValueError("paletted PNG without PLTE")
+        palette = np.zeros((256, 3), np.uint8)
+        pal = np.frombuffer(plte, np.uint8)[: 768]
+        palette.reshape(-1)[: pal.size - pal.size % 3] = \
+            pal[: pal.size - pal.size % 3]
+        return palette[px[..., 0]]
+    if ctype == 0:
+        g = px[..., 0]
+        if depth == 16:      # PIL's "I;16" -> "L": clipped, not scaled
+            return np.minimum(g, 255).astype(np.uint8)
+        if depth < 8:        # PIL's "1", "L;2", "L;4": scaled to 0-255
+            return g * np.uint8(255 // ((1 << depth) - 1))
+        return np.ascontiguousarray(g)
+    if depth == 16:          # "RGB;16B", "LA;16B", "RGBA;16B": high bytes
+        px = (px >> 8).astype(np.uint8)
+    if ctype == 4:           # gray + alpha: the gray
+        return np.ascontiguousarray(px[..., 0])
+    return np.ascontiguousarray(px[..., :3])
 
 
 def decode_paletted(data):
     """PNG bytes of colour type 3 -> (uint8 (H, W) palette indices,
     uint8 (n, 3) palette). Bit depths 1, 2, 4 and 8."""
-    (w, h, depth, ctype, _c, _f, _i), plte, raw = _parse(data)
+    (w, h, depth, ctype, _c, _f, interlace), plte, raw = _parse(data)
+    if interlace:
+        raise ValueError("interlaced label maps are not supported")
     if ctype != 3 or depth not in (1, 2, 4, 8) or plte is None:
         raise ValueError("not a paletted PNG (depth %d, color type %d)"
                          % (depth, ctype))

@@ -1,0 +1,238 @@
+"""TIFF pages without PIL: frame 0 of a file, as PIL (through libtiff)
+gives it for `convert("L")` / `convert("RGB")`.
+
+Little- and big-endian files, strips or tiles, compression none,
+PackBits, LZW (with horizontal predictor 2), Deflate (8 and 32946) and
+CCITT Modified Huffman, Group 3 (one- and two-dimensional) and Group 4,
+FillOrder 1 and 2; MinIsWhite and MinIsBlack at 1, 2, 4, 8 and 16 bits
+(16 clipped at 255, as PIL's "I;16" -> "L", which leaves MinIsWhite at 16
+bits uninverted), gray + alpha, RGB and RGBA
+(contiguous, 8 and 16 bits: the high bytes), and palette at 1-8 bits
+(the colour map's high bytes). LZW, PackBits and CCITT decode in C++
+(core/tiff.cpp, the port's host library); Deflate is zlib. JPEG-in-TIFF,
+planar files, BigTIFF and float samples raise ValueError.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+import zlib
+
+import numpy as np
+
+# the integer TIFF field types
+_TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
+_COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
+                4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
+                7: "JPEG", 8: "Deflate", 32946: "Deflate",
+                32773: "PackBits"}
+_FAX = (2, 3, 4)
+# bits reversed within a byte (FillOrder 2)
+_REVERSE = np.array([int("{:08b}".format(i)[::-1], 2) for i in range(256)],
+                    np.uint8)
+_ERR = 256
+
+
+def is_tiff(head):
+    return head[:4] in (b"II*\x00", b"MM\x00*")
+
+
+def _ifd0(data):
+    """{tag: tuple of values} of the first image directory, and the
+    struct byte order."""
+    if data[:4] in (b"II+\x00", b"MM\x00+"):
+        raise ValueError("unsupported TIFF: BigTIFF")
+    if not is_tiff(data):
+        raise ValueError("not a TIFF file")
+    bo = "<" if data[:2] == b"II" else ">"
+    (off,) = struct.unpack(bo + "I", data[4:8])
+    if off + 2 > len(data):
+        raise ValueError("corrupt TIFF: no image directory")
+    (n,) = struct.unpack(bo + "H", data[off: off + 2])
+    tags = {}
+    for i in range(n):
+        e = off + 2 + 12 * i
+        tag, typ, count = struct.unpack(bo + "HHI", data[e: e + 8])
+        if typ not in _TYPE_FMT:
+            continue          # ASCII, rationals, floats: not needed here
+        size = struct.calcsize(_TYPE_FMT[typ])
+        if size * count <= 4:
+            raw = data[e + 8: e + 8 + size * count]
+        else:
+            (vo,) = struct.unpack(bo + "I", data[e + 8: e + 12])
+            raw = data[vo: vo + size * count]
+        if len(raw) < size * count:
+            raise ValueError("corrupt TIFF: tag %d past the file's end"
+                             % tag)
+        tags[tag] = struct.unpack(bo + _TYPE_FMT[typ] * count, raw)
+    return tags, bo
+
+
+def _one(tags, tag, default=None):
+    v = tags.get(tag)
+    if v is None:
+        if default is None:
+            raise ValueError("TIFF without tag %d" % tag)
+        return default
+    return v[0]
+
+
+def read_size(data):
+    tags, _ = _ifd0(data)
+    return _one(tags, 256), _one(tags, 257)
+
+
+def _lib():
+    from origami_tpu_torch.geometry.native_bindings import library
+    return library()
+
+
+def _inflate(chunk, size, compression, width, rows, t4options):
+    """One strip's or tile's bytes -> `size` bytes of samples (rows
+    padded to a byte), or for CCITT (rows, width) 0/1 pixels."""
+    from origami_tpu_torch.geometry.native_bindings import _U8P
+    src = np.frombuffer(chunk, np.uint8)
+    if compression == 1:
+        out = np.zeros(size, np.uint8)
+        out[: min(size, src.size)] = src[: size]
+        return out
+    if compression in (8, 32946):
+        out = np.zeros(size, np.uint8)
+        raw = zlib.decompressobj().decompress(chunk, size)
+        out[: len(raw)] = np.frombuffer(raw, np.uint8)
+        return out
+    if compression in (5, 32773):
+        if compression == 5 and src.size >= 2 and src[0] == 0 \
+                and src[1] & 1:
+            raise ValueError("unsupported TIFF: old-style LZW codes")
+        out = np.zeros(size, np.uint8)
+        fn = _lib().tiff_lzw if compression == 5 else _lib().tiff_packbits
+        if fn(src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P),
+              size) < 0:
+            raise ValueError("corrupt TIFF: bad LZW code")
+        return out
+    if compression in _FAX:
+        out = np.zeros((rows, width), np.uint8)
+        err = ctypes.create_string_buffer(_ERR)
+        if _lib().tiff_fax(src.ctypes.data_as(_U8P), src.size,
+                           compression, t4options, width, rows,
+                           out.ctypes.data_as(_U8P), err, _ERR) < 0:
+            raise ValueError("corrupt TIFF: " + err.value.decode())
+        return out
+    raise ValueError("unsupported TIFF compression: %s"
+                     % _COMPRESSION.get(compression, compression))
+
+
+def _samples(buf, rows, width, bps, spp, bo, predictor):
+    """A chunk's bytes -> (rows, width, spp) samples: uint8, or uint16 at
+    16 bits; bits below 8 unpacked per row."""
+    row_bytes = (width * bps * spp + 7) // 8
+    buf = buf[: rows * row_bytes].reshape(rows, row_bytes)
+    if bps == 16:
+        px = buf.view(bo + "u2").astype(np.uint16).reshape(rows, width, spp)
+        if predictor == 2:
+            px = np.cumsum(px, axis=1, dtype=np.uint16)
+        return px
+    if bps == 8:
+        px = buf[:, : width * spp].reshape(rows, width, spp)
+        if predictor == 2:
+            px = np.cumsum(px, axis=1, dtype=np.uint8)
+        return px
+    if predictor == 2:
+        raise ValueError("unsupported TIFF: predictor at %d bits" % bps)
+    bits = np.unpackbits(buf, axis=1)[:, : width * spp * bps]
+    weights = (1 << np.arange(bps - 1, -1, -1)).astype(np.uint8)
+    px = (bits.reshape(rows, width * spp, bps) * weights).sum(
+        axis=-1, dtype=np.uint8)
+    return px.reshape(rows, width, spp)
+
+
+def decode(data):
+    """TIFF bytes -> uint8 (H, W) gray or (H, W, 3) RGB of frame 0."""
+    tags, bo = _ifd0(data)
+    width, height = _one(tags, 256), _one(tags, 257)
+    compression = _one(tags, 259, 1)
+    if compression not in _COMPRESSION or compression in (6, 7):
+        raise ValueError("unsupported TIFF compression: %s (the port reads "
+                         "none, PackBits, LZW, Deflate and CCITT)"
+                         % _COMPRESSION.get(compression, compression))
+    photometric = _one(tags, 262, 0 if compression in _FAX else 1)
+    spp = _one(tags, 277, 1)
+    bps = tags.get(258, (1,) * spp)[0]
+    if _one(tags, 339, 1) != 1:
+        raise ValueError("unsupported TIFF: non-integer samples")
+    if spp > 1 and _one(tags, 284, 1) != 1:
+        raise ValueError("unsupported TIFF: planar configuration 2")
+    if photometric not in (0, 1, 2, 3):
+        raise ValueError("unsupported TIFF: photometric interpretation %d"
+                         % photometric)
+    if bps not in (1, 2, 4, 8, 16) or (photometric == 2 and bps < 8) or \
+            (photometric == 3 and bps > 8):
+        raise ValueError("unsupported TIFF: %d bits a sample" % bps)
+    if compression in _FAX and (bps != 1 or spp != 1):
+        raise ValueError("corrupt TIFF: CCITT data of %d x %d bits"
+                         % (spp, bps))
+    if 1 in tags.get(338, ()):
+        raise ValueError("unsupported TIFF: associated (premultiplied) "
+                         "alpha")
+    predictor = _one(tags, 317, 1)
+    if predictor not in (1, 2):
+        raise ValueError("unsupported TIFF: predictor %d" % predictor)
+    t4options = _one(tags, 292, 0)
+    reverse = _one(tags, 266, 1) == 2
+    if 322 in tags:
+        cw, ch = _one(tags, 322), _one(tags, 323)
+        offsets, counts = tags.get(324), tags.get(325)
+    else:
+        cw, ch = width, min(_one(tags, 278, height), height)
+        offsets, counts = tags.get(273), tags.get(279)
+    if offsets is None or counts is None:
+        raise ValueError("corrupt TIFF: no strip or tile offsets")
+    across = -(-width // cw)
+    out = np.zeros((height, width, spp),
+                   np.uint16 if bps == 16 else np.uint8)
+    row_bytes = (cw * bps * spp + 7) // 8
+    for i, (off, cnt) in enumerate(zip(offsets, counts)):
+        y0, x0 = (i // across) * ch, (i % across) * cw
+        if y0 >= height:
+            break
+        rows = ch if 322 in tags else min(ch, height - y0)
+        chunk = data[off: off + cnt]
+        if reverse:
+            chunk = _REVERSE[np.frombuffer(chunk, np.uint8)].tobytes()
+        buf = _inflate(chunk, rows * row_bytes, compression, cw, rows,
+                       t4options)
+        if compression in _FAX:
+            px = buf[:, :, None]      # 1 = black: as 1-bit samples
+        else:
+            px = _samples(buf, rows, cw, bps, spp, bo, predictor)
+        h, w = min(rows, height - y0), min(cw, width - x0)
+        out[y0: y0 + h, x0: x0 + w] = px[:h, :w]
+    return _convert(out, photometric, bps, spp, tags)
+
+
+def _convert(px, photometric, bps, spp, tags):
+    """Samples -> what PIL's convert("L") / convert("RGB") gives."""
+    if photometric == 3:
+        cmap = np.asarray(tags.get(320, ()), np.uint16)
+        n = 1 << bps
+        if cmap.size != 3 * n:
+            raise ValueError("corrupt TIFF: colour map of %d values"
+                             % cmap.size)
+        palette = (cmap.reshape(3, n).T >> 8).astype(np.uint8)
+        return palette[px[..., 0]]
+    if photometric == 2:
+        if spp < 3:
+            raise ValueError("corrupt TIFF: RGB with %d samples" % spp)
+        rgb = px[..., :3]
+        return np.ascontiguousarray(
+            (rgb >> 8).astype(np.uint8) if bps == 16 else rgb)
+    g = px[..., 0]
+    if bps == 16:            # PIL reads MinIsWhite too as plain "I;16"
+        return np.minimum(g, 255).astype(np.uint8)
+    if bps < 8:
+        g = g * np.uint8(255 // ((1 << bps) - 1))
+    if photometric == 0:
+        g = 255 - g
+    return np.ascontiguousarray(g)

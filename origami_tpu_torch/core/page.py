@@ -1,8 +1,9 @@
 """Page: lazy image decode, geometry, device-resident pixels.
 
 Port of origami_tpu/core/page.py (the part the segment and OCR stages
-need): pixels decode lazily through the port's PNG reader (grayscale, as
-PIL's convert("L")), upload to the page's device once as u8, dewarp
+need): pixels decode lazily through the port's image readers
+(core/_image.py: PNG, JPEG, TIFF and BMP, grayscale as PIL's
+convert("L")), upload to the page's device once as u8, dewarp
 there through the dewarp kernel and binarize there through the Sauvola
 kernel. Process-wide LRUs keyed by (path, mtime) keep every stage of a
 process from decoding, uploading, dewarping or binarizing a page twice
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from origami_tpu_torch import device as _device
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _image
 from origami_tpu_torch.core.math import Geometry
 
 _IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".tif", ".tiff", ".jp2", ".bmp")
@@ -134,7 +135,7 @@ class Page:
             key = self._file_key()
             px = _lru_get(_PIXELS_LRU, key, "pixels")
             if px is None:
-                px = _png.read_gray(self._path)
+                px = _image.read_gray(self._path)
                 _lru_put(_PIXELS_LRU, key, px, "pixels")
             self._pixels = px
         return self._pixels
@@ -220,7 +221,7 @@ class Page:
             return (int(hv.shape[1] * res), int(hv.shape[0] * res))
         if self._pixels is None:
             if self._lazy_size is None:
-                self._lazy_size = tuple(_png.read_size(self._path))
+                self._lazy_size = tuple(_image.read_size(self._path))
             return self._lazy_size
         h, w = self._pixels.shape[:2]
         return (w, h)

@@ -1,4 +1,4 @@
-"""ctypes bindings for the host C++ geometry kernels.
+"""ctypes bindings for the host C++ geometry kernels and image codecs.
 
 Port of origami_tpu/geometry/native_bindings.py: the polygon overlay, the
 segment distance, the Douglas-Peucker keep-mask, Zhang-Suen thinning, the
@@ -6,8 +6,10 @@ city-block EDT, the skeleton tracer and the concave hull of native.cpp
 (the JAX package's file copied whole), and the port's own raster
 vectorization of contour_trace.cpp (cv2's findContours, connected
 components, chamfer distance transform, fillPoly, line and circle;
-geometry/contour_trace.py and raster.py wrap them). Both sources are compiled at first use with g++ (the JAX
-package's Makefile flags) into
+geometry/contour_trace.py and raster.py wrap them), and the page-image
+codecs of core/png.cpp, jpeg.cpp and tiff.cpp (core/_png.py, _jpeg.py and
+_tiff.py wrap them). The sources are compiled at first use with g++ (the
+JAX package's Makefile flags) into
 
     build/origami_tpu_torch/liborigami_native.so
 
@@ -29,8 +31,10 @@ from pathlib import Path
 
 import numpy as np
 
-SOURCES = [Path(__file__).resolve().parent / name
-           for name in ("native.cpp", "contour_trace.cpp")]
+_HERE = Path(__file__).resolve().parent
+SOURCES = [_HERE / "native.cpp", _HERE / "contour_trace.cpp"] + [
+    _HERE.parent / "core" / name for name in ("png.cpp", "jpeg.cpp",
+                                              "tiff.cpp")]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "origami_tpu_torch"
 LIBRARY = BUILD_DIR / "liborigami_native.so"
 CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
@@ -118,6 +122,22 @@ def library():
     lib.draw_line.argtypes = [_U8P] + [ctypes.c_int] * 7
     lib.fill_circle.restype = None
     lib.fill_circle.argtypes = [_U8P] + [ctypes.c_int] * 5 + [ctypes.c_uint8]
+    lib.png_unfilter.restype = ctypes.c_int
+    lib.png_unfilter.argtypes = [_U8P, ctypes.c_int, ctypes.c_long,
+                                 ctypes.c_int, _U8P]
+    lib.jpeg_info.restype = ctypes.c_int
+    lib.jpeg_info.argtypes = [_U8P, ctypes.c_long, _IP, ctypes.c_char_p,
+                              ctypes.c_int]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [_U8P, ctypes.c_long, _U8P, ctypes.c_int,
+                                ctypes.c_char_p, ctypes.c_int]
+    for name in ("tiff_lzw", "tiff_packbits"):
+        getattr(lib, name).restype = ctypes.c_long
+        getattr(lib, name).argtypes = [_U8P, ctypes.c_long, _U8P,
+                                       ctypes.c_long]
+    lib.tiff_fax.restype = ctypes.c_int
+    lib.tiff_fax.argtypes = [_U8P, ctypes.c_long] + [ctypes.c_int] * 4 + [
+        _U8P, ctypes.c_char_p, ctypes.c_int]
     return lib
 
 

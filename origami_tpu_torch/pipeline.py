@@ -33,7 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _image, _png
 
 
 def _scratch_root():
@@ -208,8 +208,8 @@ class PagePipeline:
 def parser():
     p = argparse.ArgumentParser(
         prog="python -m origami_tpu_torch.pipeline",
-        description="Run the full pipeline on one PNG page image and "
-                    "print its text.")
+        description="Run the full pipeline on one page image (PNG, JPEG, "
+                    "TIFF or BMP) and print its text.")
     p.add_argument("image_path", type=str)
     p.add_argument("-m", "--model", type=str, default="heuristic")
     p.add_argument("--ocr-model", type=str, default="FAKE")
@@ -226,8 +226,8 @@ def main(argv=None):
     path = Path(args.image_path)
     if not path.exists():
         raise SystemExit("no such file: %s" % path)
-    # the port reads PNG only (core/_png.py); read_gray raises for others
-    img = _png.read_gray(path)
+    # PNG, JPEG, TIFF or BMP, by the file's magic bytes (core/_image.py)
+    img = _image.read_gray(path)
     pipe = PagePipeline(segmentation_model=args.model,
                         ocr_model=args.ocr_model, layout=args.layout,
                         page_xml=args.xml is not None, device=args.device)

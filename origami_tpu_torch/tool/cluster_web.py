@@ -124,8 +124,8 @@ def compute_clusters(data_path, k):
 def page_view(page, max_w):
     """The page in gray, narrowed to `max_w` pixels when wider."""
     from origami_tpu_torch.batch.utils.thumbnail import resize_bicubic
-    from origami_tpu_torch.core import _png
-    px = _png.read_gray(page)
+    from origami_tpu_torch.core import _image
+    px = _image.read_gray(page)
     h, w = px.shape
     if w > max_w:
         px = resize_bicubic(px, (max_w, int(h * max_w / w)))

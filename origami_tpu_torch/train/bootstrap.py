@@ -139,10 +139,10 @@ def train_segmentation(corpus_dir, out_dir, kind, members=5, steps=600,
 def _eval_pages(predictor, pairs, batch):
     """(the second item, Segmentation) of each (image path, item) pair,
     `batch` pages a predictor call."""
-    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import _image
     for start in range(0, len(pairs), batch):
         chunk = pairs[start: start + batch]
-        segs = predictor.predict_batch([_png.read_gray(ip)
+        segs = predictor.predict_batch([_image.read_gray(ip)
                                         for ip, _ in chunk])
         for (_, lp), seg in zip(chunk, segs):
             yield lp, seg

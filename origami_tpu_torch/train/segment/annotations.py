@@ -4,7 +4,7 @@ Port of origami_tpu/train/segment/annotations.py. A page's GT is its
 image plus one paletted label PNG per network kind
 (<stem>.labels.<kind>.png) or, failing that, a layered PSD (<stem>.psd,
 read only when psd-tools is installed). The image goes through the port's
-gray reader (PIL's convert("L")), the label PNGs through
+image readers (core/_image.py; PIL's convert("L")), the label PNGs through
 `data.read_labels` (a paletted PNG's indices, as PIL gives them).
 """
 
@@ -14,7 +14,7 @@ from pathlib import Path
 
 import numpy as np
 
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _image
 from origami_tpu_torch.train.segment.data import read_labels
 
 
@@ -37,7 +37,7 @@ def load_page_annotations(image_path, kinds=("region", "separator")):
     """Load GT for a page from label PNGs (<stem>.labels.<kind>.png) or,
     failing that, a PSD layer stack (<stem>.psd, requires psd-tools)."""
     image_path = Path(image_path)
-    image = _png.read_gray(image_path)
+    image = _image.read_gray(image_path)
     label_maps = {}
     for kind in kinds:
         p = image_path.with_name(

@@ -16,7 +16,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _image, _png
 from origami_tpu_torch.core.binarize import sauvola
 
 
@@ -34,7 +34,7 @@ def gen_binarized(corpus_dir, window_size=15, device=None):
         out = bin_dir / img_path.name
         if out.exists():
             continue
-        _png.write_bilevel(out, binarize(_png.read_gray(img_path)) > 0)
+        _png.write_bilevel(out, binarize(_image.read_gray(img_path)) > 0)
         n += 1
     return n
 

@@ -1,9 +1,10 @@
 """Training-tile generation: corpus of (image, label) pages -> tile
 datasets with class weights and k-fold splits.
 
-Port of origami_tpu/train/segment/data.py. Pages and label maps are read
-with the port's PNG reader (`core/_png.py`; a paletted label PNG gives
-its indices, as PIL does) and tiles written with its writer. The JAX
+Port of origami_tpu/train/segment/data.py. Pages are read with the port's
+image readers (`core/_image.py`), label maps with its PNG reader
+(`core/_png.py`; a paletted label PNG gives its indices, as PIL does)
+and tiles written with its writer. The JAX
 module resizes with cv2's INTER_AREA (pages) and INTER_NEAREST (labels);
 `resize_area_u8` and `resize_nearest_u8` are cv2-free ports that give
 cv2's bytes on uint8 images (tests/test_torch_train_data.py):
@@ -42,7 +43,7 @@ from pathlib import Path
 
 import numpy as np
 
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _image, _png
 from origami_tpu_torch.ops.tiling import TileLayout
 
 
@@ -305,7 +306,7 @@ def k_folds(names, k=5, seed=0):
 def load_pair(img_path, lab_path, full_size):
     """A page (gray) and its label map at the net canvas `full_size`
     (W, H): INTER_AREA for the page, INTER_NEAREST for the labels."""
-    img = _png.read_gray(img_path)
+    img = _image.read_gray(img_path)
     lab = read_labels(lab_path)
     return resize_area_u8(img, full_size), resize_nearest_u8(lab, full_size)
 

@@ -45,7 +45,7 @@ def train_mesh(device):
 
 
 def train(args):
-    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import _image
     from origami_tpu_torch.train.segment.data import load_tile_batch
     from origami_tpu_torch.train.segment.train import (SegmentationTrainer,
                                                        TrainConfig)
@@ -63,7 +63,7 @@ def train(args):
         raise SystemExit("no training tiles found")
 
     # the tile size of the first tile
-    probe = _png.read_gray(tiles_dir / (train_names[0] + ".png"))
+    probe = _image.read_gray(tiles_dir / (train_names[0] + ".png"))
     tile_hw = probe.shape[:2]
 
     # per-kind production defaults

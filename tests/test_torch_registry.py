@@ -1,5 +1,6 @@
 """The port's readers against the JAX package's: weights (msgpack +
-params_from_flax) and pages (PNG), plus the port's import boundary.
+params_from_flax) and pages (PNG; the other formats in
+tests/test_torch_image_formats.py), plus the port's import boundary.
 
 Tolerance: none — weights and pixels must be bit-identical (the readers
 decode the same bytes; f16 packs widen to f32 exactly).
@@ -126,13 +127,22 @@ def test_png_reader_color_modes(tmp_path, mode, channels):
 
 @pytest.mark.parametrize("mode", ["LA", "RGBA", "P", "I;16"])
 def test_png_reader_rejects_other_formats(tmp_path, mode):
-    px = np.zeros((5, 7, 2) if mode == "LA" else (5, 7, 4)
-                  if mode == "RGBA" else (5, 7), np.uint8)
-    img = PIL.Image.fromarray(px, {"LA": "LA", "RGBA": "RGBA"}.get(
-        mode, "L")).convert(mode)
+    """The PNG kinds the reader once rejected (gray + alpha, RGBA,
+    paletted, 16-bit gray): it reads them now, as PIL's convert("L")
+    gives them (alpha dropped, the palette's luma, 16 bits clipped)."""
+    rng = np.random.default_rng(len(mode))
+    shape = (5, 7, 2) if mode == "LA" else (5, 7, 4) \
+        if mode == "RGBA" else (5, 7)
+    px = rng.integers(0, 256, shape, dtype=np.uint8)
+    if mode == "I;16":
+        img = PIL.Image.fromarray(px.astype(np.uint16) * 3)
+    else:
+        img = PIL.Image.fromarray(px, {"LA": "LA", "RGBA": "RGBA"}.get(
+            mode, "L")).convert(mode)
     img.save(tmp_path / "p.png")
-    with pytest.raises(ValueError):
-        _png.read(tmp_path / "p.png")
+    np.testing.assert_array_equal(
+        _png.read_gray(tmp_path / "p.png"),
+        np.asarray(PIL.Image.open(tmp_path / "p.png").convert("L")))
 
 
 def test_port_imports_no_jax_pil_click_msgpack_cv2():
@@ -204,7 +214,9 @@ print(json.dumps({"modules": names,
                  "tool.pick_web", "tool.cluster_web", "tool.xycut_web",
                  "custom.harmonizations", "custom.harmonizations.default",
                  "custom.harmonizations.bbz", "batch.remote",
-                 "batch.remote.runner", "batch.remote.__main__"):
+                 "batch.remote.runner", "batch.remote.__main__",
+                 "core._image", "core._png", "core._jpeg", "core._tiff",
+                 "core._bmp"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
