@@ -246,6 +246,25 @@ Phases (any failure exits non-zero before the result line):
      beside the PNG of the same pixels, with the card's name and power
      limit, and of the PNG page written as BMP and TIFF (uncompressed;
      Deflate with the predictor), which must decode to its pixels.
+ 22. JPEG 2000 and JPEG-in-TIFF pages (core/_jp2.py over core/jp2.cpp,
+     core/_tiff.py's JPEG strips; tests/data/torch_formats,
+     scripts/make_torch_formats_fixture.py): (a) every JP2, J2K and
+     JPEG-in-TIFF file of the manifest (Pillow's writer options; the
+     libopenjp2-made code-block styles, SOP/EPH, PPM/PPT, RGN, POC,
+     tile-parts, sub-sampled components and sYCC; CMYK, palettes; the
+     fixture's JP2 and JPEG-in-TIFF pages) decodes to PIL's convert("L")
+     digest and PIL's size, and the kinds the port does not read raise a
+     ValueError naming them; (b) the two pages as JP2 (the archive
+     profile, 512 x 512 tiles) through PipelinedRunner on the main path:
+     every page COMPLETED, launches exactly phase 12's, page.txt within
+     PORT_CHAIN_MAX_CER of the JAX chain's on the same JP2 files (the
+     kernels line lists these launches in launches_by_path); the JPEG
+     pages' lines split (ROADMAP C16): the port's bf16 label maps
+     against the JAX segment.zip at phase 5's bar, the port from the JAX
+     segment.zip (contours .. compose) and from the JAX contours.2.zip
+     (lines .. compose), each page.txt against the JAX chain's; (c) host
+     decode ms a page of each JP2 and JPEG-in-TIFF page beside the PNG of
+     the same pixels, with the card's name and power limit.
 
 Each phase prints its seconds.
 
@@ -6248,13 +6267,24 @@ FORMATS_TIMED = ("synth0000.jpg", "synth0001.jpg",
 DECODE_REPS = 5
 
 
-def check_decode_parity():
-    """Phase 21 (a): every file of tests/data/torch_formats through
-    core/_image.py: PIL's pixels (by digest) and size, or the ValueError
-    that names a kind the port does not read. -> files checked."""
+def jpeg2000_or_jpeg_tiff(rel):
+    """The manifest's entries of phase 22: JPEG 2000 files and TIFFs of
+    JPEG strips."""
+    name = rel.rsplit("/", 1)[-1]
+    return name.endswith((".jp2", ".j2k", ".jpeg.tif")) or \
+        name.startswith(("tiff-jpeg", "tiff-old-jpeg", "old-style-JPEG"))
+
+
+def check_decode_parity(phase22=False):
+    """Phase 21 (a), or 22 (a) for the JPEG 2000 and JPEG-in-TIFF files:
+    each file of tests/data/torch_formats through core/_image.py: PIL's
+    pixels (by digest) and size, or the ValueError that names a kind the
+    port does not read. -> files checked."""
     import hashlib
     from origami_tpu_torch.core import _image
-    manifest = json.loads((FORMATS_REF / "manifest.json").read_text())
+    manifest = {k: v for k, v in json.loads(
+        (FORMATS_REF / "manifest.json").read_text()).items()
+        if jpeg2000_or_jpeg_tiff(k) == phase22}
     bad, kinds = [], {}
     for rel, want in sorted(manifest.items()):
         path = FORMATS_REF / rel
@@ -6286,21 +6316,22 @@ def check_decode_parity():
     return len(manifest)
 
 
-def check_jpeg_chain(workdir, device="cuda"):
-    """Phase 21 (b): the two fixture pages as baseline gray JPEGs through
-    PipelinedRunner on the main path (the students in bf16, banded
-    strips), the launch counts set to 0 just before the run and read just
-    after it: every page COMPLETED in every stage, each kernel's launches
-    per page as WHOLE_CHAIN_LAUNCHES says (phase 12's), page.txt within
-    PORT_CHAIN_MAX_CER of the JAX chain's on the same JPEG pages
-    (tests/data/torch_formats/chain). -> launches."""
+def check_jpeg_chain(workdir, device="cuda", suffix=".jpg", kind="JPEG",
+                     ref_dir=FORMATS_REF / "chain"):
+    """Phase 21 (b), or 22 (b) with `suffix` ".jp2": the two fixture pages
+    in that format through PipelinedRunner on the main path (the
+    students in bf16, banded strips), the launch counts set to 0 just
+    before the run and read just after it: every page COMPLETED in every
+    stage, each kernel's launches per page as WHOLE_CHAIN_LAUNCHES says
+    (phase 12's), page.txt within PORT_CHAIN_MAX_CER of the JAX chain's
+    on the same page files (`ref_dir`). -> launches."""
     import torch
     from origami_tpu_torch.batch.detect.flow import kernel_launches
     from origami_tpu_torch.batch.runner import PipelinedRunner
-    corpus = workdir / "jpeg_chain"
+    corpus = workdir / (kind.lower() + "_chain")
     corpus.mkdir(parents=True)
     for stem in FORMATS_PAGES:
-        shutil.copy(FORMATS_REF / "pages" / (stem + ".jpg"), corpus)
+        shutil.copy(FORMATS_REF / "pages" / (stem + suffix), corpus)
     stages = chain_stages(device, str(ROOT / STUDENTS), "banded")
     reset_launches()
     t0 = time.perf_counter()
@@ -6310,33 +6341,120 @@ def check_jpeg_chain(workdir, device="cuda"):
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     failed, seconds = [], {}
-    pages = sorted(corpus.glob("*.jpg"))
+    pages = sorted(corpus.glob("*" + suffix))
     for page in pages:
-        rt = json.loads((corpus / (page.stem + ".out") / "runtime.json")
-                        .read_text())
-        for stage, _ in stages:
-            entry = rt.get(STAGE_KEYS[stage], {})
-            if entry.get("status") != "COMPLETED":
-                failed.append("JPEG chain, %s on %s: %s" % (
-                    stage, page.name, entry.get("traceback", entry)))
-                continue
-            seconds[stage] = seconds.get(stage, 0.0) + entry["elapsed"]
+        seconds_of(corpus, page, stages, seconds, failed, kind + " chain")
     bad = whole_chain_launch_errors("banded", launches, len(pages), device)
-    log("  JPEG chain (students, banded) %d pages: %.2f s wall; stage "
+    log("  %s chain (students, banded) %d pages: %.2f s wall; stage "
         "seconds %s; launches %s  %s" % (
-            len(pages), wall, json.dumps(seconds), json.dumps(
+            kind, len(pages), wall, json.dumps(seconds), json.dumps(
                 {k: v for k, v in launches.items() if v}),
             "ok" if not bad and not failed else "FAIL"))
     if bad:
-        failed.append("JPEG chain: launches (got, expected per page) %s"
-                      % bad)
+        failed.append("%s chain: launches (got, expected per page) %s"
+                      % (kind, bad))
     if not failed:
-        compare_chain_text(corpus, "JPEG chain vs the JAX chain on the same "
-                           "JPEG pages", failed, 0.0, PORT_CHAIN_MAX_CER,
-                           ref_dir=FORMATS_REF / "chain", pattern="*.jpg")
+        compare_chain_text(corpus, "%s chain vs the JAX chain on the same "
+                           "%s pages" % (kind, kind), failed, 0.0,
+                           PORT_CHAIN_MAX_CER, ref_dir=ref_dir,
+                           pattern="*" + suffix)
     if failed:
         raise PhaseError("; ".join(failed))
     return launches
+
+
+def seconds_of(corpus, page, stages, seconds, failed, what):
+    """Add each stage's seconds on `page` to `seconds`; a stage not
+    COMPLETED goes into `failed`."""
+    rt = json.loads((corpus / (page.stem + ".out") / "runtime.json")
+                    .read_text())
+    for stage, _ in stages:
+        entry = rt.get(STAGE_KEYS[stage], {})
+        if entry.get("status") != "COMPLETED":
+            failed.append("%s, %s on %s: %s" % (
+                what, stage, page.name, entry.get("traceback", entry)))
+            continue
+        seconds[stage] = seconds.get(stage, 0.0) + entry["elapsed"]
+
+
+def split_jpeg_chain(workdir, device="cuda"):
+    """Phase 22, the JPEG pages' lines (ROADMAP C16): the port's stages in
+    this process from the JAX chain's artifacts on the same JPEG pages
+    (tests/data/torch_formats/chain): from the JAX segment.zip (contours
+    .. compose, the host geometry and the recognizer) and from the JAX
+    contours.2.zip with its segment.zip, contours.1.zip, dewarp.zip and
+    tables.json (lines .. compose, the recognizer's rounding), each
+    page.txt against the JAX chain's: every page COMPLETED, CER within
+    PORT_CHAIN_MAX_CER; and the port's label maps (the students in bf16,
+    as the chain runs them) against the JAX segment.zip, at phase 5's
+    students_bf16 bar. -> {run: (lines identical, lines, CER)}."""
+    failed, rows = [], {}
+    ref = FORMATS_REF / "chain"
+    corpus = workdir / "split_segment"
+    corpus.mkdir(parents=True)
+    for stem in FORMATS_PAGES:
+        shutil.copy(FORMATS_REF / "pages" / (stem + ".jpg"), corpus)
+    chain_stages(device, str(ROOT / STUDENTS), "banded")[0][1].traverse(
+        sorted(corpus.glob("*.jpg")))
+    equal = total = 0
+    for stem in FORMATS_PAGES:
+        got = label_maps(corpus / (stem + ".out") / "segment.zip")
+        want = label_maps(ref / (stem + ".out") / "segment.zip")
+        for name, m in want.items():
+            if name.endswith(".png"):
+                equal += int((got[name] == m).sum())
+                total += m.size
+    bar = SEG_MODES["students_bf16"][2]
+    log("  JPEG pages, the port's label maps (students, bf16) vs the JAX "
+        "segment.zip: equal on %d of %d pixels (%.6f; bar %.2f)  %s" % (
+            equal, total, equal / total, bar,
+            "ok" if equal >= bar * total else "FAIL"))
+    rows["label maps equal"] = (equal, total, 0.0)
+    if equal < bar * total:
+        failed.append("JPEG pages' label maps: %d of %d pixels equal to "
+                      "JAX's" % (equal, total))
+    for name, first, keep in (
+            ("from the JAX segment.zip", "contours", ("segment.zip",)),
+            ("from the JAX contours.2.zip", "lines",
+             ("segment.zip", "contours.1.zip", "contours.2.zip",
+              "dewarp.zip", "tables.json"))):
+        corpus = workdir / ("split_" + first)
+        corpus.mkdir(parents=True)
+        for stem in FORMATS_PAGES:
+            shutil.copy(FORMATS_REF / "pages" / (stem + ".jpg"), corpus)
+            (corpus / (stem + ".out")).mkdir()
+            for artifact in keep:
+                shutil.copy(ref / (stem + ".out") / artifact,
+                            corpus / (stem + ".out"))
+        stages = chain_stages(device, str(ROOT / STUDENTS), "banded")
+        stages = stages[[n for n, _ in stages].index(first):]
+        pages = sorted(corpus.glob("*.jpg"))
+        t0 = time.perf_counter()
+        for _, proc in stages:
+            proc.traverse(pages)
+        wall = time.perf_counter() - t0
+        seconds, bad = {}, []
+        for page in pages:
+            seconds_of(corpus, page, stages, seconds, bad, name)
+        failed += bad
+        log("  JPEG pages, the port %s (%s): %.2f s wall  %s" % (
+            name, " .. ".join((stages[0][0], stages[-1][0])), wall,
+            "ok" if not bad else "FAIL"))
+        if not bad:
+            _, cer = compare_chain_text(
+                corpus, "JPEG pages, the port %s vs the JAX chain" % name,
+                failed, 0.0, PORT_CHAIN_MAX_CER, ref_dir=ref,
+                pattern="*.jpg")
+            same = n = 0
+            for png in pages:
+                s, k, _, _ = text_diff(
+                    page_text(corpus / (png.stem + ".out") / "compose.zip"),
+                    page_text(ref / (png.stem + ".out") / "compose.zip"))
+                same, n = same + s, n + k
+            rows[name] = (same, n, cer)
+    if failed:
+        raise PhaseError("; ".join(failed))
+    return rows
 
 
 def write_bmp(path, px):
@@ -6397,8 +6515,9 @@ def write_tiff(path, px, deflate):
     path.write_bytes(bytes(data))
 
 
-def decode_timings(workdir):
-    """Phase 21 (c): host ms to decode each timed page file
+def decode_timings(workdir, timed=FORMATS_TIMED, write=True):
+    """Phase 21 (c), or 22 (c) with `timed` the JP2 and JPEG-in-TIFF pages
+    and no `write`: host ms to decode each timed page file
     (core/_image.read_gray, the file read included; median of
     DECODE_REPS after one warm-up), beside the PNG of the same pixels;
     then the PNG fixture page written here as BMP and as TIFF (none;
@@ -6409,15 +6528,15 @@ def decode_timings(workdir):
     written = []
     for name, write in (("bmp", write_bmp),
                         ("tif", lambda p, x: write_tiff(p, x, False)),
-                        ("deflate.tif", lambda p, x: write_tiff(p, x, True))):
+                        ("deflate.tif", lambda p, x: write_tiff(p, x, True))
+                        ) if write else ():
         path = workdir / ("%s.%s" % (FORMATS_PAGES[0], name))
         write(path, page)
         if not np.array_equal(_image.read_gray(path), page):
             raise PhaseError("%s does not decode to its pixels" % path.name)
         written.append(path)
     rows = {}
-    for path in [FORMATS_REF / "pages" / n for n in FORMATS_TIMED] \
-            + written:
+    for path in [FORMATS_REF / "pages" / n for n in timed] + written:
         name = path.name
         px = _image.read_gray(path)
         png = workdir / (name + ".png")
@@ -6447,6 +6566,25 @@ def check_image_formats(workdir, device="cuda"):
     launches = check_jpeg_chain(workdir, device)
     decode_timings(workdir)
     return launches, time.time() - t0
+
+
+# ---------------------------------------------------------------- phase 22
+
+# the page files timed in phase 22c, each beside the PNG of its pixels
+JP2_TIMED = ("synth0000.jp2", "synth0001.jp2", "synth0001.jpeg.tif")
+
+
+def check_jpeg2000(workdir, device="cuda"):
+    """Phase 22: (a) decode parity of the JPEG 2000 and JPEG-in-TIFF
+    files, (b) the chain on the JP2 pages and the JPEG pages' split, (c)
+    decode timings. -> (launches of (b)'s chain, split rows, seconds)."""
+    t0 = time.time()
+    check_decode_parity(phase22=True)
+    launches = check_jpeg_chain(workdir, device, ".jp2", "JP2",
+                                FORMATS_REF / "chain_jp2")
+    split = split_jpeg_chain(workdir, device)
+    decode_timings(workdir, JP2_TIMED, write=False)
+    return launches, split, time.time() - t0
 
 
 # ---------------------------------------------------------------- main
@@ -6750,7 +6888,19 @@ def main():
         if differ:
             raise PhaseError("JPEG chain launches (got, phase 12's) %s"
                              % differ)
-        phase_seconds(21, t_phase)
+        t_phase = phase_seconds(21, t_phase)
+
+        log("== phase 22: JPEG 2000 and JPEG-in-TIFF pages: decode parity "
+            "against PIL, the chain on the JP2 pages, the JPEG pages' "
+            "lines split, host decode times (%s)" % smi)
+        jp2_launches, _, _ = check_jpeg2000(work)
+        differ = {k: (v, whole["banded"][k]) for k, v in
+                  jp2_launches.items() if v != whole["banded"][k]
+                  and ("banded", k) not in WHOLE_CHAIN_AT_MOST}
+        if differ:
+            raise PhaseError("JP2 chain launches (got, phase 12's) %s"
+                             % differ)
+        phase_seconds(22, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
@@ -6773,10 +6923,13 @@ def main():
     # and the remote runner's segment stage
     for name, paths in tools_by_path.items():
         by_path.setdefault(name, {}).update(paths)
-    # phase 21's JPEG pages on the main path: phase 12's launches again
-    for name, n in jpeg_launches.items():
-        if n:
-            by_path.setdefault(name, {})["jpeg chain"] = n
+    # phases 21 and 22's JPEG and JP2 pages on the main path: phase 12's
+    # launches again
+    for path, counts in (("jpeg chain", jpeg_launches),
+                         ("jp2 chain", jp2_launches)):
+        for name, n in counts.items():
+            if n:
+                by_path.setdefault(name, {})[path] = n
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

@@ -4,14 +4,14 @@
 -> PIL's `np.asarray(Image.open(path).convert("L"))`, `read_size(path)`
 -> PIL's `Image.open(path).size` from the header alone. The reader is
 chosen by the file's magic bytes, not its suffix, as PIL chooses it: PNG
-(core/_png.py), JPEG (core/_jpeg.py), TIFF (core/_tiff.py) and BMP
-(core/_bmp.py). JPEG 2000 and anything else raise ValueError naming the
-format; nothing falls back to another reader.
+(core/_png.py), JPEG (core/_jpeg.py), TIFF (core/_tiff.py), BMP
+(core/_bmp.py) and JPEG 2000, JP2 or a raw codestream (core/_jp2.py).
+Anything else raises ValueError; nothing falls back to another reader.
 """
 
 from __future__ import annotations
 
-from origami_tpu_torch.core import _bmp, _jpeg, _png, _tiff
+from origami_tpu_torch.core import _bmp, _jp2, _jpeg, _png, _tiff
 
 _JP2 = (b"\x00\x00\x00\x0cjP  \r\n\x87\n", b"\xff\x4f\xff\x51")
 
@@ -32,11 +32,9 @@ def kind(head):
     return None
 
 
-def _unsupported(k, path):
-    if k == "jpeg2000":
-        return ValueError("%s: JPEG 2000 is not supported (the port has no "
-                          "JPEG 2000 decoder)" % path)
-    return ValueError("%s: not a PNG, JPEG, TIFF or BMP file" % path)
+def _unsupported(path):
+    return ValueError("%s: not a PNG, JPEG, TIFF, BMP or JPEG 2000 file"
+                      % path)
 
 
 def decode(data, what="data", gray=False):
@@ -45,6 +43,8 @@ def decode(data, what="data", gray=False):
     k = kind(data[:16])
     if k == "jpeg":
         return _jpeg.decode(data, gray=gray)
+    if k == "jpeg2000":
+        return _jp2.decode(data, gray=gray)
     if k == "png":
         px = _png.decode(data, what)
     elif k == "tiff":
@@ -52,7 +52,7 @@ def decode(data, what="data", gray=False):
     elif k == "bmp":
         px = _bmp.decode(data)
     else:
-        raise _unsupported(k, what)
+        raise _unsupported(what)
     return _png.to_gray(px) if gray else px
 
 
@@ -75,10 +75,10 @@ def read_size(path):
             return _png.read_size(path)
         if k == "bmp":
             return _bmp.read_size(head)
-        if k in ("jpeg", "tiff"):
+        if k in ("jpeg", "tiff", "jpeg2000"):
             data = head + f.read()
             if k == "tiff":
                 return _tiff.read_size(data)
-            w, h, _ = _jpeg.info(data)
+            w, h, _ = (_jpeg if k == "jpeg" else _jp2).info(data)
             return w, h
-    raise _unsupported(k, path)
+    raise _unsupported(path)

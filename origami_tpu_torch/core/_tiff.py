@@ -9,8 +9,14 @@ FillOrder 1 and 2; MinIsWhite and MinIsBlack at 1, 2, 4, 8 and 16 bits
 bits uninverted), gray + alpha, RGB and RGBA
 (contiguous, 8 and 16 bits: the high bytes), and palette at 1-8 bits
 (the colour map's high bytes). LZW, PackBits and CCITT decode in C++
-(core/tiff.cpp, the port's host library); Deflate is zlib. JPEG-in-TIFF,
-planar files, BigTIFF and float samples raise ValueError.
+(core/tiff.cpp, the port's host library); Deflate is zlib. JPEG-in-TIFF
+(compression 7, gray, RGB and YCbCr at 8 bits, strips and tiles): each
+strip or tile is a JPEG of its own, decoded by core/_jpeg.py with the
+JPEGTables tag spliced in front of it as libtiff does, YCbCr to RGB as
+libtiff's JPEGCOLORMODE_RGB (what PIL asks for); old-style JPEG
+(compression 6) where JPEGInterchangeFormat holds a whole one-component
+JPEG. Old-style JPEG of three components (libtiff converts its YCbCr
+itself), planar files, BigTIFF and float samples raise ValueError.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ def _ifd0(data):
     for i in range(n):
         e = off + 2 + 12 * i
         tag, typ, count = struct.unpack(bo + "HHI", data[e: e + 8])
+        if tag == 347 and typ == 7:
+            typ = 1           # JPEGTables: undefined bytes
         if typ not in _TYPE_FMT:
             continue          # ASCII, rationals, floats: not needed here
         size = struct.calcsize(_TYPE_FMT[typ])
@@ -153,11 +161,15 @@ def decode(data):
     tags, bo = _ifd0(data)
     width, height = _one(tags, 256), _one(tags, 257)
     compression = _one(tags, 259, 1)
-    if compression not in _COMPRESSION or compression in (6, 7):
+    if compression not in _COMPRESSION:
         raise ValueError("unsupported TIFF compression: %s (the port reads "
-                         "none, PackBits, LZW, Deflate and CCITT)"
-                         % _COMPRESSION.get(compression, compression))
+                         "none, PackBits, LZW, Deflate, CCITT and JPEG)"
+                         % compression)
     photometric = _one(tags, 262, 0 if compression in _FAX else 1)
+    if compression == 7:
+        return _jpeg_in_tiff(data, tags, photometric)
+    if compression == 6:
+        return _old_jpeg(data, tags, photometric)
     spp = _one(tags, 277, 1)
     bps = tags.get(258, (1,) * spp)[0]
     if _one(tags, 339, 1) != 1:
@@ -210,6 +222,78 @@ def decode(data):
         h, w = min(rows, height - y0), min(cw, width - x0)
         out[y0: y0 + h, x0: x0 + w] = px[:h, :w]
     return _convert(out, photometric, bps, spp, tags)
+
+
+# an APP14 "Adobe" segment that sets libjpeg's colour space for a strip:
+# transform 0 = as stored (libtiff's photometric RGB and gray), 1 = YCbCr
+# (photometric YCbCr under JPEGCOLORMODE_RGB)
+_ADOBE = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00"
+
+
+def _jpeg_in_tiff(data, tags, photometric):
+    """Compression 7: each strip or tile through core/_jpeg.py -> uint8
+    (H, W) gray or (H, W, 3) RGB."""
+    from origami_tpu_torch.core import _jpeg
+    width, height = _one(tags, 256), _one(tags, 257)
+    spp = _one(tags, 277, 1)
+    bps = tags.get(258, (8,) * spp)[0]
+    if bps != 8:
+        raise ValueError("unsupported TIFF: JPEG of %d bits a sample" % bps)
+    if spp > 1 and _one(tags, 284, 1) != 1:
+        raise ValueError("unsupported TIFF: planar configuration 2")
+    if (photometric, spp) not in ((1, 1), (2, 3), (6, 3)):
+        raise ValueError("unsupported TIFF: JPEG of photometric "
+                         "interpretation %d with %d samples"
+                         % (photometric, spp))
+    tables = bytes(tags.get(347, ()))
+    if tables and (tables[:2] != b"\xff\xd8" or tables[-2:] != b"\xff\xd9"):
+        raise ValueError("corrupt TIFF: JPEGTables")
+    if 322 in tags:
+        cw, ch = _one(tags, 322), _one(tags, 323)
+        offsets, counts = tags.get(324), tags.get(325)
+    else:
+        cw, ch = width, min(_one(tags, 278, height), height)
+        offsets, counts = tags.get(273), tags.get(279)
+    if offsets is None or counts is None:
+        raise ValueError("corrupt TIFF: no strip or tile offsets")
+    across = -(-width // cw)
+    out = np.zeros((height, width, 3 if spp == 3 else 1), np.uint8)
+    colour = _ADOBE + (b"\x01" if photometric == 6 else b"\x00")
+    for i, (off, cnt) in enumerate(zip(offsets, counts)):
+        y0, x0 = (i // across) * ch, (i % across) * cw
+        if y0 >= height:
+            break
+        chunk = data[off: off + cnt]
+        if chunk[:2] != b"\xff\xd8":
+            raise ValueError("corrupt TIFF: a JPEG strip without SOI")
+        # the tables' SOI ... their EOI left out, the strip's SOI left out
+        px = _jpeg.decode(b"\xff\xd8" + colour + tables[2:-2] + chunk[2:])
+        h, w = min(px.shape[0], height - y0), min(px.shape[1], width - x0)
+        out[y0: y0 + h, x0: x0 + w] = px.reshape(px.shape[0], px.shape[1],
+                                                 -1)[:h, :w]
+    return out[..., 0] if spp == 1 else out
+
+
+def _old_jpeg(data, tags, photometric):
+    """Compression 6 with JPEGInterchangeFormat: the whole JPEG there, as
+    libtiff's OJPEG codec gives its one component."""
+    from origami_tpu_torch.core import _jpeg
+    spp = _one(tags, 277, 1)
+    if 513 not in tags or spp != 1 or photometric != 1:
+        raise ValueError("unsupported TIFF: old-style JPEG %s" % (
+            "without JPEGInterchangeFormat" if 513 not in tags else
+            "of %d samples, photometric interpretation %d"
+            % (spp, photometric)))
+    off = _one(tags, 513)
+    stream = data[off: off + _one(tags, 514, len(data) - off)]
+    if stream[:2] != b"\xff\xd8":
+        raise ValueError("corrupt TIFF: old-style JPEG without SOI")
+    px = _jpeg.decode(stream)
+    if px.shape != (_one(tags, 257), _one(tags, 256)):
+        raise ValueError("corrupt TIFF: old-style JPEG of %s pixels in a "
+                         "%d x %d image" % (px.shape, _one(tags, 256),
+                                            _one(tags, 257)))
+    return px
 
 
 def _convert(px, photometric, bps, spp, tags):

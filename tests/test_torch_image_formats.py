@@ -407,6 +407,116 @@ def tiff_file(px, photometric, bps, compression=1, bo="<", tile=None,
     return bytes(data)
 
 
+def jpeg_parts(data):
+    """A JPEG's table segments (DQT, DHT) and its frame and scans, both
+    without SOI; APPn segments dropped."""
+    tables, rest, i = b"", b"", 2
+    while i < len(data):
+        m = data[i + 1]
+        if m == 0xDA:
+            rest += data[i:]
+            break
+        (n,) = struct.unpack(">H", data[i + 2: i + 4])
+        seg = data[i: i + 2 + n]
+        if m in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= m <= 0xEF:
+            rest += seg
+        i += 2 + n
+    return tables, rest
+
+
+def ifd_file(chunks, entries):
+    """A little-endian TIFF of `chunks` (in order) and the IFD `entries`
+    [(tag, type 3, 4 or 7, values or bytes)], the chunk offsets under
+    the tags valued None."""
+    data = bytearray(b"II*\x00\x00\x00\x00\x00")
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c + b"\x00" * (len(c) % 2)
+    entries = sorted((tag, typ, offsets if vals is None else vals)
+                     for tag, typ, vals in entries)
+
+    def raw(typ, vals):
+        if typ == 7:
+            return bytes(vals)
+        return struct.pack("<" + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+
+    blobs = {}
+    for tag, typ, vals in entries:
+        if len(raw(typ, vals)) > 4:
+            blobs[tag] = len(data)
+            data += raw(typ, vals) + b"\x00" * (len(raw(typ, vals)) % 2)
+    data[4:8] = struct.pack("<I", len(data))
+    data += struct.pack("<H", len(entries))
+    for tag, typ, vals in entries:
+        r = raw(typ, vals)
+        data += struct.pack("<HHI", tag, typ, len(r) if typ == 7 else
+                            len(vals))
+        data += struct.pack("<I", blobs[tag]) if tag in blobs else \
+            r + b"\x00" * (4 - len(r))
+    return bytes(data + struct.pack("<I", 0))
+
+
+def jpeg_tiff(px, photometric, quality, tile=None, rows_per_strip=None,
+              subsampling=2):
+    """A JPEG-compressed TIFF as libtiff writes one: each strip or `tile`
+    (w, h) a JPEG of its own (PIL's) without tables, the tables in
+    JPEGTables. Photometric 1 gray, 2 RGB (kept as RGB), 6 YCbCr."""
+    px = np.asarray(px)
+    h, w = px.shape[:2]
+    spp = 1 if px.ndim == 2 else 3
+    kw = dict(quality=quality)
+    if spp == 3:
+        kw["subsampling"] = 0 if photometric == 2 else subsampling
+        kw["keep_rgb"] = photometric == 2
+    if tile:
+        tw, th = tile
+        boxes = []
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                t = np.zeros((th, tw) + px.shape[2:], np.uint8)
+                part = px[y: y + th, x: x + tw]
+                t[: part.shape[0], : part.shape[1]] = part
+                boxes.append(t)
+    else:
+        rps = rows_per_strip or h
+        boxes = [px[y: y + rps] for y in range(0, h, rps)]
+    chunks, tables = [], None
+    for b in boxes:
+        t, rest = jpeg_parts(pil_bytes(b, "JPEG", **kw))
+        tables = tables or t
+        chunks.append(b"\xff\xd8" + rest)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * spp),
+               (259, 3, [7]), (262, 3, [photometric]), (277, 3, [spp]),
+               (284, 3, [1]), (347, 7, b"\xff\xd8" + tables + b"\xff\xd9")]
+    if photometric == 6:
+        entries.append((530, 3, [2, 2] if subsampling == 2 else [1, 1]))
+    if tile:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]),
+                    (324, 4, None), (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(278, 4, [rows_per_strip or h]), (273, 4, None),
+                    (279, 4, [len(c) for c in chunks])]
+    return ifd_file(chunks, entries)
+
+
+def old_jpeg_tiff(px, photometric):
+    """Old-style JPEG (compression 6): JPEGInterchangeFormat points at a
+    whole JFIF stream, which is also the one strip."""
+    h, w = px.shape[:2]
+    spp = 1 if px.ndim == 2 else 3
+    jp = pil_bytes(px, "JPEG", quality=80)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * spp),
+               (259, 3, [6]), (262, 3, [photometric]), (273, 4, None),
+               (277, 3, [spp]), (278, 4, [h]), (279, 4, [len(jp)]),
+               (513, 4, None), (514, 4, [len(jp)])]
+    if spp == 3:
+        entries.append((530, 3, [2, 2]))
+    return ifd_file([jp], entries)
+
+
 def pil_tiff(px, mode=None, **kw):
     return pil_bytes(px, "TIFF", mode, **kw)
 
@@ -487,6 +597,26 @@ def tiff_cases():
             0, 65536, 48))
     cases["tiff-gray-alpha"] = lambda: tiff_file(
         texture(37, 45, 2, 28), 1, 8, extra=((338, 3, [2]),))
+    # JPEG-in-TIFF: strips of 16 rows (the last one short) and tiles
+    jg, jc = texture(61, 97, 1, 29), texture(61, 97, 3, 30)
+    for q in (50, 90):
+        cases["tiff-jpeg-gray-q%d" % q] = lambda q=q: jpeg_tiff(
+            jg, 1, q, rows_per_strip=16)
+        cases["tiff-jpeg-gray-tiles-q%d" % q] = lambda q=q: jpeg_tiff(
+            jg, 1, q, tile=(32, 32))
+        cases["tiff-jpeg-ycbcr-q%d" % q] = lambda q=q: jpeg_tiff(
+            jc, 6, q, rows_per_strip=16)
+        cases["tiff-jpeg-ycbcr-tiles-q%d" % q] = lambda q=q: jpeg_tiff(
+            jc, 6, q, tile=(32, 48))
+    cases["tiff-jpeg-ycbcr-444"] = lambda: jpeg_tiff(
+        jc, 6, 75, rows_per_strip=8, subsampling=0)
+    cases["tiff-jpeg-rgb"] = lambda: jpeg_tiff(jc, 2, 75, rows_per_strip=24)
+    cases["tiff-jpeg-rgb-tiles"] = lambda: jpeg_tiff(jc, 2, 90,
+                                                     tile=(64, 16))
+    cases["tiff-jpeg-pil-gray"] = lambda: pil_tiff(jg, compression="jpeg",
+                                                   quality=60)
+    cases["tiff-jpeg-pil-rgb"] = lambda: pil_tiff(jc, compression="jpeg")
+    cases["tiff-old-jpeg-gray"] = lambda: old_jpeg_tiff(jg, 1)
     return {k: ("tif", v) for k, v in cases.items()}
 
 
@@ -766,11 +896,6 @@ def test_segment_stage_on_a_jpeg_page(tmp_path, capsys):
         zip_entries(b / "crop.out/segment.zip")
 
 
-def jp2_bytes():
-    return (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + b"\x00\x00\x00\x14ftypjp2 "
-            + bytes(12))
-
-
 UNSUPPORTED = {
     "arithmetic JPEG": ("jpg", lambda: jpeg_bytes(
         texture(16, 16, 1, 60)).replace(b"\xff\xc0", b"\xff\xc9", 1),
@@ -782,9 +907,8 @@ UNSUPPORTED = {
         texture(16, 16, 1, 62))), "12-bit"),
     "CMYK JPEG": ("jpg", lambda: pil_bytes(texture(16, 16, 4, 64), "JPEG",
                                            "CMYK"), "CMYK"),
-    "JPEG 2000": ("jp2", jp2_bytes, "JPEG 2000"),
-    "JPEG-in-TIFF": ("tif", lambda: pil_tiff(
-        texture(16, 16, 1, 63), compression="jpeg"), "JPEG"),
+    "old-style JPEG YCbCr TIFF": ("tif", lambda: old_jpeg_tiff(
+        texture(16, 16, 3, 63), 6), "old-style JPEG of 3 samples"),
 }
 
 

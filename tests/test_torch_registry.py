@@ -216,7 +216,7 @@ print(json.dumps({"modules": names,
                  "custom.harmonizations.bbz", "batch.remote",
                  "batch.remote.runner", "batch.remote.__main__",
                  "core._image", "core._png", "core._jpeg", "core._tiff",
-                 "core._bmp"):
+                 "core._bmp", "core._jp2"):
         assert "origami_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
