@@ -8,8 +8,8 @@ Phases (any failure exits non-zero before the result line):
   1. build the CUDA kernels from origami_tpu_torch/csrc with nvcc
      (sm_90a) and, beside them, the host library
      (origami_tpu_torch/geometry/native.cpp and contour_trace.cpp, the
-     image codecs origami_tpu_torch/core/png.cpp, jpeg.cpp and tiff.cpp;
-     g++);
+     image codecs origami_tpu_torch/core/png.cpp, jpeg.cpp, jpeg_enc.cpp,
+     jp2.cpp and tiff.cpp; g++);
      print ptxas' register report and the card's name and power limit;
   2. hold each kernel entry point against its plain PyTorch version on
      the card at the main path's shapes (the fixture pages, 1312x1920,
@@ -175,9 +175,11 @@ Phases (any failure exits non-zero before the result line):
      (grid, flow, contours warped and reliable, lines, layout) and
      utils.dewarp, each with the page caches emptied (one dewarp_u8
      launch a page where the canvas is the dewarped page, none
-     elsewhere) and, where it dewarps, again warm (none), their files
-     equal to the JAX canvases by digest outside the label boxes; the
-     thumbnail (PIL's pixels), signature.zip and rtext equal to JAX's;
+     elsewhere) and, where it dewarps, again warm (none), each render's
+     JPEG decoded equal to the JAX file's PIL decode by digest outside
+     the label boxes grown to the 16-px MCU lattice and one MCU more
+     (mcu_box), dewarped.jpg byte-equal to JAX's; thumbnail.jpg
+     byte-equal to JAX's, signature.zip and rtext equal to JAX's;
      stats, cleanup and reset on planted files; patch_skew_samples on
      the JAX binarized page at patches 256 and 128 (the same points,
      SKEW_EQUAL of the angles equal, the rest within SKEW_STEP). The
@@ -220,8 +222,8 @@ Phases (any failure exits non-zero before the result line):
      binarized strips equal on TOOLS_BIN_EQUAL of their pixels, each
      strip equal to its plain version on the CPU, remap_batch 1 a line
      and sauvola 1 a line under --binarize; (b) the four web tools on
-     port 0 through every route: the JSON bodies equal and the images the
-     arrays JAX encodes, pick_web's /image dewarp_u8 1 a page cold and 0
+     port 0 through every route: the JSON bodies equal, the JPEG bodies
+     byte-equal to JAX's, pick_web's /image dewarp_u8 1 a page cold and 0
      warm; xycut and cluster print what JAX prints; (c) remote -m
      heuristic through ssh/scp shims against a direct run of the two
      stages, its task DB DONE and a second run of no page. The kernels
@@ -234,10 +236,11 @@ Phases (any failure exits non-zero before the result line):
      progressive files; TIFF none, PackBits, LZW, Deflate, CCITT RLE,
      G3 1-D and 2-D, G4, both fill orders, strips and tiles, both byte
      orders; BMP 1-32 bits and RLE; PNG 1-16 bits and Adam7; the two
-     fixture pages as JPEG, one progressive, one G4 TIFF) decodes to
-     PIL's convert("L") digest and PIL's size, and the kinds the port
-     does not read (arithmetic, lossless, 12-bit and CMYK JPEG, JPEG
-     2000, JPEG-in-TIFF) raise a ValueError naming them; (b) the two
+     fixture pages as JPEG, one progressive, one G4 TIFF; CMYK and YCCK
+     JPEG with and without an Adobe marker) decodes to PIL's
+     convert("L") digest and PIL's size, and the kinds the port does not
+     read (arithmetic, lossless and 12-bit JPEG) raise a ValueError
+     naming them; (b) the two
      pages as baseline gray JPEGs through PipelinedRunner on the main
      path: every page COMPLETED, launches exactly phase 12's, page.txt
      within PORT_CHAIN_MAX_CER of the JAX chain's on the same JPEG
@@ -265,6 +268,23 @@ Phases (any failure exits non-zero before the result line):
      (lines .. compose), each page.txt against the JAX chain's; (c) host
      decode ms a page of each JP2 and JPEG-in-TIFF page beside the PNG of
      the same pixels, with the card's name and power limit.
+ 23. the JPEG writers (core/_jpeg.encode over core/jpeg_enc.cpp;
+     tests/data/torch_jpeg, scripts/make_torch_jpeg_fixture.py): (a)
+     every seeded case of jpeg_cases() (gray and RGB 4:2:0, six sizes,
+     flat, noise and text-like content, eleven qualities) and the
+     fixture page gray and as RGB of partial MCUs encode to PIL's bytes
+     (sha256 and length); (b) utils.thumbnail and utils.dewarp on the
+     fixture pages, cold page caches (dewarp_u8 1 a page), their
+     thumbnail.jpg and dewarped.jpg byte-equal to the JAX modules'
+     (tests/data/torch_inspect); (c) pick_web's /image once, cold
+     (dewarp_u8 1), its image/jpeg body byte-equal to JAX's
+     (tests/data/torch_tools); (f) annotate export-image -o line.jpg
+     (remap_batch 1), PIL's bytes of the strip at quality 75; (d) a CMYK
+     and a YCCK page decode to PIL's convert("L") digest; (e) host encode
+     ms a page, gray at 90 and RGB at 85, beside the PNG encode of the
+     same array, with the card's name and power limit. The kernels
+     line's dewarp_u8 and remap_batch rows list (b), (c) and (f) in
+     launches_by_path.
 
 Each phase prints its seconds.
 
@@ -4947,15 +4967,15 @@ INSPECT_REF = ROOT / "tests" / "data" / "torch_inspect"
 # page's .out folder, whether it draws on the dewarped page: one
 # dewarp_u8 launch a page when the page cache is cold, none when warm)
 INSPECT_RENDERS = (
-    ("annotate.grid", (), "annotation.dewarp.png", False),
-    ("annotate.flow", (), "annotation.flow.png", False),
+    ("annotate.grid", (), "annotation.dewarp.jpg", False),
+    ("annotate.flow", (), "annotation.flow.jpg", False),
     ("annotate.contours", ("--stage", "warped"),
-     "annotation.contours.0.png", False),
+     "annotation.contours.0.jpg", False),
     ("annotate.contours", ("--stage", "reliable"),
-     "annotation.contours.3.png", True),
-    ("annotate.lines", (), "annotation.lines.png", True),
-    ("annotate.layout", (), "annotation.layout.png", True),
-    ("utils.dewarp", (), "dewarped.png", True),
+     "annotation.contours.3.jpg", True),
+    ("annotate.lines", (), "annotation.lines.jpg", True),
+    ("annotate.layout", (), "annotation.layout.jpg", True),
+    ("utils.dewarp", (), "dewarped.jpg", True),
 )
 # patch_skew_samples against the JAX function on the same mask: the same
 # points, the angles equal on >= 99 % of the tiles and the rest within
@@ -4990,6 +5010,16 @@ def inspect_corpus(dst):
         shutil.copy(COMPOSE_REF / (png.stem + ".out") / "compose_xml.zip",
                     out / "compose.zip")
     return dst
+
+
+def mcu_box(box, mcu=16):
+    """A label box (x0, y0, x1, y1; x1 and y1 exclusive) grown out to the
+    lattice of 16-px MCUs and one MCU further on each side: outside it a
+    4:2:0 JPEG decodes the same whatever the box holds (fancy
+    upsampling reads the chroma of the next MCU)."""
+    x0, y0, x1, y1 = box
+    return (x0 // mcu * mcu - mcu, y0 // mcu * mcu - mcu,
+            -(-x1 // mcu) * mcu + mcu, -(-y1 // mcu) * mcu + mcu)
 
 
 def masked_digest(pixels, boxes=()):
@@ -5072,10 +5102,12 @@ def run_inspect_cli(cli, args, corpus, device):
 def check_renders(corpus, ref, device, failed):
     """Each render CLI cold (page caches emptied: one dewarp_u8 launch a
     page where it draws on the dewarped page, none elsewhere) and, where
-    it dewarps, warm (no launch); its files against the JAX canvases'
-    digests outside the label boxes. -> (dewarp_u8 launches of the cold
-    runs, {CLI: seconds a page, cold})."""
-    from origami_tpu_torch.core import _png
+    it dewarps, warm (no launch); each render's JPEG decoded against the
+    JAX file's PIL decode by digest outside the label boxes grown by
+    mcu_box, the dewarped page's file byte-equal to JAX's. -> (dewarp_u8
+    launches of the cold runs, {CLI: seconds a page, cold})."""
+    import hashlib
+    from origami_tpu_torch.core import _image
     from origami_tpu_torch.core import page as page_cache
     pages = ref["pages"]
     launched, rates = 0, {}
@@ -5092,15 +5124,19 @@ def check_renders(corpus, ref, device, failed):
             warm, warm_secs, _ = run_inspect_cli(cli, args, corpus, device)
         same = 0
         for stem in pages:
-            px = _png.read(corpus / (stem + ".out") / name)
-            if px.ndim == 3:
-                px = px[:, :, ::-1]          # RGB -> the BGR canvas
+            path = corpus / (stem + ".out") / name
             r = ref["renders"][stem][name]
-            if masked_digest(px, r["boxes"]) == r["digest"]:
+            if "decoded" in r:
+                ok = masked_digest(_image.read(path), r["grown"]) \
+                    == r["decoded"]
+            else:
+                ok = hashlib.sha256(path.read_bytes()).hexdigest() \
+                    == r["sha256"]
+            if ok:
                 same += 1
             else:
                 failed.append("%s: %s of %s differs from JAX's outside "
-                              "its %d label boxes" % (
+                              "its %d grown label boxes" % (
                                   label, name, stem, len(r["boxes"])))
         if got != want:
             failed.append("%s: launches %s, expected %s (cold cache)"
@@ -5120,10 +5156,11 @@ def check_renders(corpus, ref, device, failed):
 
 
 def check_utilities(corpus, ref, device, failed, workdir):
-    """thumbnail, signature and rtext against the JAX outputs; stats,
-    reset and cleanup on planted files. -> {CLI: seconds a page}."""
+    """thumbnail (byte-equal), signature and rtext against the JAX
+    outputs; stats, reset and cleanup on planted files. -> {CLI: seconds
+    a page}."""
+    import hashlib
     import os
-    from origami_tpu_torch.core import _png
     pages = ref["pages"]
     rates = {}
 
@@ -5139,9 +5176,9 @@ def check_utilities(corpus, ref, device, failed, workdir):
     run("utils.rtext", "-o", str(workdir / "rtext"))
     for stem in pages:
         out = corpus / (stem + ".out")
-        if digest(_png.read(out / "thumbnail.png")) \
-                != ref["thumbnail"][stem]:
-            failed.append("thumbnail of %s differs from PIL's" % stem)
+        if hashlib.sha256((out / "thumbnail.jpg").read_bytes()) \
+                .hexdigest() != ref["thumbnail"][stem]["sha256"]:
+            failed.append("thumbnail.jpg of %s differs from JAX's" % stem)
         pngs, text = signature_digests(out / "signature.zip")
         if pngs != ref["signature"][stem]["png"] \
                 or text != ref["signature"][stem]["json"]:
@@ -5173,8 +5210,8 @@ def check_utilities(corpus, ref, device, failed, workdir):
         failed.append("cleanup: %r" % printed.strip()[-200:])
     printed = run("utils.reset", "-a", "annotation/layout, thumbnail")
     left = [p for stem in pages for p in (corpus / (stem + ".out"))
-            .glob("*") if p.name in ("annotation.layout.png",
-                                     "thumbnail.png")]
+            .glob("*") if p.name in ("annotation.layout.jpg",
+                                     "thumbnail.jpg")]
     if "removed 4 artifacts." not in printed or left:
         failed.append("reset: %r, left %s" % (printed.strip()[-200:],
                                               left))
@@ -5648,8 +5685,8 @@ def check_mesh_training(workdir, device="cuda"):
 # sampled rows, the harmonized texts, the exported names, texts and
 # sets.json equal; the strips within TOOLS_GRAY gray levels, the
 # binarized strips equal on TOOLS_BIN_EQUAL of their pixels (ROADMAP
-# C10); the web tools' JSON bodies equal and their images the arrays the
-# JAX tools hand their encoders.
+# C10); the web tools' JSON bodies equal, their JPEG bodies byte-equal
+# and annotate_web's strip the array the JAX tool hands its encoder.
 TOOLS_REF = ROOT / "tests" / "data" / "torch_tools"
 TOOLS_PER_TYPE = 2
 TOOLS_SEED = 0
@@ -5800,13 +5837,10 @@ def web_record(responses, corpus):
     """JSON-comparable records of drive_web's responses: JSON and text
     bodies with the corpus path as {corpus} (a JSON body longer than
     WEB_JSON_INLINE characters by the digest of its sorted dump), HTML
-    by digest, images
-    left out (status only: the port sends PNG where the JAX tools send
-    JPEG, ROADMAP C8)."""
+    by digest, images by status and content type (web_tool_errors holds
+    their bodies)."""
     rec = []
     for status, ctype, body in responses:
-        if ctype.startswith("image/"):
-            ctype = "image"
         if ctype.startswith("application/json"):
             value = json.loads(placeholder(body.decode("utf8"), corpus))
             text = json.dumps(value, sort_keys=True)
@@ -6092,11 +6126,6 @@ def check_tool_chain(corpus, work, ref, device):
     return out
 
 
-def image_digest(body):
-    from origami_tpu_torch.core import _png
-    return digest(_png.decode(body))
-
-
 def write_signatures(corpus, device):
     """utils.signature over the corpus (cluster_web reads it)."""
     import io
@@ -6134,10 +6163,12 @@ WEB_TOOLS = ("annotate_web", "pick_web", "cluster_web", "xycut_web")
 def web_tool_errors(tool, corpus, work, ref, rows, device):
     """Phase 20b for one web tool: served on port 0 over a copy of the
     chain's DB and driven through every route (web_routes); JSON and text
-    bodies equal to JAX's, images the arrays JAX hands its encoder (the
-    strip within TOOLS_GRAY gray levels); pick_web's /image one dewarp_u8
-    launch a page cold and none warm. -> (failures, a note, dewarp_u8
-    launches of the cold /image requests)."""
+    bodies equal to JAX's, JPEG bodies byte-equal to JAX's (by sha256),
+    annotate_web's PNG strip within TOOLS_GRAY gray levels of the array
+    JAX encodes; pick_web's /image one dewarp_u8 launch a page cold and
+    none warm. -> (failures, a note, dewarp_u8 launches of the cold
+    /image requests)."""
+    import hashlib
     from origami_tpu_torch.core import _png
     from origami_tpu_torch.core import page as page_cache
     pages = tools_pages(corpus)
@@ -6166,16 +6197,14 @@ def web_tool_errors(tool, corpus, work, ref, rows, device):
                 tool, method, placeholder(route, corpus), str(r)[:200],
                 str(w)[:200]))
         key = str(i)
-        if key not in want["images"]:
-            continue
-        px = _png.decode(got[i][2])
-        if tool == "annotate_web":
-            b, _ = strip_errors({want["images"][key]: px}, tools_strips(),
-                                "strip/", bar_gray=TOOLS_GRAY)
+        if key in want["bodies"]:
+            if hashlib.sha256(got[i][2]).hexdigest() != want["bodies"][key]:
+                bad.append("%s %s: the JPEG body differs from JAX's" % (
+                    tool, placeholder(route, corpus)))
+        elif key in want["images"]:
+            b, _ = strip_errors({want["images"][key]: _png.decode(
+                got[i][2])}, tools_strips(), "strip/", bar_gray=TOOLS_GRAY)
             bad += ["%s %s" % (tool, e) for e in b]
-        elif digest(px) != want["images"][key]:
-            bad.append("%s %s: the image differs from the array JAX "
-                       "encodes" % (tool, placeholder(route, corpus)))
     if len(rec) != len(want["records"]):
         bad.append("%s: %d responses, JAX %d" % (tool, len(rec),
                                                  len(want["records"])))
@@ -6202,7 +6231,7 @@ def check_web_tools(corpus, work, ref, out, device):
         notes.append(note)
         launched += n
     log("  (b) the web tools on port 0, every route: JSON bodies equal to "
-        "JAX's, images the arrays JAX encodes; %s  %s" % (
+        "JAX's, JPEG bodies byte-equal to JAX's; %s  %s" % (
             "; ".join(notes), "ok" if not bad else "FAIL " + "; ".join(
                 bad)))
     if bad:
@@ -6457,23 +6486,6 @@ def split_jpeg_chain(workdir, device="cuda"):
     return rows
 
 
-def write_bmp(path, px):
-    """uint8 (H, W) gray -> an 8-bit BMP with a gray-ramp palette, rows
-    bottom-up (the card's machine has no PIL to write one)."""
-    import struct
-    h, w = px.shape
-    stride = (w + 3) & ~3
-    rows = np.zeros((h, stride), np.uint8)
-    rows[:, :w] = px[::-1]
-    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
-    palette[:, 3] = 0
-    off = 14 + 40 + 1024
-    path.write_bytes(
-        b"BM" + struct.pack("<IHHI", off + rows.size, 0, 0, off)
-        + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, rows.size, 2835,
-                      2835, 256, 0) + palette.tobytes() + rows.tobytes())
-
-
 def write_tiff(path, px, deflate):
     """uint8 (H, W) gray -> a MinIsBlack TIFF in strips of 64 rows:
     uncompressed, or Deflate with the horizontal predictor."""
@@ -6523,10 +6535,11 @@ def decode_timings(workdir, timed=FORMATS_TIMED, write=True):
     then the PNG fixture page written here as BMP and as TIFF (none;
     Deflate with the predictor), each decoded to its pixels exactly.
     -> {file: (ms, png ms)}."""
-    from origami_tpu_torch.core import _image, _png
+    from origami_tpu_torch.core import _bmp, _image, _png
     page = _png.read_gray(FIXTURE / (FORMATS_PAGES[0] + ".png"))
     written = []
-    for name, write in (("bmp", write_bmp),
+    for name, write in (("bmp", lambda p, x: p.write_bytes(
+                            _bmp.encode_gray(x))),
                         ("tif", lambda p, x: write_tiff(p, x, False)),
                         ("deflate.tif", lambda p, x: write_tiff(p, x, True))
                         ) if write else ():
@@ -6587,6 +6600,270 @@ def check_jpeg2000(workdir, device="cuda"):
     return launches, split, time.time() - t0
 
 
+# ---------------------------------------------------------------- phase 23
+
+JPEG_REF = ROOT / "tests" / "data" / "torch_jpeg"
+# the encoder's seeded cases (tests/test_torch_jpeg_encode.py, phase
+# 23a): every mode, size, content and quality; the fixture page gray and,
+# cut to a size of partial MCUs, as RGB at JPEG_PAGE_QUALITIES
+JPEG_MODES = ("L", "RGB")
+JPEG_SIZES = ((1, 1), (7, 9), (8, 8), (15, 17), (16, 16), (33, 65))
+JPEG_CONTENTS = ("flat", "noise", "text")
+JPEG_QUALITIES = (1, 10, 24, 25, 50, 75, 80, 85, 90, 95, 100)
+JPEG_PAGE_QUALITIES = (1, 24, 75, 85, 90, 100)
+JPEG_PAGE_RGB = (1911, 1301)
+# phase 23e: host encode ms a page, median of ENCODE_REPS after a warm-up
+ENCODE_REPS = 5
+
+
+def jpeg_case_pixels(mode, shape, content, seed):
+    """A seeded encoder case: uint8 (H, W) for "L", (H, W, 3) for "RGB";
+    flat, noise, or text-like (dark strokes on a light ground, a little
+    noise)."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    c = 3 if mode == "RGB" else 1
+    if content == "flat":
+        px = np.broadcast_to(rng.integers(0, 256, c, dtype=np.uint8),
+                             (h, w, c)).copy()
+    elif content == "noise":
+        px = rng.integers(0, 256, (h, w, c), dtype=np.uint8)
+    else:
+        x = np.broadcast_to(rng.integers(200, 250, c), (h, w, c)).astype(
+            np.int64) + rng.integers(-6, 7, (h, w, c))
+        for _ in range(max(1, h * w // 30)):
+            y0, x0 = int(rng.integers(0, h)), int(rng.integers(0, w))
+            tall = bool(rng.integers(0, 2))
+            n = int(rng.integers(2, 12))
+            x[y0: y0 + (n if tall else 2), x0: x0 + (2 if tall else n)] = \
+                rng.integers(0, 60, c)
+        px = np.clip(x, 0, 255).astype(np.uint8)
+    return px[..., 0] if c == 1 else px
+
+
+def jpeg_cases():
+    """{name: (mode, (h, w), content, seed, quality)} of the seeded
+    cases; one seed a mode, size and content."""
+    out = {}
+    for i, mode in enumerate(JPEG_MODES):
+        for j, shape in enumerate(JPEG_SIZES):
+            for k, content in enumerate(JPEG_CONTENTS):
+                seed = 100 * i + 10 * j + k
+                for q in JPEG_QUALITIES:
+                    out["%s-%dx%d-%s-q%d" % (mode, shape[0], shape[1],
+                                             content, q)] = (
+                        mode, shape, content, seed, q)
+    return out
+
+
+def jpeg_page_pixels(mode):
+    """The fixture page synth0000: gray, or as RGB (the page, the page
+    shifted 5 px, its negative) cut to JPEG_PAGE_RGB."""
+    from origami_tpu_torch.core import _png
+    page = _png.read_gray(FIXTURE / "synth0000.png")
+    if mode == "L":
+        return page
+    h, w = JPEG_PAGE_RGB
+    rgb = np.stack([page, np.roll(page, 5, axis=1), 255 - page], axis=-1)
+    return np.ascontiguousarray(rgb[:h, :w])
+
+
+def jpeg_page_cases():
+    """{name: (mode, quality)} of the fixture page's cases."""
+    return {"page-%s-q%d" % (mode, q): (mode, q) for mode in JPEG_MODES
+            for q in JPEG_PAGE_QUALITIES}
+
+
+def check_encoder(ref):
+    """Phase 23 (a): every seeded case and page case through
+    core/_jpeg.encode, its sha256 and length against PIL's
+    (tests/data/torch_jpeg/encode.json). -> cases checked."""
+    import hashlib
+    from origami_tpu_torch.core import _jpeg
+    bad, n = [], 0
+    pages = {m: jpeg_page_pixels(m) for m in JPEG_MODES}
+    items = [(name, jpeg_case_pixels(*case[:4]), case[4], ref["cases"])
+             for name, case in jpeg_cases().items()]
+    items += [(name, pages[mode], q, ref["pages"])
+              for name, (mode, q) in jpeg_page_cases().items()]
+    t0 = time.time()
+    for name, px, q, want in items:
+        data = _jpeg.encode(px, q)
+        n += 1
+        if hashlib.sha256(data).hexdigest() != want[name]["sha256"] \
+                or len(data) != want[name]["length"]:
+            bad.append("%s: %d bytes, PIL %d" % (name, len(data),
+                                                  want[name]["length"]))
+    missing = set(ref["cases"]) - set(jpeg_cases()) | \
+        set(ref["pages"]) - set(jpeg_page_cases())
+    if missing:
+        bad.append("cases of the fixture not encoded: %s" % sorted(missing))
+    log("  (a) encoder: %d seeded cases (L and RGB 4:2:0, %d sizes, %s, "
+        "qualities %s) and %d fixture-page cases against PIL's bytes: %d "
+        "differ (%.2f s)  %s" % (
+            n - len(jpeg_page_cases()), len(JPEG_SIZES),
+            "/".join(JPEG_CONTENTS), ",".join(map(str, JPEG_QUALITIES)),
+            len(jpeg_page_cases()), len(bad), time.time() - t0,
+            "ok" if not bad else "FAIL " + "; ".join(bad[:5])))
+    if bad:
+        raise PhaseError("JPEG encoder: %s" % "; ".join(bad[:5]))
+    return n
+
+
+def check_jpeg_sites(workdir, device):
+    """Phase 23 (b), (c), (f): utils.thumbnail and utils.dewarp on the
+    fixture pages with cold page caches (dewarp_u8 1 a page), their files
+    byte-equal to the JAX modules' (tests/data/torch_inspect); pick_web's
+    /image of the first page, cold, its JPEG body byte-equal to JAX's
+    (tests/data/torch_tools), dewarp_u8 1; annotate export-image of the
+    first sampled line to .jpg, remap_batch 1, PIL's bytes of its strip
+    at quality 75. -> {"dewarp_u8": launches, "remap_batch": launches}."""
+    import hashlib
+    import io
+    from origami_tpu_torch.core import _jpeg
+    from origami_tpu_torch.core import page as page_cache
+    from origami_tpu_torch.tool import annotate, pick_web
+
+    def sha(data):
+        return hashlib.sha256(data).hexdigest()
+
+    inspect = json.loads((INSPECT_REF / "inspect.json").read_text())
+    tools = json.loads((TOOLS_REF / "tools.json").read_text())
+    corpus = inspect_corpus(workdir / "jpeg_sites")
+    pages = inspect["pages"]
+    bad, launched = [], {"dewarp_u8": 0, "remap_batch": 0}
+    cold = str(device) != "cpu"
+    for cli, name, want_launch in (
+            ("utils.thumbnail", "thumbnail.jpg", {}),
+            ("utils.dewarp", "dewarped.jpg",
+             {"dewarp_u8": len(pages)} if cold else {})):
+        page_cache.clear_caches()
+        got, secs, _ = run_inspect_cli(cli, (), corpus, device)
+        launched["dewarp_u8"] += got.get("dewarp_u8", 0)
+        if got != want_launch:
+            bad.append("%s: launches %s, expected %s" % (cli, got,
+                                                          want_launch))
+        for stem in pages:
+            ref = inspect["thumbnail"][stem] if name == "thumbnail.jpg" \
+                else inspect["renders"][stem][name]
+            if sha((corpus / (stem + ".out") / name).read_bytes()) \
+                    != ref["sha256"]:
+                bad.append("%s of %s differs from JAX's" % (name, stem))
+        log("  (b) %s on %d pages: %s byte-equal to JAX's; launches %s "
+            "(cold caches); %.2f s" % (cli, len(pages), name,
+                                       json.dumps(got), secs))
+    # pick_web /image, once, on a cold cache
+    tcorpus = tools_corpus(workdir / "jpeg_pick")
+    tpages = tools_pages(tcorpus)
+    row = tools["rows"][0]
+    routes = web_routes("pick_web", tcorpus, (str(tcorpus / row[0]),
+                                              row[1]))
+    i = next(k for k, r in enumerate(routes) if r[1].startswith("/image"))
+    page_cache.clear_caches()
+    reset_launches()
+    handler = pick_web.make_handler(str(workdir / "pick.db"), tpages,
+                                    "reliable", device)
+    t0 = time.time()
+    (status, ctype, body), = drive_web(handler, [routes[i]])
+    secs = time.time() - t0
+    n = launch_counts().get("dewarp_u8", 0)
+    launched["dewarp_u8"] += n
+    ok = status == 200 and ctype == "image/jpeg" and \
+        sha(body) == tools["web"]["pick_web"]["bodies"][str(i)]
+    if not ok or n != (1 if cold else 0):
+        bad.append("pick_web /image: %s %s, body %s, dewarp_u8 %d" % (
+            status, ctype, "equal" if ok else "DIFFERS", n))
+    log("  (c) pick_web /image of %s: %d %s, %d bytes byte-equal to JAX's: "
+        "%s; dewarp_u8 %d (cold); %.2f s" % (
+            tpages[0].name, status, ctype, len(body), ok, n, secs))
+    # annotate export-image to .jpg
+    reset_launches()
+    out = workdir / "jpeg_line.jpg"
+    with contextlib.redirect_stdout(io.StringIO()):
+        strip = annotate.export_image(tcorpus / row[0], row[1], out,
+                                      TOOLS_HEIGHT, device=device)
+    _sync(device)
+    n = launch_counts().get("remap_batch", 0)
+    launched["remap_batch"] += n
+    same = out.read_bytes() == _jpeg.encode(strip, 75)
+    if not same or n != (1 if cold else 0):
+        bad.append("export-image .jpg: PIL's bytes %s, remap_batch %d"
+                   % (same, n))
+    log("  (f) annotate export-image -o line.jpg (%dx%d strip): PIL's "
+        "bytes at quality 75 %s; remap_batch %d" % (
+            strip.shape[1], strip.shape[0], same, n))
+    if bad:
+        raise PhaseError("JPEG sites: %s" % "; ".join(bad))
+    return launched
+
+
+def check_cmyk_pages(ref):
+    """Phase 23 (d): the CMYK and YCCK pages of tests/data/torch_jpeg
+    decode to PIL's convert("L") (sha256 of the pixels) and size."""
+    import hashlib
+    from origami_tpu_torch.core import _image
+    bad = []
+    for name, want in sorted(ref["four_components"].items()):
+        path = JPEG_REF / name
+        t0 = time.perf_counter()
+        px = _image.read_gray(path)
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+        ok = got == want["sha256"] and [px.shape[1], px.shape[0]] \
+            == want["size"]
+        if not ok:
+            bad.append(name)
+        log("  (d) %s %dx%d, %d bytes: PIL's convert(\"L\") %s; %.1f ms"
+            % (name, px.shape[1], px.shape[0], path.stat().st_size,
+               "equal" if ok else "DIFFERS", ms))
+    if bad:
+        raise PhaseError("four-component JPEG pages differ from PIL's: %s"
+                         % bad)
+
+
+def encode_timings():
+    """Phase 23 (e): host ms to encode a page as the writers do: the gray
+    fixture page at quality 90 (utils.dewarp's) and the RGB page at 85
+    (the annotate renders'), beside core/_png's encode of the same array
+    (what the port wrote before). -> {case: (jpeg ms, png ms, bytes,
+    png bytes)}."""
+    from origami_tpu_torch.core import _jpeg, _png
+    rows = {}
+    for mode, q, png in (("L", 90, _png.encode_gray),
+                         ("RGB", 85, _png.encode_rgb)):
+        px = jpeg_page_pixels(mode)
+        times = {}
+        for key, fn in (("jpeg", lambda: _jpeg.encode(px, q)),
+                        ("png", lambda: png(px))):
+            data = fn()
+            ts = []
+            for _ in range(ENCODE_REPS):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            times[key] = (statistics.median(ts), len(data))
+        name = "%s q%d %dx%d" % (mode, q, px.shape[1], px.shape[0])
+        rows[name] = (times["jpeg"][0], times["png"][0], times["jpeg"][1],
+                      times["png"][1])
+        log("  (e) encode %s: JPEG %.2f ms a page (%d bytes); PNG %.2f ms "
+            "(%d bytes)" % (name, times["jpeg"][0], times["jpeg"][1],
+                            times["png"][0], times["png"][1]))
+    return rows
+
+
+def check_jpeg_writers(workdir, device="cuda"):
+    """Phase 23: (a) the encoder against PIL's bytes, (b, c, f) the
+    writers' sites, (d) the CMYK and YCCK pages, (e) encode timings.
+    -> (launches of the sites, seconds)."""
+    t0 = time.time()
+    ref = json.loads((JPEG_REF / "encode.json").read_text())
+    check_encoder(ref)
+    launched = check_jpeg_sites(workdir, device)
+    check_cmyk_pages(ref)
+    encode_timings()
+    return launched, time.time() - t0
+
+
 # ---------------------------------------------------------------- main
 
 def phase_seconds(n, t0):
@@ -6607,15 +6884,16 @@ def main():
             or not LAYOUT_REF.is_dir() or not COMPOSE_REF.is_dir() \
             or not TRAIN_REF.is_dir() or not GT_REF.is_dir() \
             or not INSPECT_REF.is_dir() or not FLAGSHIP_REF.is_dir() \
-            or not TOOLS_REF.is_dir() or not FORMATS_REF.is_dir():
+            or not TOOLS_REF.is_dir() or not FORMATS_REF.is_dir() \
+            or not JPEG_REF.is_dir():
         print("chip_smoke: run from a checkout of the repository "
               "(origami_tpu_torch/, tests/data/torch_ocr/, "
               "tests/data/torch_segment/, tests/data/torch_flow/, "
               "tests/data/torch_layout/, tests/data/torch_compose/, "
               "tests/data/torch_train/, tests/data/torch_gt/, "
               "tests/data/torch_inspect/, tests/data/torch_flagship/, "
-              "tests/data/torch_tools/ or tests/data/torch_formats/ "
-              "missing)",
+              "tests/data/torch_tools/, tests/data/torch_formats/ or "
+              "tests/data/torch_jpeg/ missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
@@ -6900,7 +7178,14 @@ def main():
         if differ:
             raise PhaseError("JP2 chain launches (got, phase 12's) %s"
                              % differ)
-        phase_seconds(22, t_phase)
+        t_phase = phase_seconds(22, t_phase)
+
+        log("== phase 23: JPEG writers: the encoder against PIL's bytes, "
+            "the thumbnail, dewarped page, pick_web and export-image "
+            "against the JAX files, CMYK and YCCK pages, host encode "
+            "times (%s)" % smi)
+        writer_launches, _ = check_jpeg_writers(work)
+        phase_seconds(23, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
@@ -6930,6 +7215,10 @@ def main():
         for name, n in counts.items():
             if n:
                 by_path.setdefault(name, {})[path] = n
+    # phase 23's JPEG writers: utils.dewarp and pick_web's /image dewarp
+    # their pages, export-image warps its line
+    for name, n in writer_launches.items():
+        by_path.setdefault(name, {})["jpeg writers"] = n
     table = {
         "dewarp_u8": ("remap.cu", "origami_tpu/ops/pallas/remap.py:392"),
         "strips_dewarped": ("strips.cu",

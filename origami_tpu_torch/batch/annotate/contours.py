@@ -1,7 +1,7 @@
 """annotate.contours — render the contours of a stage over its page.
 
 Port of origami_tpu/batch/annotate/contours.py: writes
-`annotation.contours.<stage>.png`. For a dewarped stage (dewarped,
+`annotation.contours.<stage>.jpg`. For a dewarped stage (dewarped,
 aggregate, reliable) the canvas is the dewarped page, which the page's
 device makes through the dewarp kernel (`Page.pixels(True)`).
 

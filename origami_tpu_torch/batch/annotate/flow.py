@@ -2,7 +2,7 @@
 
 Port of origami_tpu/batch/annotate/flow.py: the separators three pixels
 wide, each H (blue) and V (red) flow sample as an arrow of 30 px along
-its angle, over the warped page, in `annotation.flow.png`. Host work
+its angle, over the warped page, in `annotation.flow.jpg`. Host work
 only.
 
     python -m origami_tpu_torch.batch.annotate.flow CORPUS [--device cpu]

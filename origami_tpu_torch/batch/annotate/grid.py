@@ -1,7 +1,7 @@
 """annotate.grid — render the dewarping grid over the warped page.
 
 Port of origami_tpu/batch/annotate/grid.py: the grid's rows in red and
-its columns in blue, one pixel wide, in `annotation.dewarp.png`. Host
+its columns in blue, one pixel wide, in `annotation.dewarp.jpg`. Host
 work only.
 
     python -m origami_tpu_torch.batch.annotate.grid CORPUS [--device cpu]

@@ -4,7 +4,7 @@ Port of origami_tpu/batch/annotate/layout.py: the regions of
 contours.2.zip, labelled, over the dewarped page (made on the page's
 device through the dewarp kernel, `Page.pixels(True)`), and the "*"
 reading order of order.json as arrows from region centroid to region
-centroid, in `annotation.layout.png`.
+centroid, in `annotation.layout.jpg`.
 
     python -m origami_tpu_torch.batch.annotate.layout CORPUS [--device cpu]
 """

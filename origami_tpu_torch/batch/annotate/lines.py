@@ -2,7 +2,7 @@
 
 Port of origami_tpu/batch/annotate/lines.py: each line's polygon shaded
 from red (low confidence) to green (high) and its baseline in blue, in
-`annotation.lines.png`. For a dewarped stage (reliable, the default)
+`annotation.lines.jpg`. For a dewarped stage (reliable, the default)
 the canvas is the dewarped page, which the page's device makes through
 the dewarp kernel (`Page.pixels(True)`).
 

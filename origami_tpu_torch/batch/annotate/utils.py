@@ -2,7 +2,8 @@
 
 Port of origami_tpu/batch/annotate/utils.py, which draws with cv2 on a
 (H, W, 3) uint8 BGR canvas and saves a JPEG through PIL. The port has
-neither, so it draws the same pixels itself:
+neither, so it draws the same pixels itself and writes PIL's JPEG bytes
+of them (core/_jpeg.encode, RGB at quality 85):
 
   * `to_canvas`: the page lightened in float32 (px * 0.6 + 102), clipped
     and truncated, as the numpy expression of the JAX module;
@@ -23,9 +24,6 @@ the repo, so a label is drawn with the glyph atlas of train/draw.py
 (DejaVu Sans) inside `label_box`, a box that holds cv2's ink for the
 same text at the same origin. The renders equal the JAX module's on
 every pixel outside the label boxes (ROADMAP C8).
-
-Renders are written as PNG (`AnnotateWriter`): the card's machine has
-no JPEG encoder.
 """
 
 from __future__ import annotations
@@ -34,7 +32,7 @@ import math
 
 import numpy as np
 
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _jpeg
 from origami_tpu_torch.geometry.raster import (
     _draw_segments, _fill_circle, _fill_polygon, _stroke)
 
@@ -225,11 +223,12 @@ def draw_arrow(canvas, p0, p1, color, thickness=2):
 
 class AnnotateWriter:
     """Bridges a BGR canvas to the Writer.annotation contract: an RGB
-    PNG. `label_boxes` are the boxes the labels were drawn in."""
+    JPEG at quality 85, as the JAX module's save_jpeg writes it.
+    `label_boxes` are the boxes the labels were drawn in."""
 
     def __init__(self, canvas, label_boxes=()):
         self.canvas = canvas
         self.label_boxes = list(label_boxes)
 
     def save(self, path):
-        _png.write_rgb(path, self.canvas[:, :, ::-1])
+        _jpeg.write(path, self.canvas[:, :, ::-1], 85)

@@ -3,9 +3,6 @@
 Port of origami_tpu/batch/core/io.py: the artifacts of the nine detect
 stages (segment, contours, flow, dewarp, layout, lines, order, OCR,
 compose), the annotation renders and the corpus utilities' outputs.
-Annotations and the thumbnail are PNG where the JAX package writes JPEG
-(`annotation.<name>.png`, `thumbnail.png`): the card's machine has no
-JPEG encoder.
 Per-page `<image>.out/` directories hold the stage artifacts of
 docs/formats.md; a stage declares its I/O as (name, Input/Output) pairs,
 the runtime instantiates Readers/Writers, skips pages whose inputs are
@@ -54,7 +51,7 @@ class Artifact(enum.Enum):
     COMPOSE = ("compose.zip", None)
     RUNTIME = ("runtime.json", None)
     SIGNATURE = ("signature.zip", None)
-    THUMBNAIL = ("thumbnail.png", None)
+    THUMBNAIL = ("thumbnail.jpg", None)
     DINGLEHOPPER = ("dinglehopper.xml", None)
     CONTOURS = ("contours.%d.zip",
                 {Stage.WARPED: 0, Stage.DEWARPED: 1,
@@ -77,13 +74,13 @@ class Artifact(enum.Enum):
 
 
 class Annotation:
-    """A debugging render: `annotation.<name>.png`."""
+    """A debugging render: `annotation.<name>.jpg`."""
 
     def __init__(self, name):
         self.name = name
 
     def filename(self, stage=None):
-        return "annotation.%s.png" % self.name
+        return "annotation.%s.jpg" % self.name
 
 
 def parse_artifact(name):

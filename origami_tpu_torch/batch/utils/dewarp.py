@@ -2,9 +2,9 @@
 
 Port of origami_tpu/batch/utils/dewarp.py: each page through its grid
 (dewarp.zip) on the page's device, one launch of the dewarp kernel a
-page (`Page.dewarped`), written as `<page>.out/dewarped.png`, or as
-`OUTPUT/<stem>.dewarped.png` with -o. PNG where the JAX module writes
-JPEG: the card's machine has no JPEG encoder.
+page (`Page.dewarped`), written as `<page>.out/dewarped.jpg`, or as
+`OUTPUT/<stem>.dewarped.jpg` with -o: PIL's JPEG bytes at quality 90
+(core/_jpeg.encode).
 
     python -m origami_tpu_torch.batch.utils.dewarp CORPUS [-o DIR] \\
         [--device cpu]
@@ -16,7 +16,10 @@ from pathlib import Path
 
 from origami_tpu_torch.batch.core.io import Artifact, Input
 from origami_tpu_torch.batch.core.processor import PageProcessor, run_cli
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _jpeg
+
+# the JAX module's JPEG quality
+QUALITY = 90
 
 
 class DewarpImageProcessor(PageProcessor):
@@ -37,10 +40,10 @@ class DewarpImageProcessor(PageProcessor):
         page = Page(page_path, input.grid, device=self.device)
         if self._out:
             self._out.mkdir(parents=True, exist_ok=True)
-            dst = self._out / (Path(page_path).stem + ".dewarped.png")
+            dst = self._out / (Path(page_path).stem + ".dewarped.jpg")
         else:
-            dst = input.data_path / "dewarped.png"
-        _png.write_gray(dst, page.dewarped)
+            dst = input.data_path / "dewarped.jpg"
+        _jpeg.write(dst, page.dewarped, QUALITY)
 
 
 def add_options(p):

@@ -2,9 +2,8 @@
 
 Port of origami_tpu/batch/utils/reset.py: each comma-separated spec
 ("contours/warped", "ocr", "annotation/layout", ...) names one file of
-every page's `.out` folder, by the port's file names (annotations and
-the thumbnail are PNG). Host work only: `--device` is taken as every
-stage takes it.
+every page's `.out` folder, by the JAX package's file names. Host work
+only: `--device` is taken as every stage takes it.
 
     python -m origami_tpu_torch.batch.utils.reset CORPUS -a SPECS \\
         [--dry-run] [--device cpu]

@@ -1,9 +1,10 @@
 """utils.thumbnail — page thumbnails.
 
 Port of origami_tpu/batch/utils/thumbnail.py, which shrinks each page
-with PIL's `Image.thumbnail((max_size, max_size))` and writes a JPEG.
-The port writes `thumbnail.png` (the card's machine has no JPEG
-encoder) with the pixels PIL gives, computed in numpy:
+with PIL's `Image.thumbnail((max_size, max_size))` and writes
+`thumbnail.jpg` at quality 85. The port writes PIL's bytes
+(core/_jpeg.encode, with the page's comment, which PIL carries over:
+core/_image.comment) of the pixels PIL gives, computed in numpy:
 
   * the aspect-preserving size of `Image.thumbnail` (each side rounded
     down or up, whichever keeps the aspect ratio closer);
@@ -151,6 +152,8 @@ def thumbnail_size(w, h, max_size):
 
 # PIL's `Image.thumbnail` default
 REDUCING_GAP = 2.0
+# the JAX module's JPEG quality
+QUALITY = 85
 
 
 def thumbnail(px, max_size=1024):
@@ -183,10 +186,10 @@ class ThumbnailProcessor(PageProcessor):
         return [("output", Output(Artifact.THUMBNAIL))]
 
     def process(self, page_path, output):
-        from origami_tpu_torch.core import _image, _png
-        _png.write_gray(output.path(Artifact.THUMBNAIL),
-                        thumbnail(_image.read_gray(page_path),
-                                  self._max_size))
+        from origami_tpu_torch.core import _image, _jpeg
+        _jpeg.write(output.path(Artifact.THUMBNAIL),
+                    thumbnail(_image.read_gray(page_path), self._max_size),
+                    QUALITY, comment=_image.comment(page_path))
 
 
 def add_options(p):

@@ -211,3 +211,21 @@ def _rgb16(v, layout):
         g8 = g * 255 // 63
     return np.stack([r * 255 // 31, g8, b * 255 // 31],
                     axis=-1).astype(np.uint8)
+
+
+def encode_gray(px):
+    """uint8 (H, W) -> the bytes of PIL's BMP of an "L" image: 8 bits
+    through a gray palette, rows bottom-up, 96 dpi."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape
+    stride = (w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w] = px[::-1]
+    palette = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+    palette[:, 3] = 0
+    offset = 14 + 40 + palette.size
+    ppm = int(96 * 39.3701 + 0.5)
+    return (b"BM" + struct.pack("<IHHI", offset + rows.size, 0, 0, offset)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, rows.size,
+                          ppm, ppm, 256, 256)
+            + palette.tobytes() + rows.tobytes())

@@ -2,8 +2,10 @@
 
 `read(path)` -> uint8 (H, W) gray or (H, W, 3) RGB, `read_gray(path)`
 -> PIL's `np.asarray(Image.open(path).convert("L"))`, `read_size(path)`
--> PIL's `Image.open(path).size` from the header alone. The reader is
-chosen by the file's magic bytes, not its suffix, as PIL chooses it: PNG
+-> PIL's `Image.open(path).size` from the header alone, `comment(path)`
+-> the info["comment"] that PIL keeps from a JPEG, JPEG 2000 or PNG page
+and writes into a JPEG saved from it. The reader is chosen by the
+file's magic bytes, not its suffix, as PIL chooses it: PNG
 (core/_png.py), JPEG (core/_jpeg.py), TIFF (core/_tiff.py), BMP
 (core/_bmp.py) and JPEG 2000, JP2 or a raw codestream (core/_jp2.py).
 Anything else raises ValueError; nothing falls back to another reader.
@@ -64,6 +66,22 @@ def read(path):
 def read_gray(path):
     with open(path, "rb") as f:
         return decode(f.read(), path, gray=True)
+
+
+def comment(path):
+    """PIL's `Image.open(path).info.get("comment")` of a JPEG, JPEG 2000
+    (their COM segments) or PNG page (its text chunk "comment", UTF-8
+    encoded as PIL writes it); None for the other formats."""
+    with open(path, "rb") as f:
+        data = f.read()
+    k = kind(data[:16])
+    if k == "jpeg":
+        return _jpeg.comment(data)
+    if k == "jpeg2000":
+        return _jp2.comment(data)
+    if k == "png":
+        return _png.comment(data)
+    return None
 
 
 def read_size(path):

@@ -17,6 +17,7 @@ colour spaces PIL has no unpacker for raise ValueError naming the kind.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 
@@ -39,6 +40,42 @@ def info(data):
                        out.ctypes.data_as(_IP), err, _ERR) < 0:
         raise ValueError(err.value.decode())
     return tuple(int(v) for v in out)
+
+
+def comment(data):
+    """PIL's info["comment"] of a JPEG 2000 file: the first COM segment
+    of the main header before the first tile, without its registration
+    field; in a JP2 file only where the codestream box follows the
+    header box at once, as Pillow looks for it. None where there is
+    none."""
+    if data[:4] == b"\xff\x4f\xff\x51":
+        pos = 2
+    else:
+        pos = 0
+        while True:
+            if pos + 8 > len(data):
+                return None
+            lbox, tbox = struct.unpack(">I4s", data[pos: pos + 8])
+            if lbox == 1:
+                (lbox,) = struct.unpack(">Q", data[pos + 8: pos + 16])
+            elif lbox == 0:
+                lbox = len(data) - pos
+            if lbox < 8:
+                return None
+            pos += lbox
+            if tbox == b"jp2h":
+                break
+        if data[pos + 4: pos + 12] != b"jp2c\xff\x4f\xff\x51":
+            return None
+        pos += 10
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF or data[pos + 1] in (0x90, 0xD9):
+            break
+        (length,) = struct.unpack(">H", data[pos + 2: pos + 4])
+        if data[pos + 1] == 0x64:
+            return bytes(data[pos + 4: pos + 2 + length][2:])
+        pos += 2 + length
+    return None
 
 
 def decode(data, gray=False):

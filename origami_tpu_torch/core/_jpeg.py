@@ -1,16 +1,24 @@
-"""JPEG pages without PIL: the host library's decoder (core/jpeg.cpp).
+"""JPEG without PIL: the host library's decoder (core/jpeg.cpp) and
+encoder (core/jpeg_enc.cpp).
 
 Huffman-coded baseline, extended sequential and progressive files, 8-bit,
-gray or three components (YCbCr; RGB where an Adobe marker or the
-component ids say so), decoded to the pixels libjpeg-turbo gives PIL
-(ISLOW inverse DCT, fancy upsampling, progressive block smoothing).
-Arithmetic-coded, lossless, hierarchical, 12-bit and CMYK/YCCK files
+gray, three components (YCbCr; RGB where an Adobe marker or the
+component ids say so) or four (CMYK, or YCCK by the Adobe marker: PIL's
+"CMYK;I" through Pillow's cmyk2rgb), decoded to the pixels libjpeg-turbo
+gives PIL (ISLOW inverse DCT, fancy upsampling, progressive block
+smoothing). Arithmetic-coded, lossless, hierarchical and 12-bit files
 raise ValueError naming the kind.
+
+`encode(array, quality)` gives the bytes of PIL's `Image.fromarray(
+array).save(f, "JPEG", quality=quality)`: baseline, gray ("L") or RGB
+as YCbCr 4:2:0, libjpeg-turbo's tables and arithmetic; `write(path,
+array, quality)` writes them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 
@@ -34,6 +42,30 @@ def info(data):
     return tuple(int(v) for v in out)
 
 
+def comment(data):
+    """PIL's info["comment"] of a JPEG: the last COM segment before the
+    first scan, or None."""
+    pos, n, found = 2, len(data), None
+    while pos < n:
+        while pos < n and data[pos] != 0xFF:
+            pos += 1
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos + 2 >= n:
+            break
+        m = data[pos]
+        pos += 1
+        if m in (0x01, 0xD8) or 0xD0 <= m <= 0xD7:
+            continue
+        if m in (0xD9, 0xDA):
+            break
+        (length,) = struct.unpack(">H", data[pos: pos + 2])
+        if m == 0xFE:
+            found = bytes(data[pos + 2: pos + length])
+        pos += length
+    return found
+
+
 def decode(data, gray=False):
     """JPEG bytes -> uint8 (H, W) gray (one component, or `gray`: PIL's
     convert("L")) or (H, W, 3) RGB."""
@@ -48,3 +80,47 @@ def decode(data, gray=False):
     if got < 0:
         raise ValueError(err.value.decode())
     return out[..., 0] if ch == 1 else out
+
+
+def encode(array, quality=75, comment=None):
+    """uint8 (H, W) gray or (H, W, 3) RGB -> PIL's JPEG bytes at
+    `quality`; `comment` (bytes): the COM segment PIL writes from an
+    image's info["comment"]."""
+    from origami_tpu_torch.geometry.native_bindings import _U8P
+    px = np.asarray(array)
+    if px.dtype != np.uint8 or not (px.ndim == 2 or (
+            px.ndim == 3 and px.shape[2] == 3)):
+        raise ValueError("JPEG encodes uint8 (H, W) or (H, W, 3), not %s %s"
+                         % (px.dtype, px.shape))
+    if not isinstance(quality, (int, np.integer)) or \
+            isinstance(quality, bool):
+        raise ValueError("JPEG quality %r is not an integer" % (quality,))
+    if px.size == 0:
+        raise ValueError("cannot write an empty image as JPEG")
+    px = np.ascontiguousarray(px)
+    ch = 1 if px.ndim == 2 else 3
+    err = ctypes.create_string_buffer(_ERR)
+    cap = px.size + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = _lib().jpeg_encode(px.ctypes.data_as(_U8P), px.shape[0],
+                               px.shape[1], ch, int(quality),
+                               out.ctypes.data_as(_U8P), cap, err, _ERR)
+        if n < 0:
+            raise ValueError(err.value.decode())
+        if n <= cap:
+            break
+        cap = n
+    data = out[:n].tobytes()
+    if comment:
+        # PIL writes the comment right after the JFIF APP0 segment
+        data = data[:20] + b"\xff\xfe" + struct.pack(
+            ">H", len(comment) + 2) + bytes(comment) + data[20:]
+    return data
+
+
+def write(path, array, quality=75, comment=None):
+    """`encode(array, quality, comment)` into the file `path`."""
+    data = encode(array, quality, comment)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -10,8 +10,8 @@ way PIL's `convert("L")` does (ITU-R 601-2 luma in 16-bit fixed point),
 so pixels match the reference loader exactly. The row filters are
 undone in C++ (png.cpp, in the port's host library).
 `encode_bilevel` / `write_bilevel` write the 1-bit grayscale PNG that
-PIL writes for a mode "1" image. `encode_rgb` / `write_rgb` write 8-bit
-RGB (colour type 2): the annotation renders. `encode_paletted` /
+PIL writes for a mode "1" image. `encode_rgb` writes 8-bit RGB (colour
+type 2). `encode_paletted` /
 `decode_paletted` write and read the paletted label maps of segment.zip
 (colour type 3 with a PLTE chunk). Keeps the port free of PIL.
 """
@@ -42,6 +42,26 @@ def _chunks(data):
         if kind == b"IEND":
             return
     raise ValueError("PNG ends without IEND")
+
+
+def comment(data):
+    """PIL's info["comment"] of a loaded PNG, as PIL writes it into a
+    JPEG (UTF-8): the text of the last tEXt, zTXt or iTXt chunk whose
+    keyword is "comment", or None."""
+    found = None
+    for kind, body in _chunks(data):
+        key, _, rest = body.partition(b"\0")
+        if kind not in (b"tEXt", b"zTXt", b"iTXt") or key != b"comment":
+            continue
+        if kind == b"tEXt":
+            found = rest.decode("latin-1", "replace")
+        elif kind == b"zTXt":
+            found = zlib.decompress(rest[1:]).decode("latin-1", "replace")
+        else:
+            _, _, value = rest[2:].split(b"\0", 2)
+            found = (zlib.decompress(value) if rest[0] else value).decode(
+                "utf-8")
+    return None if found is None else found.encode("utf-8")
 
 
 def read_size(path):
@@ -229,7 +249,7 @@ def write_gray(path, pixels):
         f.write(encode_gray(pixels))
 
 
-# zlib level 1: a page render compresses 4x faster than at 6
+# zlib level 1: a page-sized RGB image compresses 4x faster than at 6
 _RGB_LEVEL = 1
 
 
@@ -248,10 +268,6 @@ def encode_rgb(pixels):
         _chunk(b"IDAT", zlib.compress(rows.tobytes(), _RGB_LEVEL)),
         _chunk(b"IEND", b"")])
 
-
-def write_rgb(path, pixels):
-    with open(path, "wb") as f:
-        f.write(encode_rgb(pixels))
 
 
 def encode_bilevel(mask):

@@ -320,3 +320,21 @@ def _convert(px, photometric, bps, spp, tags):
     if photometric == 0:
         g = 255 - g
     return np.ascontiguousarray(g)
+
+
+def encode_gray(px):
+    """uint8 (H, W) -> the bytes of PIL's uncompressed TIFF of an "L"
+    image: little-endian, one strip after the first IFD."""
+    px = np.asarray(px, np.uint8)
+    h, w = px.shape
+    entries = ((256, 4, w), (257, 4, h), (258, 3, 8), (259, 3, 1),
+               (262, 3, 1), (273, 4, None), (278, 4, h), (279, 4, w * h),
+               (284, 3, 1))
+    offset = 8 + 2 + 12 * len(entries) + 4
+    ifd = struct.pack("<H", len(entries))
+    for tag, typ, val in entries:
+        val = offset if val is None else val
+        ifd += struct.pack("<HHI", tag, typ, 1) + (
+            struct.pack("<HH", val, 0) if typ == 3 else struct.pack("<I", val))
+    return b"II*\x00" + struct.pack("<I", 8) + ifd + b"\x00" * 4 + \
+        np.ascontiguousarray(px).tobytes()

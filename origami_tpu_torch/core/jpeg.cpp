@@ -1,10 +1,13 @@
 // Huffman-coded JPEG decoding (baseline, extended sequential and
-// progressive, 8-bit, one or three components) that gives the pixels
-// libjpeg-turbo gives PIL: ISLOW inverse DCT (jidctint.c), fancy
+// progressive, 8-bit, one, three or four components) that gives the
+// pixels libjpeg-turbo gives PIL: ISLOW inverse DCT (jidctint.c), fancy
 // upsampling (jdsample.c), the YCbCr tables of jdcolor.c and, where a
 // progressive file leaves coefficients unrefined, the block smoothing of
-// jdcoefct.c (libjpeg-turbo 2.1 and later). Arithmetic-coded, lossless,
-// hierarchical, 12-bit and four-component (CMYK, YCCK) files raise.
+// jdcoefct.c (libjpeg-turbo 2.1 and later). Four components are CMYK,
+// or YCCK where an Adobe marker's transform is not 0 (jdcolor.c
+// ycck_cmyk_convert), read as PIL reads them ("CMYK;I": every sample
+// inverted) and converted to RGB by Pillow's cmyk2rgb. Arithmetic-coded,
+// lossless, hierarchical and 12-bit files raise.
 //
 //   jpeg_decode(data, n, out, gray, err, errlen) -> channels written
 //
@@ -157,7 +160,7 @@ class Decoder {
   bool qt_defined_[4] = {false, false, false, false};
   Huff dc_[4], ac_[4];
   int restart_interval_ = 0;
-  Comp comp_[3];
+  Comp comp_[4];
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int scans_ = 0;
   int eobrun_ = 0;
@@ -200,9 +203,7 @@ void Decoder::read_frame(int marker) {
   if (height_ == 0)
     throw Error("unsupported JPEG: height given by a DNL marker");
   if (width_ == 0) throw Error("corrupt JPEG: width 0");
-  if (ncomp_ == 4)
-    throw Error("unsupported JPEG: four components (CMYK/YCCK)");
-  if (ncomp_ != 1 && ncomp_ != 3)
+  if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4)
     throw Error("unsupported JPEG: " + std::to_string(ncomp_) +
                 " components");
   progressive_ = marker == 0xC2;
@@ -418,8 +419,8 @@ void Decoder::read_scan() {
   if (!frame_) throw Error("corrupt JPEG: scan before frame");
   u16();
   int ns = u8();
-  if (ns < 1 || ns > 3) throw Error("corrupt JPEG: bad scan");
-  Comp* sc[3];
+  if (ns < 1 || ns > ncomp_) throw Error("corrupt JPEG: bad scan");
+  Comp* sc[4];
   for (int i = 0; i < ns; i++) {
     int id = u8(), t = u8();
     Comp* c = nullptr;
@@ -861,7 +862,7 @@ void upsample(const uint8_t* in, int in_stride, int dw, int dh, int hexp,
 
 void Decoder::output(uint8_t* out, bool gray) {
   bool smooth = smoothing_ok();
-  std::vector<uint8_t> full[3];
+  std::vector<uint8_t> full[4];
   for (int i = 0; i < ncomp_; i++) {
     Comp& c = comp_[i];
     if (!c.latched) throw Error("corrupt JPEG: a component has no scan");
@@ -900,10 +901,31 @@ void Decoder::output(uint8_t* out, bool gray) {
   auto lim = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
   const size_t n = (size_t)width_ * height_;
   const uint8_t *p0 = full[0].data(), *p1 = full[1].data(),
-                *p2 = full[2].data();
+                *p2 = full[2].data(), *p3 = full[3].data();
+  // four components: jdapimin.c takes YCCK where an Adobe marker's
+  // transform is not 0, else CMYK
+  const bool ycck = ncomp_ == 4 && saw_adobe_ && adobe_transform_ != 0;
   for (size_t i = 0; i < n; i++) {
     int r, g, b;
-    if (rgb) {
+    if (ncomp_ == 4) {
+      int c = p0[i], m = p1[i], yy = p2[i];
+      if (ycck) {  // jdcolor.c ycck_cmyk_convert
+        int y = p0[i], cb = p1[i], cr = p2[i];
+        c = 255 - lim(y + cr_r[cr]);
+        m = 255 - lim(y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+        yy = 255 - lim(y + cb_b[cb]);
+      }
+      // PIL's "CMYK;I" (each sample inverted), then Pillow's cmyk2rgb:
+      // nk - nk * v / 255 with MULDIV255's rounding
+      int nk = p3[i];
+      auto part = [nk, &lim](int v) {
+        int t = (255 - v) * nk + 128;
+        return lim(nk - (((t >> 8) + t) >> 8));
+      };
+      r = part(c);
+      g = part(m);
+      b = part(yy);
+    } else if (rgb) {
       r = p0[i];
       g = p1[i];
       b = p2[i];

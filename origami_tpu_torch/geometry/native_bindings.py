@@ -7,10 +7,10 @@ city-block EDT, the skeleton tracer and the concave hull of native.cpp
 vectorization of contour_trace.cpp (cv2's findContours, connected
 components, chamfer distance transform, fillPoly, line and circle;
 geometry/contour_trace.py and raster.py wrap them), and the page-image
-codecs of core/png.cpp, jpeg.cpp, jp2.cpp and tiff.cpp (core/_png.py,
-_jpeg.py, _jp2.py and _tiff.py wrap them). The sources are compiled at
-first use with g++ (the JAX package's Makefile flags; jp2.cpp turns
-floating-point contraction off for itself) into
+codecs of core/png.cpp, jpeg.cpp, jpeg_enc.cpp, jp2.cpp and tiff.cpp
+(core/_png.py, _jpeg.py, _jp2.py and _tiff.py wrap them). The sources
+are compiled at first use with g++ (the JAX package's Makefile flags;
+jp2.cpp turns floating-point contraction off for itself) into
 
     build/origami_tpu_torch/liborigami_native.so
 
@@ -35,7 +35,8 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 SOURCES = [_HERE / "native.cpp", _HERE / "contour_trace.cpp"] + [
     _HERE.parent / "core" / name for name in ("png.cpp", "jpeg.cpp",
-                                              "jp2.cpp", "tiff.cpp")]
+                                              "jpeg_enc.cpp", "jp2.cpp",
+                                              "tiff.cpp")]
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "origami_tpu_torch"
 LIBRARY = BUILD_DIR / "liborigami_native.so"
 CXXFLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-std=c++17"]
@@ -132,6 +133,9 @@ def library():
     lib.jpeg_decode.restype = ctypes.c_int
     lib.jpeg_decode.argtypes = [_U8P, ctypes.c_long, _U8P, ctypes.c_int,
                                 ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_encode.restype = ctypes.c_long
+    lib.jpeg_encode.argtypes = [_U8P] + [ctypes.c_int] * 4 + [
+        _U8P, ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
     lib.jp2_info.restype = ctypes.c_int
     lib.jp2_info.argtypes = [_U8P, ctypes.c_long, _IP, ctypes.c_char_p,
                              ctypes.c_int]

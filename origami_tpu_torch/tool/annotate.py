@@ -3,15 +3,17 @@
 Port of origami_tpu/tool/annotate.py, its click group as argparse
 subcommands: `list`, `set` and `stats` work on the DB alone;
 `export-image` writes one line's strip (tool/lineload.load_line_image,
-on the card unless told --device cpu) as PNG, and raises on another
-suffix (the port writes no JPEG).
+on the card unless told --device cpu) in the format its suffix names, as
+PIL's `save` picks it: .jpg and .jpeg PIL's JPEG bytes at its default
+quality (75), .tif and .tiff PIL's uncompressed TIFF, .bmp PIL's 8-bit
+BMP, .png a PNG; any other suffix raises.
 
     python -m origami_tpu_torch.tool.annotate list --db-path DB \\
         [--unannotated] [--search TEXT] [--device cpu]
     python -m origami_tpu_torch.tool.annotate set --db-path DB --page P \\
         --line L --text TEXT [--author A]
     python -m origami_tpu_torch.tool.annotate export-image --db-path DB \\
-        --page P --line L -o OUT.png [--line-height 48]
+        --page P --line L -o OUT.{jpg,png,tif,bmp} [--line-height 48]
     python -m origami_tpu_torch.tool.annotate stats --db-path DB
 """
 
@@ -41,14 +43,25 @@ def set_annotation(db, page, line, text, author=None):
     print("annotated %s %s" % (page, line))
 
 
+def _encoders():
+    """{suffix: uint8 (H, W) -> file bytes}: the formats PIL's `save`
+    picks by suffix that export-image writes."""
+    from origami_tpu_torch.core import _bmp, _jpeg, _png, _tiff
+    return {".jpg": _jpeg.encode, ".jpeg": _jpeg.encode,
+            ".png": _png.encode_gray, ".tif": _tiff.encode_gray,
+            ".tiff": _tiff.encode_gray, ".bmp": _bmp.encode_gray}
+
+
 def export_image(page, line, output, line_height=48, device=None):
     """Write one line's image so it can be viewed while transcribing."""
-    from origami_tpu_torch.core import _png
     from origami_tpu_torch.tool.lineload import load_line_image
-    if Path(output).suffix.lower() != ".png":
-        raise ValueError("export-image writes PNG only, not %r" % output)
+    suffix = Path(output).suffix.lower()
+    encoders = _encoders()
+    if suffix not in encoders:
+        raise ValueError("export-image writes %s, not the suffix %r of %s"
+                         % (", ".join(sorted(encoders)), suffix, output))
     strip = load_line_image(page, line, line_height, device=device)
-    _png.write_gray(output, strip)
+    Path(output).write_bytes(encoders[suffix](strip))
     print("wrote %s" % output)
     return strip
 

@@ -5,9 +5,10 @@ k-means over grid-count signatures as tool/cluster.py (run
 batch.utils.signature over the corpus first), each cluster's page
 thumbnails, a page at full size. The images are the page in gray,
 narrowed to 360 (thumbnail) or 2400 (full) pixels as PIL's default
-BICUBIC `resize` narrows it (batch/utils/thumbnail.resize_bicubic), as
-PNG where the JAX tool sends JPEG. Host work only: `--device` is taken
-as every port CLI takes it.
+BICUBIC `resize` narrows it (batch/utils/thumbnail.resize_bicubic),
+sent as PIL's JPEG bytes at quality 80 with the page's comment
+(core/_image.comment), as the JAX tool sends them. Host work only:
+`--device` is taken as every port CLI takes it.
 
     python -m origami_tpu_torch.tool.cluster_web CORPUS [-k 8] \\
         [--port 8396] [--host 127.0.0.1] [--device cpu]
@@ -133,7 +134,7 @@ def page_view(page, max_w):
 
 
 def make_handler(groups):
-    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import _image, _jpeg
     known = {p for members in groups.values() for p in members}
 
     class Handler(BaseHTTPRequestHandler):
@@ -147,12 +148,13 @@ def make_handler(groups):
             self.end_headers()
             self.wfile.write(body)
 
-        def _png(self, page, max_w):
+        def _jpeg(self, page, max_w):
             if page not in known:
                 self._send(404, b"unknown page", "text/plain")
                 return
-            self._send(200, _png.encode_gray(page_view(page, max_w)),
-                       "image/png")
+            self._send(200, _jpeg.encode(page_view(page, max_w), 80,
+                                         comment=_image.comment(page)),
+                       "image/jpeg")
 
         def do_GET(self):
             url = urllib.parse.urlparse(self.path)
@@ -164,9 +166,9 @@ def make_handler(groups):
                     {str(k): v for k, v in sorted(groups.items())}
                 ).encode("utf-8"), "application/json")
             elif url.path == "/thumb":
-                self._png(q["page"][0], 360)
+                self._jpeg(q["page"][0], 360)
             elif url.path == "/image":
-                self._png(q["page"][0], 2400)
+                self._jpeg(q["page"][0], 2400)
             else:
                 self._send(404, b"not found", "text/plain")
 

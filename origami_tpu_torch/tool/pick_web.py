@@ -6,7 +6,8 @@ outline = not picked); a click toggles. Writes go to the same
 annotations.db the transcription UI, export and training tools read
 (tool/lineload.py). `/image` of a dewarped stage is Page.dewarped (one
 dewarp_u8 launch when the page cache is cold), on the card unless told
---device cpu, as PNG where the JAX tool sends JPEG.
+--device cpu, sent as PIL's JPEG bytes at quality 85, as the JAX tool
+sends it.
 
     python -m origami_tpu_torch.tool.pick_web --db-path DB \\
         CORPUS_DIR_OR_PAGE ... [--stage reliable] [--port 8398] \\
@@ -169,7 +170,7 @@ def page_image(page_path, stage, device=None):
 def make_handler(db_path, pages, stage, device=None):
     """The request handler class for HTTPServer. `device` None means the
     card, raising without one."""
-    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import _jpeg
     from origami_tpu_torch.tool.lineload import AnnotationDB
 
     device = _device.resolve(device)
@@ -213,7 +214,7 @@ def make_handler(db_path, pages, stage, device=None):
                 page = q["page"][0]
                 try:
                     arr = page_image(by_name[page], stage, device)
-                    self._send(200, _png.encode_gray(arr), "image/png")
+                    self._send(200, _jpeg.encode(arr, 85), "image/jpeg")
                 except Exception as e:
                     self._send(404, str(e).encode("utf-8"), "text/plain")
             else:

@@ -6,7 +6,8 @@ time, each drawn at its split position with its score; the side panel
 lists the reading order. The cut tree comes from the port's
 core/xycut, the order stage's scorer. `/image` of a dewarped stage is
 Page.dewarped (one dewarp_u8 launch when the page cache is cold), on the
-card unless told --device cpu, as PNG where the JAX tool sends JPEG.
+card unless told --device cpu, sent as PIL's JPEG bytes at quality 80,
+as the JAX tool sends it.
 
     python -m origami_tpu_torch.tool.xycut_web CORPUS_DIR_OR_PAGE ... \\
         [--stage reliable] [--fringe 0.005] [--port 8397] \\
@@ -205,7 +206,7 @@ def cut_tree(page_path, stage="reliable", fringe=0.005,
 def make_handler(pages, stage, fringe, device=None):
     """The request handler class for HTTPServer. `device` None means the
     card, raising without one."""
-    from origami_tpu_torch.core import _png
+    from origami_tpu_torch.core import _jpeg
     device = _device.resolve(device)
     by_name = {str(p): p for p in pages}
 
@@ -240,7 +241,7 @@ def make_handler(pages, stage, fringe, device=None):
             elif url.path == "/image":
                 try:
                     arr = page_image(by_name[q["page"][0]], stage, device)
-                    self._send(200, _png.encode_gray(arr), "image/png")
+                    self._send(200, _jpeg.encode(arr, 80), "image/jpeg")
                 except Exception as e:
                     self._send(404, str(e).encode("utf-8"), "text/plain")
             else:

@@ -8,16 +8,22 @@ hold the port to.
 
 Runs the JAX package's processors on the CPU over chip_smoke's
 inspect_corpus (the two fixture pages with the JAX artifacts the renders
-read), captures each image where the JAX module would save it as a JPEG
-(annotate's save_jpeg, PIL's JPEG save), and writes inspect.json:
+read), captures each image where the JAX module saves it as a JPEG
+(annotate's save_jpeg, PIL's JPEG save) and the file it writes, and
+writes inspect.json:
 
     renders    for each page and render (annotate grid, flow, contours
                warped and reliable, lines, layout; utils.dewarp's page),
-               the canvas's shape, its label boxes (the port's
-               annotate.utils.label_box at each cv2.putText origin) and
-               chip_smoke.masked_digest of the BGR canvas with the boxes
-               set to 0; every pixel cv2.putText inks lies in its box
+               by the JAX file's name: the canvas's shape, its label
+               boxes (the port's annotate.utils.label_box at each
+               cv2.putText origin), chip_smoke.masked_digest of the BGR
+               canvas with the boxes set to 0, the sha256 of the JPEG
+               file, the boxes grown to the MCU lattice and one MCU more
+               (chip_smoke.mcu_box) and the masked digest of PIL's RGB
+               decode of the file with the grown boxes set to 0; every
+               pixel cv2.putText inks lies in its box
     thumbnail  the digest of utils.thumbnail's pixels (PIL's thumbnail)
+               and the sha256 of its JPEG file
     signature  the digests of signature.zip's decoded PNGs and its
                signature.json text
     rtext      the digest of each region text utils.rtext writes
@@ -67,9 +73,10 @@ def _jax(name):
 
 @contextlib.contextmanager
 def captured_renders():
-    """{png name: {page stem: (BGR canvas, [(label, org)])}} of the JAX
-    annotate renders run inside the block: annotate.utils.save_jpeg and
-    cv2.putText are wrapped while it runs."""
+    """{file name: {page stem: (BGR canvas, [(label, org)], JPEG bytes)}}
+    of the JAX annotate renders run inside the block:
+    annotate.utils.save_jpeg and cv2.putText are wrapped while it
+    runs."""
     ju = _jax("annotate.utils")
     cv2 = ju.cv2
     saved, labels = {}, []
@@ -77,9 +84,9 @@ def captured_renders():
 
     def save(canvas, path):
         path = Path(path)
-        name = path.name.replace(".jpg", ".png")
-        saved.setdefault(name, {})[path.parent.name[:-4]] = (
-            canvas.copy(), list(labels))
+        real_save(canvas, path)
+        saved.setdefault(path.name, {})[path.parent.name[:-4]] = (
+            canvas.copy(), list(labels), path.read_bytes())
         labels.clear()
 
     def put(img, text, org, *args, **kw):
@@ -95,21 +102,21 @@ def captured_renders():
 
 @contextlib.contextmanager
 def captured_jpegs():
-    """{file name: {page stem or file stem: gray pixels}} of the PIL
-    images saved as JPEG inside the block (other saves go through)."""
+    """{file name: {page stem or file stem: (gray pixels, JPEG bytes)}}
+    of the PIL images saved as JPEG files inside the block."""
     import PIL.Image
     saved = {}
     real = PIL.Image.Image.save
 
     def save(im, fp, format=None, **kw):
+        out = real(im, fp, format, **kw)
         if format == "JPEG":
             p = Path(fp)
             key = p.parent.name[:-4] if p.parent.name.endswith(".out") \
                 else p.name.split(".")[0]
-            saved.setdefault(p.name.replace(".jpg", ".png"), {})[key] = \
-                np.asarray(im).copy()
-            return None
-        return real(im, fp, format, **kw)
+            saved.setdefault(p.name, {})[key] = (np.asarray(im).copy(),
+                                                 p.read_bytes())
+        return out
 
     PIL.Image.Image.save = save
     try:
@@ -139,7 +146,8 @@ def ink_outside_boxes(shape, labels):
 
 
 def jax_renders(corpus):
-    """{png name: {stem: (canvas, labels)}} of the JAX renders."""
+    """{file name: {stem: (canvas, labels, JPEG bytes)}} of the JAX
+    renders."""
     with captured_renders() as saved:
         for mod, cls, extra in RENDERS:
             getattr(_jax(mod), cls)(dict(OPTIONS, **extra)) \
@@ -148,8 +156,8 @@ def jax_renders(corpus):
 
 
 def jax_dewarped_and_thumbnails(corpus):
-    """{"dewarped.png": {stem: px}, "thumbnail.png": {stem: px}} from the
-    JAX utils.dewarp and utils.thumbnail."""
+    """{"dewarped.jpg": {stem: (px, bytes)}, "thumbnail.jpg": {stem: (px,
+    bytes)}} from the JAX utils.dewarp and utils.thumbnail."""
     with captured_jpegs() as saved:
         _jax("utils.dewarp").DewarpImageProcessor(dict(OPTIONS)) \
             .traverse(str(corpus))
@@ -185,31 +193,42 @@ def jax_skew(mask, patch):
 
 def build(work):
     """inspect.json's content and the binarized page's PNG bytes."""
+    import hashlib
+    import io
+
+    import PIL.Image
     from origami_tpu_torch.core import _png
+
+    def sha(data):
+        return hashlib.sha256(data).hexdigest()
     corpus = cs.inspect_corpus(work / "corpus")
     pages = sorted(p.stem for p in corpus.glob("*.png"))
     renders = {stem: {} for stem in pages}
     outside = 0
     for name, by_page in jax_renders(corpus).items():
-        for stem, (canvas, labels) in by_page.items():
+        for stem, (canvas, labels, data) in by_page.items():
             boxes = label_boxes(labels)
             outside += ink_outside_boxes(canvas.shape, labels)
+            grown = [list(cs.mcu_box(b)) for b in boxes]
+            decoded = np.asarray(PIL.Image.open(io.BytesIO(data)))
             renders[stem][name] = dict(
                 shape=list(canvas.shape), boxes=boxes,
-                digest=cs.masked_digest(canvas, boxes))
+                digest=cs.masked_digest(canvas, boxes), sha256=sha(data),
+                grown=grown, decoded=cs.masked_digest(decoded, grown))
     if outside:
         raise SystemExit("cv2.putText inks %d pixels outside the label "
                          "boxes" % outside)
     images = jax_dewarped_and_thumbnails(corpus)
-    for stem, px in images["dewarped.png"].items():
-        renders[stem]["dewarped.png"] = dict(
-            shape=list(px.shape), boxes=[], digest=cs.masked_digest(px))
+    for stem, (px, data) in images["dewarped.jpg"].items():
+        renders[stem]["dewarped.jpg"] = dict(
+            shape=list(px.shape), boxes=[], digest=cs.masked_digest(px),
+            sha256=sha(data))
     sigs = jax_signatures(corpus)
     mask = jax_binarized(corpus / (SKEW_PAGE + ".png"))
     return dict(
         pages=pages, renders=renders,
-        thumbnail={s: cs.digest(px)
-                   for s, px in images["thumbnail.png"].items()},
+        thumbnail={s: dict(digest=cs.digest(px), sha256=sha(data))
+                   for s, (px, data) in images["thumbnail.jpg"].items()},
         signature={s: dict(png=p, json=j) for s, (p, j) in sigs.items()},
         rtext=jax_rtext(corpus, work / "rtext"),
         skew={"page": SKEW_PAGE, "mask": SKEW_PAGE + ".binarized.png",

@@ -23,8 +23,9 @@ copy of that DB, driven through chip_smoke.web_routes. Writes tools.json:
     export, export_bin         the exported names, .gt.txt texts and
                                sets.json
     web                        per tool, chip_smoke.web_record of each
-                               response and the digests of the arrays
-                               the tool hands PIL's encoder, by route
+                               response, the digests of the arrays the
+                               tool hands PIL's encoder and the sha256
+                               of each JPEG body, by route
     xycut, cluster             the xycut printout of each page and the
                                cluster -k 2 printout
 
@@ -39,6 +40,7 @@ its row differences modulo 256. About 15 s on a CPU.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import random
@@ -193,7 +195,10 @@ def jax_web(corpus, db, ref, strips):
         with encoded_arrays(seen):
             got = cs.drive_web(make(cs.tool_db(db.parent, db, tool)),
                                routes, collect)
-        images = {}
+        images, bodies = {}, {}
+        for i, (_, ctype, body) in enumerate(got):
+            if ctype == "image/jpeg":
+                bodies[str(i)] = hashlib.sha256(body).hexdigest()
         for i, px in by_route.items():
             if tool == "annotate_web":
                 # the strip of the line that export wrote
@@ -202,7 +207,7 @@ def jax_web(corpus, db, ref, strips):
             else:
                 images[str(i)] = cs.digest(px)
         ref["web"][tool] = dict(records=cs.web_record(got, corpus),
-                                images=images)
+                                images=images, bodies=bodies)
 
 
 def jax_printouts(corpus, ref):

@@ -1,9 +1,10 @@
 """The port's annotate renders (origami_tpu_torch/batch/annotate) against
 the JAX package's (origami_tpu/batch/annotate), on the CPU.
 
-The JAX renders draw with cv2 and save a JPEG; their canvases are
-captured before encoding (the make_torch_inspect_fixture helpers wrap
-annotate.utils.save_jpeg), the port's before its PNG is written.
+The JAX renders draw with cv2 and save a JPEG through PIL; their
+canvases and files are captured (the make_torch_inspect_fixture helpers
+wrap annotate.utils.save_jpeg), the port's canvases before its JPEG is
+written.
 
 Bars:
   * every drawing primitive (fills and their blend, outlines at
@@ -15,14 +16,22 @@ Bars:
     label boxes, the boxes equal to label_box at the JAX labels' origins,
     cv2's label ink inside them, and the JAX canvases' digests equal to
     tests/data/torch_inspect (ROADMAP C8: the labels are drawn with the
-    glyph atlas, not cv2's Hershey strokes).
+    glyph atlas, not cv2's Hershey strokes);
+  * the written renders: PIL's JPEG bytes of the port's canvas, and
+    decoded equal to PIL's decode of the JAX file on every pixel outside
+    the label boxes grown to the 16-px MCU lattice and one MCU more
+    (chip_smoke.mcu_box: 4:2:0 fancy upsampling reads the next MCU's
+    chroma), with the JAX files' sha256 those of the fixture.
 """
 
+import hashlib
 import importlib.util
+import io
 import json
 
 import cv2
 import numpy as np
+import PIL.Image
 import pytest
 
 import chip_smoke
@@ -30,14 +39,14 @@ from origami_tpu import geometry as JG
 from origami_tpu.batch.annotate import utils as ju
 from origami_tpu_torch import geometry as G
 from origami_tpu_torch.batch.annotate import utils as pu
-from origami_tpu_torch.core import _png
+from origami_tpu_torch.core import _image
 
 ROOT = chip_smoke.ROOT
 REF = json.loads((chip_smoke.INSPECT_REF / "inspect.json").read_text())
 PAGE = "synth0000"
-RENDER_NAMES = ["annotation.dewarp.png", "annotation.flow.png",
-                "annotation.contours.0.png", "annotation.contours.3.png",
-                "annotation.lines.png", "annotation.layout.png"]
+RENDER_NAMES = ["annotation.dewarp.jpg", "annotation.flow.jpg",
+                "annotation.contours.0.jpg", "annotation.contours.3.jpg",
+                "annotation.lines.jpg", "annotation.layout.jpg"]
 
 
 def _fixture_script():
@@ -126,8 +135,9 @@ def test_label_boxes_hold_cv2_and_port_ink(label):
 
 @pytest.fixture(scope="module")
 def renders(tmp_path_factory):
-    """{png name: (JAX canvas, JAX labels, port canvas, port boxes)} of
-    the renders of PAGE, each package on its own copy of the corpus."""
+    """{file name: (JAX canvas, JAX labels, JAX file bytes, port canvas,
+    port boxes, port file bytes)} of the renders of PAGE, each package
+    on its own copy of the corpus."""
     script = _fixture_script()
     work = tmp_path_factory.mktemp("annotate")
     jax_corpus = chip_smoke.inspect_corpus(work / "jax")
@@ -137,8 +147,10 @@ def renders(tmp_path_factory):
     got = {}
 
     def save(self, path):
-        got[path.rsplit("/", 1)[-1]] = (self.canvas.copy(), self.label_boxes)
-        pu._png.write_rgb(path, self.canvas[:, :, ::-1])
+        real(self, path)
+        with open(path, "rb") as f:
+            got[path.rsplit("/", 1)[-1]] = (
+                self.canvas.copy(), self.label_boxes, f.read())
 
     real = pu.AnnotateWriter.save
     pu.AnnotateWriter.save = save
@@ -156,14 +168,14 @@ def renders(tmp_path_factory):
     finally:
         pu.AnnotateWriter.save = real
     out = {name: jax[name][PAGE] + got[name] for name in RENDER_NAMES}
-    out["_png"] = _png.read(port_corpus / (PAGE + ".out")
-                            / "annotation.layout.png")
+    out["_file"] = (port_corpus / (PAGE + ".out")
+                    / "annotation.layout.jpg").read_bytes()
     return out
 
 
 @pytest.mark.parametrize("name", RENDER_NAMES)
 def test_render_equals_jax_outside_label_boxes(renders, name):
-    jax_canvas, labels, canvas, boxes = renders[name]
+    jax_canvas, labels, _, canvas, boxes, _ = renders[name]
     assert canvas.shape == jax_canvas.shape
     script = _fixture_script()
     assert boxes == [tuple(b) for b in script.label_boxes(labels)]
@@ -179,8 +191,31 @@ def test_render_equals_jax_outside_label_boxes(renders, name):
 
 
 def test_render_png_holds_the_canvas(renders):
-    canvas = renders["annotation.layout.png"][2]
-    np.testing.assert_array_equal(renders["_png"], canvas[:, :, ::-1])
+    """The written render is PIL's JPEG of the canvas (RGB, quality 85),
+    as the JAX module's save_jpeg writes it."""
+    canvas = renders["annotation.layout.jpg"][3]
+    buf = io.BytesIO()
+    PIL.Image.fromarray(cv2.cvtColor(canvas, cv2.COLOR_BGR2RGB)).save(
+        buf, "JPEG", quality=85)
+    assert renders["_file"] == buf.getvalue()
+    assert renders["annotation.layout.jpg"][5] == renders["_file"]
+
+
+@pytest.mark.parametrize("name", RENDER_NAMES)
+def test_render_jpeg_decodes_as_jax_outside_grown_boxes(renders, name):
+    _, _, jax_file, _, boxes, data = renders[name]
+    ref = REF["renders"][PAGE][name]
+    assert hashlib.sha256(jax_file).hexdigest() == ref["sha256"]
+    grown = [list(chip_smoke.mcu_box(b)) for b in boxes]
+    assert grown == ref["grown"]
+    want = np.asarray(PIL.Image.open(io.BytesIO(jax_file)))
+    got = _image.decode(data)
+    assert got.shape == want.shape
+    differ = (got != want).any(axis=2)
+    for x0, y0, x1, y1 in grown:
+        differ[max(y0, 0):max(y1, 0), max(x0, 0):max(x1, 0)] = False
+    assert int(differ.sum()) == 0
+    assert chip_smoke.masked_digest(got, grown) == ref["decoded"]
 
 
 def _polygons(seed, n_polys):

@@ -297,7 +297,38 @@ def jpeg_cases():
         20, 27, ((1, 1), (1, 1), (1, 1)), 18, ids=(82, 71, 66), marker=None)
     cases["jpeg-crafted-restart"] = lambda: crafted_jpeg(
         33, 41, ((2, 2), (1, 1), (1, 1)), 19, restart=2)
+    # four components: PIL's CMYK save (an Adobe marker, transform 0, the
+    # samples inverted), without its marker, and as YCCK (transform 2)
+    for name, kw in (("", {}), ("-420", dict(quality=90, subsampling=2)),
+                     ("-progressive", dict(quality=60, progressive=True))):
+        cases["jpeg-cmyk" + name] = lambda kw=kw: cmyk_jpeg(
+            texture(37, 45, 4, 64), **kw)
+        cases["jpeg-ycck" + name] = lambda kw=kw: adobe_transform(cmyk_jpeg(
+            texture(45, 37, 4, 65), **kw), 2)
+    cases["jpeg-cmyk-16x16"] = lambda: cmyk_jpeg(texture(16, 16, 4, 64))
+    cases["jpeg-cmyk-no-adobe"] = lambda: without_adobe(cmyk_jpeg(
+        texture(23, 30, 4, 66), quality=85))
+    cases["jpeg-ycck-flat"] = lambda: adobe_transform(cmyk_jpeg(
+        np.full((17, 19, 4), (200, 30, 90, 10), np.uint8)), 2)
     return {k: ("jpg", v) for k, v in cases.items()}
+
+
+def cmyk_jpeg(px, **kw):
+    return pil_bytes(px, "JPEG", "CMYK", **kw)
+
+
+def adobe_transform(data, transform):
+    """`data` with its Adobe APP14 marker's transform byte set."""
+    i = data.index(b"\xff\xee") + 4
+    assert data[i: i + 5] == b"Adobe"
+    return data[: i + 11] + bytes((transform,)) + data[i + 12:]
+
+
+def without_adobe(data):
+    """`data` without its Adobe APP14 segment."""
+    i = data.index(b"\xff\xee")
+    (n,) = struct.unpack(">H", data[i + 2: i + 4])
+    return data[:i] + data[i + 2 + n:]
 
 
 # ---------------------------------------------------------------- TIFF
@@ -905,8 +936,6 @@ UNSUPPORTED = {
         "lossless"),
     "12-bit JPEG": ("jpg", lambda: twelve_bit(jpeg_bytes(
         texture(16, 16, 1, 62))), "12-bit"),
-    "CMYK JPEG": ("jpg", lambda: pil_bytes(texture(16, 16, 4, 64), "JPEG",
-                                           "CMYK"), "CMYK"),
     "old-style JPEG YCbCr TIFF": ("tif", lambda: old_jpeg_tiff(
         texture(16, 16, 3, 63), 6), "old-style JPEG of 3 samples"),
 }

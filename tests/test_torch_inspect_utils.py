@@ -2,28 +2,33 @@
 thumbnail, signature, rtext, stats, reset, cleanup) and Page.dewarped
 against the JAX package's, on the CPU (`--device cpu`).
 
-The JAX modules save JPEGs through PIL; their images are captured before
-encoding (the make_torch_inspect_fixture helpers wrap PIL's JPEG save).
+The JAX modules save JPEGs through PIL; their images and files are
+captured (the make_torch_inspect_fixture helpers wrap PIL's JPEG save).
 
 Bars:
-  * Page.dewarped and utils.dewarp's page: equal to JAX's Page.dewarped
-    on every pixel (ROADMAP C3), and to the fixture's digest;
+  * Page.dewarped: equal to JAX's Page.dewarped on every pixel (ROADMAP
+    C3), and to the fixture's digest; utils.dewarp's dewarped.jpg and
+    <stem>.dewarped.jpg byte-equal to the JAX module's files;
   * thumbnails: equal to PIL's Image.thumbnail((1024, 1024)) on every
     pixel, for the fixture page, the real scans and seeded pages that
     take Image.reduce first; resize and reduce alone equal to PIL's;
+    thumbnail.jpg byte-equal to the JAX module's file, also for pages
+    with a comment (JPEG, JPEG 2000, a PNG text chunk), which PIL carries
+    into it, and core/_image.comment that comment;
   * signature.zip: its PNGs decode to JAX's pixels, signature.json equal;
   * rtext: the same files with the same texts;
   * stats: the same report and errors.csv; reset and cleanup: the same
-    files left and the same runtime.json entries (the port's annotation
-    and thumbnail names are PNG).
+    files left and the same runtime.json entries.
 """
 
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
 import os
 import shutil
+from pathlib import Path
 
 import numpy as np
 import PIL.Image
@@ -82,17 +87,28 @@ def test_page_dewarped_equals_jax():
     assert page.pixels(True) is got and page.pixels(False) is page.warped
     assert Page(png, device="cpu").dewarped is None
     assert chip_smoke.masked_digest(got) \
-        == REF["renders"][PAGE]["dewarped.png"]["digest"]
+        == REF["renders"][PAGE]["dewarped.jpg"]["digest"]
+
+
+def _sha(path):
+    return hashlib.sha256(Path(path).read_bytes()).hexdigest()
 
 
 def test_dewarp_cli_writes_the_dewarped_page(tmp_path):
-    corpus = _corpus(tmp_path / "c")
+    jax_corpus, corpus = _corpus(tmp_path / "j"), _corpus(tmp_path / "c")
+    _jax("dewarp").DewarpImageProcessor(dict(OPTIONS)) \
+        .traverse(str(jax_corpus))
+    _jax("dewarp").DewarpImageProcessor(dict(
+        OPTIONS, output=str(tmp_path / "jo"))).traverse(str(jax_corpus))
     dewarp.main(CPU + [str(corpus)])
     dewarp.main(CPU + ["-o", str(tmp_path / "o"), str(corpus)])
-    want = REF["renders"][PAGE]["dewarped.png"]["digest"]
-    for path in (corpus / (PAGE + ".out") / "dewarped.png",
-                 tmp_path / "o" / (PAGE + ".dewarped.png")):
-        assert chip_smoke.masked_digest(_png.read(path)) == want
+    want = _sha(jax_corpus / (PAGE + ".out") / "dewarped.jpg")
+    assert want == _sha(tmp_path / "jo" / (PAGE + ".dewarped.jpg")) \
+        == REF["renders"][PAGE]["dewarped.jpg"]["sha256"]
+    for path in (corpus / (PAGE + ".out") / "dewarped.jpg",
+                 tmp_path / "o" / (PAGE + ".dewarped.jpg")):
+        assert _sha(path) == want
+    assert not list(corpus.rglob("*dewarped.png"))
 
 
 def test_thumbnail_cli_equals_jax(tmp_path):
@@ -100,12 +116,93 @@ def test_thumbnail_cli_equals_jax(tmp_path):
     with _script().captured_jpegs() as saved:
         _jax("thumbnail").ThumbnailProcessor(dict(OPTIONS)) \
             .traverse(str(jax_corpus))
-    want = saved["thumbnail.png"][PAGE]
+    want, data = saved["thumbnail.jpg"][PAGE]
     thumbnail.main(CPU + [str(corpus)])
-    got = _png.read(corpus / (PAGE + ".out") / "thumbnail.png")
+    got = thumbnail.thumbnail(_png.read_gray(corpus / (PAGE + ".png")))
     assert got.shape == want.shape == (1024, 700)
     assert int((got != want).sum()) == 0
-    assert chip_smoke.digest(want) == REF["thumbnail"][PAGE]
+    assert chip_smoke.digest(want) == REF["thumbnail"][PAGE]["digest"]
+    path = corpus / (PAGE + ".out") / "thumbnail.jpg"
+    assert path.read_bytes() == data
+    assert _sha(path) == REF["thumbnail"][PAGE]["sha256"]
+
+
+def _png_chunk(kind, body):
+    import struct
+    import zlib
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(
+        ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def commented_png(px, before=(), after=()):
+    """PIL's PNG of `px` with the chunks `before` IDAT and `after` it."""
+    buf = io.BytesIO()
+    PIL.Image.fromarray(px).save(buf, "PNG")
+    d = buf.getvalue()
+    i, j = d.index(b"IDAT") - 4, d.index(b"IEND") - 4
+    return d[:i] + b"".join(before) + d[i:j] + b"".join(after) + d[j:]
+
+
+def commented_page(path, px, kind):
+    """`px` written as a page of `kind` that carries a comment."""
+    import zlib
+    if kind == "jpg":
+        PIL.Image.fromarray(px).save(path, "JPEG", quality=90,
+                                     comment=b"a scan of 1872")
+    elif kind == "jp2":
+        PIL.Image.fromarray(px).save(path, "JPEG2000")
+    elif kind == "png-text":
+        path.write_bytes(commented_png(px, [_png_chunk(
+            b"tEXt", b"comment\0Gr\xfc\xdfe aus 1872")]))
+    elif kind == "png-late":
+        # the last of a tEXt, a zTXt and an iTXt (compressed, after IDAT)
+        path.write_bytes(commented_png(
+            px, [_png_chunk(b"tEXt", b"comment\0early"),
+                 _png_chunk(b"zTXt", b"comment\0\0" + zlib.compress(b"z"))],
+            [_png_chunk(b"iTXt", b"comment\0\1\0de\0\0" + zlib.compress(
+                "naïve – spät".encode()))]))
+    else:
+        path.write_bytes(commented_png(px, [_png_chunk(
+            b"tEXt", b"Comment\0not the key")]))
+
+
+@pytest.mark.parametrize("kind", ["jpg", "jp2", "png-text", "png-late",
+                                  "png-other-key"])
+def test_page_comment_is_the_one_pil_writes(tmp_path, kind):
+    """_image.comment gives the comment PIL writes into a JPEG saved from
+    the opened page."""
+    from origami_tpu_torch.core import _image, _jpeg
+    px = np.random.default_rng(3).integers(0, 256, (40, 30), np.uint8)
+    path = tmp_path / ("page." + kind.split("-")[0])
+    commented_page(path, px, kind)
+    im = PIL.Image.open(path).convert("L")
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", quality=80)
+    got = _jpeg.encode(np.asarray(im), 80, comment=_image.comment(path))
+    assert got == buf.getvalue()
+    assert (_image.comment(path) is None) == (kind == "png-other-key")
+
+
+@pytest.mark.parametrize("kind", ["jpg", "jp2", "png-late"])
+def test_thumbnail_of_a_commented_page_equals_jax(tmp_path, kind):
+    """A page's comment goes into the thumbnail, as PIL carries
+    info["comment"] into the JPEG it saves."""
+    rng = np.random.default_rng(len(kind))
+    px = rng.integers(0, 256, (1300, 700), dtype=np.uint8)
+    px[200:900, 100:600] //= 4
+    out = {}
+    for side in ("j", "p"):
+        corpus = tmp_path / side
+        corpus.mkdir()
+        commented_page(corpus / ("page." + kind.split("-")[0]), px, kind)
+        if side == "j":
+            _jax("thumbnail").ThumbnailProcessor(dict(OPTIONS)) \
+                .traverse(str(corpus))
+        else:
+            thumbnail.main(CPU + [str(corpus)])
+        out[side] = (corpus / "page.out" / "thumbnail.jpg").read_bytes()
+    assert out["p"] == out["j"]
+    assert b"\xff\xfe" in out["p"][:64]
 
 
 @pytest.mark.parametrize("shape", [
@@ -172,10 +269,10 @@ def test_rtext_equals_jax(tmp_path):
     assert want == REF["rtext"][PAGE]
 
 
-def _plant(corpus, jpeg):
+def _plant(corpus):
     """A FAILED stage, a temporary file, a broken JSON, an annotation
-    and a thumbnail (the package's own extension) in every page."""
-    ext = "jpg" if jpeg else "png"
+    and a thumbnail (the packages' names, .jpg, and decoys named .png)
+    in every page."""
     for out in sorted(corpus.glob("*.out")):
         rt = json.loads((out / "runtime.json").read_text())
         rt["origami_tpu.batch.detect.ocr"] = dict(
@@ -183,17 +280,18 @@ def _plant(corpus, jpeg):
         (out / "runtime.json").write_text(json.dumps(rt))
         (out / "tmpx.json").write_text("{}")
         (out / "broken.json").write_text("{")
-        (out / ("annotation.layout." + ext)).write_text("x")
-        (out / ("thumbnail." + ext)).write_text("x")
+        for ext in ("jpg", "png"):
+            (out / ("annotation.layout." + ext)).write_text("x")
+            (out / ("thumbnail." + ext)).write_text("x")
 
 
 def _state(corpus):
-    """Each page's files (annotation and thumbnail names without their
-    extension) and runtime.json entries but the utilities' own."""
+    """Each page's files and runtime.json entries but the utilities'
+    own."""
     out = {}
     for d in sorted(corpus.glob("*.out")):
-        names = sorted(p.name.replace(".jpg", "").replace(".png", "")
-                       for p in d.iterdir() if p.name != "runtime.json")
+        names = sorted(p.name for p in d.iterdir()
+                       if p.name != "runtime.json")
         rt = json.loads((d / "runtime.json").read_text())
         out[d.name] = (names, sorted(k for k in rt if "Processor" not in k))
     return out
@@ -201,10 +299,10 @@ def _state(corpus):
 
 def test_stats_reports_what_jax_reports(tmp_path):
     corpora = {}
-    for name, jpeg in (("jax", True), ("port", False)):
+    for name in ("jax", "port"):
         corpora[name] = _corpus(tmp_path / name, stems=("synth0000",
                                                         "synth0001"))
-        _plant(corpora[name], jpeg)
+        _plant(corpora[name])
     printed, csvs = {}, {}
     cwd = os.getcwd()
     try:
@@ -224,9 +322,7 @@ def test_stats_reports_what_jax_reports(tmp_path):
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 p.print()
-            # the planted annotation and thumbnail: .jpg in JAX's corpus
-            printed[name] = buf.getvalue().replace(str(corpora[name]), "C") \
-                .replace(".jpg", ".png")
+            printed[name] = buf.getvalue().replace(str(corpora[name]), "C")
             csvs[name] = (work / "errors.csv").read_text() \
                 .replace(str(corpora[name]), "C")
     finally:
@@ -239,9 +335,9 @@ def test_stats_reports_what_jax_reports(tmp_path):
 @pytest.mark.parametrize("dry", [False, True])
 def test_reset_and_cleanup_leave_what_jax_leaves(tmp_path, dry):
     states, counts = {}, {}
-    for name, jpeg in (("jax", True), ("port", False)):
+    for name in ("jax", "port"):
         corpus = _corpus(tmp_path / name)
-        _plant(corpus, jpeg)
+        _plant(corpus)
         opts = dict(OPTIONS, artifacts="annotation/layout, thumbnail, "
                     "contours/aggregate, ocr", dry_run=dry)
         buf = io.StringIO()

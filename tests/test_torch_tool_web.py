@@ -7,10 +7,11 @@ driven through every route (chip_smoke.web_routes) after the sample ->
 harmonize -> export chain (chip_smoke phase 20a/20b on the CPU). Bars:
   * the JSON and text bodies equal the JAX tools' (the corpus path
     written as {corpus}; tests/data/torch_tools), their HTML too;
-  * image routes decode to the array the JAX tool hands PIL's encoder
-    (the port sends PNG where JAX sends JPEG, ROADMAP C8): the dewarped
-    page and the gray page narrowed as PIL's resize narrows it equal on
-    every pixel, the line strip within 1 gray level;
+  * the JPEG image routes (pick_web's and xycut_web's /image, the dewarped
+    page; cluster_web's /thumb and /image, the gray page narrowed as PIL's
+    resize narrows it) send image/jpeg bodies byte-equal to the JAX
+    tools'; annotate_web's PNG line strip decodes within 1 gray level of
+    the array the JAX tool encodes;
   * cut_tree, the line polygons of pick_web and compute_clusters equal
     the JAX functions' on the same inputs, live.
 """

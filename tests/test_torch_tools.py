@@ -18,7 +18,10 @@ Bars:
   * split: kmeans and optimal_split assignments equal; line_signature and
     cluster.load_signatures within 1e-12;
   * merge, pick and annotate give the same DB; xycut prints the same
-    tree.
+    tree;
+  * annotate export-image writes the format its suffix names, PIL's
+    bytes of the strip for .jpg/.jpeg (quality 75), .tif/.tiff and .bmp,
+    a PNG of it for .png, and raises naming any other suffix.
 """
 
 import contextlib
@@ -214,11 +217,34 @@ def test_export_chain_equals_jax_fixture(tmp_path):
         out["export_bin"]["sets"]["train"]
 
 
-def test_export_image_writes_png_only(corpora):
+def test_export_image_writes_png_only(corpora, tmp_path):
+    """.png writes a PNG of the strip; a suffix PIL would take for another
+    format the port does not write raises, naming it, and writes
+    nothing."""
+    from origami_tpu_torch.core import _png
     _, b = corpora
-    with pytest.raises(ValueError, match="PNG only"):
-        annotate.export_image(b / (PAGE + ".png"), "regions/TEXT/2/0",
-                              b / "line.jpg", device="cpu")
+    strip = annotate.export_image(b / (PAGE + ".png"), "regions/TEXT/2/0",
+                                  tmp_path / "line.png", device="cpu")
+    np.testing.assert_array_equal(_png.read(tmp_path / "line.png"), strip)
+    for name in ("line.gif", "line.webp", "line"):
+        with pytest.raises(ValueError, match="suffix '%s'"
+                           % name[4:].lower()):
+            annotate.export_image(b / (PAGE + ".png"), "regions/TEXT/2/0",
+                                  tmp_path / name, device="cpu")
+        assert not (tmp_path / name).exists()
+
+
+@pytest.mark.parametrize("suffix", [".jpg", ".jpeg", ".JPG", ".tif",
+                                    ".tiff", ".bmp"])
+def test_export_image_by_suffix_writes_pil_bytes(corpora, tmp_path, suffix):
+    import PIL.Image
+    _, b = corpora
+    out = tmp_path / ("line" + suffix)
+    strip = annotate.export_image(b / (PAGE + ".png"), "regions/TEXT/2/0",
+                                  out, device="cpu")
+    want = tmp_path / ("pil" + suffix)
+    PIL.Image.fromarray(strip).save(want)
+    assert out.read_bytes() == want.read_bytes()
 
 
 def test_split_equals_jax():
