@@ -285,6 +285,22 @@ Phases (any failure exits non-zero before the result line):
      same array, with the card's name and power limit. The kernels
      line's dewarp_u8 and remap_batch rows list (b), (c) and (f) in
      launches_by_path.
+ 24. the page kinds PIL reads beyond those (tests/data/torch_formats,
+     scripts/make_torch_formats_fixture.py): (a) every file of more/
+     (lossless and arithmetic-coded JPEG written by libjpeg-turbo,
+     BigTIFF, planar, CMYK, float, signed and associated-alpha TIFF,
+     the BMP palettes PIL drops) and the two lossless pages at PIL's
+     convert("L") digest and size, or raising with the word of the
+     kinds PIL refuses (an arithmetic scan past PIL's 65536-byte read
+     block among them); (b) each lossless page equal to its PNG page on
+     every pixel, then the two through PipelinedRunner on the main path
+     as phase 21 (b) runs the JPEG pages: every page COMPLETED,
+     launches exactly phase 12's, page.txt within PORT_CHAIN_MAX_CER of
+     the JAX chain on the PNG pages (the same pixels), and its lines
+     beside phase 12's run (the kernels line lists these launches as
+     "lossless jpeg chain"); (c) host decode ms a page of each lossless
+     page and of the PNG fixture page written here as BigTIFF, planar
+     RGB and CMYK, beside the PNG of the same pixels.
 
 Each phase prints its seconds.
 
@@ -6296,24 +6312,31 @@ FORMATS_TIMED = ("synth0000.jpg", "synth0001.jpg",
 DECODE_REPS = 5
 
 
-def jpeg2000_or_jpeg_tiff(rel):
-    """The manifest's entries of phase 22: JPEG 2000 files and TIFFs of
-    JPEG strips."""
+def parity_phase(rel):
+    """The phase whose decode parity checks a manifest entry: 24 the
+    lossless and arithmetic JPEG, BigTIFF, planar, CMYK, float, signed
+    and associated-alpha TIFF and BMP files of more/ and the lossless
+    pages, 22 JPEG 2000 files and TIFFs of JPEG strips, 21 the rest."""
     name = rel.rsplit("/", 1)[-1]
-    return name.endswith((".jp2", ".j2k", ".jpeg.tif")) or \
-        name.startswith(("tiff-jpeg", "tiff-old-jpeg", "old-style-JPEG"))
+    if rel.startswith("more/") or name.endswith(".lossless.jpg"):
+        return 24
+    if name.endswith((".jp2", ".j2k", ".jpeg.tif")) or \
+            name.startswith(("tiff-jpeg", "tiff-old-jpeg", "old-style-JPEG")):
+        return 22
+    return 21
 
 
-def check_decode_parity(phase22=False):
-    """Phase 21 (a), or 22 (a) for the JPEG 2000 and JPEG-in-TIFF files:
-    each file of tests/data/torch_formats through core/_image.py: PIL's
-    pixels (by digest) and size, or the ValueError that names a kind the
+def check_decode_parity(phase=21):
+    """Phase 21 (a), 22 (a) for the JPEG 2000 and JPEG-in-TIFF files, or
+    24 (a) for the kinds of more/ and the lossless pages: each file of
+    tests/data/torch_formats through core/_image.py: PIL's pixels (by
+    digest) and size, or the ValueError that names a kind PIL or the
     port does not read. -> files checked."""
     import hashlib
     from origami_tpu_torch.core import _image
     manifest = {k: v for k, v in json.loads(
         (FORMATS_REF / "manifest.json").read_text()).items()
-        if jpeg2000_or_jpeg_tiff(k) == phase22}
+        if parity_phase(k) == phase}
     bad, kinds = [], {}
     for rel, want in sorted(manifest.items()):
         path = FORMATS_REF / rel
@@ -6346,21 +6369,26 @@ def check_decode_parity(phase22=False):
 
 
 def check_jpeg_chain(workdir, device="cuda", suffix=".jpg", kind="JPEG",
-                     ref_dir=FORMATS_REF / "chain"):
-    """Phase 21 (b), or 22 (b) with `suffix` ".jp2": the two fixture pages
-    in that format through PipelinedRunner on the main path (the
-    students in bf16, banded strips), the launch counts set to 0 just
-    before the run and read just after it: every page COMPLETED in every
-    stage, each kernel's launches per page as WHOLE_CHAIN_LAUNCHES says
-    (phase 12's), page.txt within PORT_CHAIN_MAX_CER of the JAX chain's
-    on the same page files (`ref_dir`). -> launches."""
+                     ref_dir=FORMATS_REF / "chain", as_suffix=None,
+                     ref_pages=None):
+    """Phase 21 (b), 22 (b) with `suffix` ".jp2", or 24 (b) with
+    ".lossless.jpg": the two fixture pages in that format (copied as
+    `as_suffix`, where given) through PipelinedRunner on the main path
+    (the students in bf16, banded strips), the launch counts set to 0
+    just before the run and read just after it: every page COMPLETED in
+    every stage, each kernel's launches per page as WHOLE_CHAIN_LAUNCHES
+    says (phase 12's), page.txt within PORT_CHAIN_MAX_CER of the JAX
+    chain's on the same pixels (`ref_dir`, run on `ref_pages`: the same
+    page files where not given). -> launches."""
     import torch
     from origami_tpu_torch.batch.detect.flow import kernel_launches
     from origami_tpu_torch.batch.runner import PipelinedRunner
-    corpus = workdir / (kind.lower() + "_chain")
+    corpus = workdir / (kind.lower().replace(" ", "_") + "_chain")
     corpus.mkdir(parents=True)
+    copied = as_suffix or suffix
     for stem in FORMATS_PAGES:
-        shutil.copy(FORMATS_REF / "pages" / (stem + suffix), corpus)
+        shutil.copy(FORMATS_REF / "pages" / (stem + suffix),
+                    corpus / (stem + copied))
     stages = chain_stages(device, str(ROOT / STUDENTS), "banded")
     reset_launches()
     t0 = time.perf_counter()
@@ -6370,7 +6398,7 @@ def check_jpeg_chain(workdir, device="cuda", suffix=".jpg", kind="JPEG",
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     failed, seconds = [], {}
-    pages = sorted(corpus.glob("*" + suffix))
+    pages = sorted(corpus.glob("*" + copied))
     for page in pages:
         seconds_of(corpus, page, stages, seconds, failed, kind + " chain")
     bad = whole_chain_launch_errors("banded", launches, len(pages), device)
@@ -6383,10 +6411,11 @@ def check_jpeg_chain(workdir, device="cuda", suffix=".jpg", kind="JPEG",
         failed.append("%s chain: launches (got, expected per page) %s"
                       % (kind, bad))
     if not failed:
-        compare_chain_text(corpus, "%s chain vs the JAX chain on the same "
-                           "%s pages" % (kind, kind), failed, 0.0,
+        compare_chain_text(corpus, "%s chain vs the JAX chain on %s" % (
+                           kind, ref_pages or "the same %s pages" % kind),
+                           failed, 0.0,
                            PORT_CHAIN_MAX_CER, ref_dir=ref_dir,
-                           pattern="*" + suffix)
+                           pattern="*" + copied)
     if failed:
         raise PhaseError("; ".join(failed))
     return launches
@@ -6486,65 +6515,82 @@ def split_jpeg_chain(workdir, device="cuda"):
     return rows
 
 
-def write_tiff(path, px, deflate):
-    """uint8 (H, W) gray -> a MinIsBlack TIFF in strips of 64 rows:
-    uncompressed, or Deflate with the horizontal predictor."""
+def tiff_page_bytes(px, kind):
+    """uint8 (H, W) gray page -> a TIFF in strips of 64 rows that decodes
+    to it, by plain byte packing: "tif" (uncompressed), "deflate" (Deflate
+    with the horizontal predictor), "bigtiff" (little-endian BigTIFF,
+    LONG8 offsets), "planar" (RGB, R = G = B = the page, one plane a
+    sample) or "cmyk" (C = M = Y = 0, K = 255 - the page)."""
     import struct
     import zlib
     h, w = px.shape
+    big = kind == "bigtiff"
+    if kind == "planar":
+        spp, photometric, planes = 3, 2, [px] * 3
+    elif kind == "cmyk":
+        cmyk = np.zeros((h, w, 4), np.uint8)
+        cmyk[..., 3] = 255 - px
+        spp, photometric, planes = 4, 5, [cmyk]
+    else:
+        spp, photometric, planes = 1, 1, [px]
     rps = 64
-    chunks = []
-    for y in range(0, h, rps):
-        s = px[y: y + rps]
-        if deflate:
-            s = np.diff(s, axis=1, prepend=np.uint8(0))
-            chunks.append(zlib.compress(s.tobytes()))
-        else:
-            chunks.append(s.tobytes())
-    data = bytearray(b"II*\x00\x00\x00\x00\x00")
+    chunks = [np.ascontiguousarray(p[y: y + rps]).tobytes()
+              for p in planes for y in range(0, h, rps)]
+    if kind == "deflate":
+        chunks = [zlib.compress(np.diff(px[y: y + rps], axis=1,
+                                        prepend=np.uint8(0)).tobytes())
+                  for y in range(0, h, rps)]
+    data = bytearray(16 if big else 8)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
         data += c
-    arrays = {}
-    for tag, vals in ((273, offsets), (279, [len(c) for c in chunks])):
-        arrays[tag] = len(data)
-        data += struct.pack("<%dI" % len(vals), *vals)
-    entries = [(256, 4, w), (257, 4, h), (258, 3, 8),
-               (259, 3, 8 if deflate else 1), (262, 3, 1),
-               (273, 4, None), (277, 3, 1), (278, 4, rps), (279, 4, None),
-               (317, 3, 2 if deflate else 1)]
-    data[4:8] = struct.pack("<I", len(data))
-    data += struct.pack("<H", len(entries))
-    for tag, typ, val in entries:
-        if val is None:
-            data += struct.pack("<HHII", tag, typ, len(chunks), arrays[tag])
-        elif typ == 3:
-            data += struct.pack("<HHIHH", tag, typ, 1, val, 0)
-        else:
-            data += struct.pack("<HHII", tag, typ, 1, val)
-    data += struct.pack("<I", 0)
-    path.write_bytes(bytes(data))
+    long_t, field = (16, 8) if big else (4, 4)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * spp),
+               (259, 3, [8 if kind == "deflate" else 1]),
+               (262, 3, [photometric]), (273, long_t, offsets),
+               (277, 3, [spp]), (278, 4, [rps]),
+               (279, long_t, [len(c) for c in chunks]),
+               (284, 3, [2 if kind == "planar" else 1]),
+               (317, 3, [2 if kind == "deflate" else 1])]
+    code = {3: "H", 4: "I", 16: "Q"}
+    blobs = {}
+    for tag, typ, vals in entries:
+        if len(vals) * struct.calcsize(code[typ]) > field:
+            blobs[tag] = len(data)
+            data += struct.pack("<%d%s" % (len(vals), code[typ]), *vals)
+    ifd = len(data)
+    if big:
+        data[:16] = b"II+\x00" + struct.pack("<HHQ", 8, 0, ifd)
+        data += struct.pack("<Q", len(entries))
+    else:
+        data[:8] = b"II*\x00" + struct.pack("<I", ifd)
+        data += struct.pack("<H", len(entries))
+    for tag, typ, vals in entries:
+        data += struct.pack("<HH" + code[long_t], tag, typ, len(vals))
+        data += struct.pack("<" + code[long_t], blobs[tag]) if tag in blobs \
+            else struct.pack("<%d%s" % (len(vals), code[typ]),
+                             *vals).ljust(field, b"\x00")
+    return bytes(data + b"\x00" * field)
 
 
-def decode_timings(workdir, timed=FORMATS_TIMED, write=True):
-    """Phase 21 (c), or 22 (c) with `timed` the JP2 and JPEG-in-TIFF pages
-    and no `write`: host ms to decode each timed page file
+def decode_timings(workdir, timed=FORMATS_TIMED,
+                   write=("bmp", "tif", "deflate.tif")):
+    """Phase 21 (c), 22 (c) with `timed` the JP2 and JPEG-in-TIFF pages
+    and nothing to `write`, or 24 (c) with the lossless pages and the
+    TIFF kinds: host ms to decode each timed page file
     (core/_image.read_gray, the file read included; median of
     DECODE_REPS after one warm-up), beside the PNG of the same pixels;
-    then the PNG fixture page written here as BMP and as TIFF (none;
-    Deflate with the predictor), each decoded to its pixels exactly.
-    -> {file: (ms, png ms)}."""
+    then the PNG fixture page written here as each file of `write`
+    (BMP, or TIFF by tiff_page_bytes: "<kind>.tif"), each decoded to its
+    pixels exactly. -> {file: (ms, png ms)}."""
     from origami_tpu_torch.core import _bmp, _image, _png
     page = _png.read_gray(FIXTURE / (FORMATS_PAGES[0] + ".png"))
     written = []
-    for name, write in (("bmp", lambda p, x: p.write_bytes(
-                            _bmp.encode_gray(x))),
-                        ("tif", lambda p, x: write_tiff(p, x, False)),
-                        ("deflate.tif", lambda p, x: write_tiff(p, x, True))
-                        ) if write else ():
+    for name in write:
         path = workdir / ("%s.%s" % (FORMATS_PAGES[0], name))
-        write(path, page)
+        path.write_bytes(_bmp.encode_gray(page) if name == "bmp" else
+                         tiff_page_bytes(page, name.split(".")[0]))
         if not np.array_equal(_image.read_gray(path), page):
             raise PhaseError("%s does not decode to its pixels" % path.name)
         written.append(path)
@@ -6592,12 +6638,72 @@ def check_jpeg2000(workdir, device="cuda"):
     files, (b) the chain on the JP2 pages and the JPEG pages' split, (c)
     decode timings. -> (launches of (b)'s chain, split rows, seconds)."""
     t0 = time.time()
-    check_decode_parity(phase22=True)
+    check_decode_parity(22)
     launches = check_jpeg_chain(workdir, device, ".jp2", "JP2",
                                 FORMATS_REF / "chain_jp2")
     split = split_jpeg_chain(workdir, device)
-    decode_timings(workdir, JP2_TIMED, write=False)
+    decode_timings(workdir, JP2_TIMED, write=())
     return launches, split, time.time() - t0
+
+
+# ---------------------------------------------------------------- phase 24
+
+LOSSLESS = ".lossless.jpg"
+# phase 24c: the lossless pages, each beside the PNG of its pixels
+LOSSLESS_TIMED = tuple(stem + LOSSLESS for stem in FORMATS_PAGES)
+
+
+def check_lossless_chain(workdir, device="cuda"):
+    """Phase 24 (b): each lossless page decodes to its PNG page on every
+    pixel; then the two through PipelinedRunner (check_jpeg_chain, named
+    as the PNG pages so that page.txt is held against the JAX chain on
+    those same pixels, tests/data/torch_compose); page.txt beside phase
+    12's run of the port where this process made one. -> launches."""
+    from origami_tpu_torch.core import _image, _png
+    bad = []
+    for stem in FORMATS_PAGES:
+        got = _image.read_gray(FORMATS_REF / "pages" / (stem + LOSSLESS))
+        want = _png.read_gray(FIXTURE / (stem + ".png"))
+        differ = int((got != want).sum()) if got.shape == want.shape \
+            else got.size
+        log("  %s%s: %dx%d, %d pixels differ from %s.png  %s" % (
+            stem, LOSSLESS, got.shape[1], got.shape[0], differ, stem,
+            "ok" if not differ else "FAIL"))
+        if differ:
+            bad.append("%s%s differs from its PNG page on %d pixels"
+                       % (stem, LOSSLESS, differ))
+    if bad:
+        raise PhaseError("; ".join(bad))
+    launches = check_jpeg_chain(workdir, device, LOSSLESS, "lossless JPEG",
+                                COMPOSE_REF, as_suffix=".jpg",
+                                ref_pages="the PNG pages (the same pixels)")
+    phase12 = workdir / "whole_chain_banded"
+    for stem in FORMATS_PAGES:
+        ref = phase12 / (stem + ".out") / "compose.zip"
+        got = page_text(workdir / "lossless_jpeg_chain" / (stem + ".out")
+                        / "compose.zip")
+        if not ref.is_file():
+            log("  %s: page.txt beside phase 12's: phase 12 did not run in "
+                "this process" % stem)
+            continue
+        same, n, _, _ = text_diff(got, page_text(ref))
+        log("  %s: page.txt %d of %d lines equal to phase 12's run on the "
+            "PNG page; byte-equal: %s" % (stem, same, n,
+                                          got == page_text(ref)))
+    return launches
+
+
+def check_more_formats(workdir, device="cuda"):
+    """Phase 24: (a) decode parity of more/ and the lossless pages, (b)
+    the chain on the lossless pages, (c) host decode times of the
+    lossless pages and of the TIFF kinds. -> (launches of (b),
+    seconds)."""
+    t0 = time.time()
+    check_decode_parity(24)
+    launches = check_lossless_chain(workdir, device)
+    decode_timings(workdir, LOSSLESS_TIMED,
+                   ("bigtiff.tif", "planar.tif", "cmyk.tif"))
+    return launches, time.time() - t0
 
 
 # ---------------------------------------------------------------- phase 23
@@ -7185,7 +7291,20 @@ def main():
             "against the JAX files, CMYK and YCCK pages, host encode "
             "times (%s)" % smi)
         writer_launches, _ = check_jpeg_writers(work)
-        phase_seconds(23, t_phase)
+        t_phase = phase_seconds(23, t_phase)
+
+        log("== phase 24: lossless and arithmetic JPEG, BigTIFF, planar, "
+            "CMYK, float, signed and associated-alpha TIFF: decode parity "
+            "against PIL, the chain on the lossless pages, host decode "
+            "times (%s)" % smi)
+        lossless_launches, _ = check_more_formats(work)
+        differ = {k: (v, whole["banded"][k]) for k, v in
+                  lossless_launches.items() if v != whole["banded"][k]
+                  and ("banded", k) not in WHOLE_CHAIN_AT_MOST}
+        if differ:
+            raise PhaseError("lossless JPEG chain launches (got, phase "
+                             "12's) %s" % differ)
+        phase_seconds(24, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
@@ -7208,10 +7327,11 @@ def main():
     # and the remote runner's segment stage
     for name, paths in tools_by_path.items():
         by_path.setdefault(name, {}).update(paths)
-    # phases 21 and 22's JPEG and JP2 pages on the main path: phase 12's
-    # launches again
+    # phases 21, 22 and 24's JPEG, JP2 and lossless JPEG pages on the main
+    # path: phase 12's launches again
     for path, counts in (("jpeg chain", jpeg_launches),
-                         ("jp2 chain", jp2_launches)):
+                         ("jp2 chain", jp2_launches),
+                         ("lossless jpeg chain", lossless_launches)):
         for name, n in counts.items():
             if n:
                 by_path.setdefault(name, {})[path] = n

@@ -1,11 +1,16 @@
 """BMP pages without PIL, as PIL's BmpImagePlugin reads them.
 
 Headers of 12 (OS/2), 40, 52, 56, 64, 108 and 124 bytes; 1, 4 and 8 bits
-through the palette (gray where every entry is: PIL keeps a gray
-ramp's indices as gray, the same pixels), 16 bits (5-5-5, or 5-6-5 by its bit fields), 24 and 32 bits
-(B, G, R; the fourth byte dropped, as PIL's "BGRX"; the bit-field
-layouts PIL knows); bottom-up or top-down rows; RLE8 and RLE4 in the
-way PIL's own decoder walks them. Pixels come out gray (H, W) or RGB
+through the palette (gray where every entry is), but for PIL's own
+reading of a palette whose entries are 0, 1, 2, ...: it drops the
+palette and maps an uncompressed file as "L" bytes, so its rows come out
+as the rows' bytes, `width` bytes from each row's start (at 4 bits the
+next row's bytes, or zeros past the file's end, where the row is
+shorter; at 8 bits an index past the palette its own value); 16 bits
+(5-5-5, or 5-6-5 by its bit fields), 24 and 32 bits (B, G, R; the
+fourth byte dropped, as PIL's "BGRX"; the bit-field layouts PIL knows);
+bottom-up or top-down rows; RLE8 and RLE4 in the way PIL's own decoder
+walks them. Pixels come out gray (H, W) or RGB
 (H, W, 3); `read_gray` in core/_image.py takes PIL's luma of RGB.
 """
 
@@ -139,11 +144,22 @@ def _rle(data, info, w, h):
     return idx.reshape(h, w)
 
 
+def _identity_palette(data, info):
+    """BmpImagePlugin's gray test: entry i is (i, i, i) (with two
+    entries: black and white); then PIL reads the data as "L" or "1"."""
+    n, pad, at = info["colors"], info["padding"], info["palette_at"]
+    want = (0, 255) if n == 2 else range(n)
+    return n <= 256 and all(data[at + i * pad: at + i * pad + 3]
+                            == bytes((v, v, v)) for i, v in enumerate(want))
+
+
 def decode(data):
     """BMP bytes -> uint8 (H, W) gray or (H, W, 3) RGB."""
     info = _header(data)
     w, h, bits = info["width"], info["height"], info["bits"]
     comp = info["compression"]
+    as_bytes = bits in (4, 8) and comp == _RAW and \
+        _identity_palette(data, info)
     if bits not in (1, 4, 8, 16, 24, 32):
         raise ValueError("unsupported BMP pixel depth %d" % bits)
     if comp in (_RLE8, _RLE4):
@@ -153,11 +169,14 @@ def decode(data):
     elif comp in (_RAW, _BITFIELDS):
         stride = ((w * bits + 31) >> 3) & ~3
         buf = np.zeros(stride * h, np.uint8)
-        src = np.frombuffer(data, np.uint8)[info["offset"]:
-                                            info["offset"] + stride * h]
-        buf[: src.size] = src
+        src = np.frombuffer(data, np.uint8)[info["offset"]:]
+        buf[: min(buf.size, src.size)] = src[: buf.size]
         rows = buf.reshape(h, stride)
-        if bits == 8:
+        if as_bytes:        # PIL maps the rows as "L": w bytes from each
+            flat = np.zeros((h - 1) * stride + w, np.uint8)
+            flat[: min(flat.size, src.size)] = src[: flat.size]
+            px = flat[np.arange(h)[:, None] * stride + np.arange(w)]
+        elif bits == 8:
             px = rows[:, :w]
         elif bits < 8:
             bitsv = np.unpackbits(rows, axis=1)[:, : w * bits]
@@ -186,7 +205,7 @@ def decode(data):
         raise ValueError("unsupported BMP compression %d" % comp)
     if info["direction"] == -1:
         px = px[::-1]
-    if bits <= 8:
+    if bits <= 8 and not as_bytes:
         pad = info["padding"]
         n = info["colors"]
         at = info["palette_at"]

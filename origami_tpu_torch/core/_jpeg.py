@@ -1,13 +1,18 @@
 """JPEG without PIL: the host library's decoder (core/jpeg.cpp) and
 encoder (core/jpeg_enc.cpp).
 
-Huffman-coded baseline, extended sequential and progressive files, 8-bit,
-gray, three components (YCbCr; RGB where an Adobe marker or the
-component ids say so) or four (CMYK, or YCCK by the Adobe marker: PIL's
-"CMYK;I" through Pillow's cmyk2rgb), decoded to the pixels libjpeg-turbo
-gives PIL (ISLOW inverse DCT, fancy upsampling, progressive block
-smoothing). Arithmetic-coded, lossless, hierarchical and 12-bit files
-raise ValueError naming the kind.
+Baseline, extended sequential and progressive files, Huffman- or
+arithmetic-coded, and lossless (SOF3) files, 8-bit, gray, three
+components (YCbCr; RGB where an Adobe marker or the component ids say
+so, and in a lossless file without JFIF or Adobe marker) or four (CMYK,
+or YCCK by the Adobe marker: PIL's "CMYK;I" through Pillow's
+cmyk2rgb), decoded to the pixels libjpeg-turbo gives PIL (ISLOW inverse
+DCT, fancy upsampling, progressive block smoothing; lossless planes
+replicated). What PIL cannot read raises ValueError naming the kind:
+12-bit files, lossless files of another precision or whose colour
+needs converting, lossless arithmetic coding (SOF11), hierarchical
+frames, and arithmetic-coded scans that run past PIL's 65536-byte read
+block (core/jpeg.cpp states the rule).
 
 `encode(array, quality)` gives the bytes of PIL's `Image.fromarray(
 array).save(f, "JPEG", quality=quality)`: baseline, gray ("L") or RGB

@@ -1,22 +1,50 @@
 """TIFF pages without PIL: frame 0 of a file, as PIL (through libtiff)
 gives it for `convert("L")` / `convert("RGB")`.
 
-Little- and big-endian files, strips or tiles, compression none,
-PackBits, LZW (with horizontal predictor 2), Deflate (8 and 32946) and
-CCITT Modified Huffman, Group 3 (one- and two-dimensional) and Group 4,
-FillOrder 1 and 2; MinIsWhite and MinIsBlack at 1, 2, 4, 8 and 16 bits
-(16 clipped at 255, as PIL's "I;16" -> "L", which leaves MinIsWhite at 16
-bits uninverted), gray + alpha, RGB and RGBA
-(contiguous, 8 and 16 bits: the high bytes), and palette at 1-8 bits
-(the colour map's high bytes). LZW, PackBits and CCITT decode in C++
-(core/tiff.cpp, the port's host library); Deflate is zlib. JPEG-in-TIFF
-(compression 7, gray, RGB and YCbCr at 8 bits, strips and tiles): each
-strip or tile is a JPEG of its own, decoded by core/_jpeg.py with the
-JPEGTables tag spliced in front of it as libtiff does, YCbCr to RGB as
-libtiff's JPEGCOLORMODE_RGB (what PIL asks for); old-style JPEG
-(compression 6) where JPEGInterchangeFormat holds a whole one-component
-JPEG. Old-style JPEG of three components (libtiff converts its YCbCr
-itself), planar files, BigTIFF and float samples raise ValueError.
+Little- and big-endian files and little-endian BigTIFF (8-byte offsets,
+LONG8 and IFD8 fields), strips or tiles, chunky or planar (one set of
+strips or tiles a sample), compression none, PackBits, LZW, Deflate (8
+and 32946) and CCITT Modified Huffman, Group 3 (one- and
+two-dimensional) and Group 4, FillOrder 1 and 2; the horizontal
+predictor 2 and the floating-point predictor 3 under LZW and Deflate
+(libtiff's codecs that take one; PIL ignores the tag under the others);
+MinIsWhite and MinIsBlack at 1, 2, 4, 8 and 16 bits (16 clipped at 255,
+as PIL's "I;16" -> "L", which leaves MinIsWhite at 16 bits uninverted;
+MinIsWhite where the tag is missing, as PIL defaults), signed samples (8
+bits read as unsigned "L", 16 and 32 as PIL's mode I), float32 (mode F)
+and little-endian unsigned 32 bits (PIL's "I;32N"), each clipped into
+"L" as PIL's i2l and f2l clip; gray + alpha, RGB and RGBA (8 and 16
+bits: the high bytes), RGB with associated alpha (unpremultiplied as
+PIL's "RGBa" unpacker), CMYK (8 and 16 bits, through Pillow's cmyk2rgb)
+and palette at 1-8 bits (the colour map's high bytes). LZW, PackBits and
+CCITT decode in C++ (core/tiff.cpp, the port's host library); Deflate
+is zlib. JPEG-in-TIFF (compression 7, gray, RGB and YCbCr at 8 bits,
+strips and tiles): each strip or tile is a JPEG of its own, decoded by
+core/_jpeg.py with the JPEGTables tag spliced in front of it as libtiff
+does, YCbCr to RGB as libtiff's JPEGCOLORMODE_RGB (what PIL asks for);
+old-style JPEG (compression 6) where JPEGInterchangeFormat holds a whole
+one-component JPEG.
+
+Planes go the two ways PIL takes them. Through libtiff (every
+compression but none), Pillow's strip decoder takes a plane a band of
+its mode, its tile decoder the first planes, and RGBA planes whose first
+extra sample is associated or unspecified come out unpremultiplied.
+Uncompressed, PIL reads them itself (`_raw_planar`): each plane through
+the unpacker of its letter in the rawmode, which for one sample a pixel
+drops MinIsWhite, FillOrder 2 and the sample width ("L" reads bytes).
+
+What PIL does not read raises ValueError: a sample layout outside
+PIL's table (TiffImagePlugin.OPEN_INFO, `_PIL_LAYOUTS`), big-endian
+BigTIFF (PIL takes it for a classic file), old-style JPEG of three
+components (libtiff converts its YCbCr itself), planar JPEG, planes or
+rawmodes Pillow has no unpacker for, planes in strips that are not one
+a band, a compressed chunk that decodes short, an uncompressed one that
+PIL's reads take past the file's end. The port also refuses a palette
+with an extra plane in tiles, which Pillow unpacks past each row's end.
+Where libtiff decodes a big-endian file of 16- or 32-bit signed or float
+samples, it hands PIL the samples in the host's (little-endian) order
+and PIL unpacks them as big-endian: the port gives the byte-swapped
+values PIL gives.
 """
 
 from __future__ import annotations
@@ -27,8 +55,9 @@ import zlib
 
 import numpy as np
 
-# the integer TIFF field types
-_TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I"}
+# the integer TIFF field types (16-18: BigTIFF's LONG8, SLONG8, IFD8)
+_TYPE_FMT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I",
+             16: "Q", 17: "q", 18: "Q"}
 _COMPRESSION = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3",
                 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
                 7: "JPEG", 8: "Deflate", 32946: "Deflate",
@@ -39,6 +68,34 @@ _REVERSE = np.array([int("{:08b}".format(i)[::-1], 2) for i in range(256)],
                     np.uint8)
 _ERR = 256
 
+# The sample layouts PIL knows (TiffImagePlugin.OPEN_INFO, Pillow 12):
+# (photometric, sample formats, fill order, bits a sample, extra samples)
+# -> the byte orders it knows each in. PIL refuses every other layout.
+_PIL_LAYOUTS = {(photometric, (1,), fill, (bits,), ()): "<>"
+                for photometric in (0, 1, 3) for fill in (1, 2)
+                for bits in (1, 2, 4, 8)}
+_PIL_LAYOUTS.update({
+    (0, (1,), 1, (16,), ()): "<", (0, (3,), 1, (32,), ()): "<>",
+    (1, (1,), 1, (12,), ()): "<", (1, (1,), 1, (16,), ()): "<>",
+    (1, (1,), 2, (16,), ()): "<", (1, (1,), 1, (32,), ()): "<",
+    (1, (2,), 1, (8,), ()): "<>", (1, (2,), 1, (16,), ()): "<>",
+    (1, (2,), 1, (32,), ()): "<>", (1, (3,), 1, (32,), ()): "<>",
+    (1, (1,), 1, (8, 8), (2,)): "<>",
+    (2, (1,), 1, (8,) * 3, ()): "<>", (2, (1,), 2, (8,) * 3, ()): "<>",
+    (2, (1,), 1, (16,) * 3, ()): "<>",
+    (3, (1,), 1, (8, 8), (0,)): "<>", (3, (1,), 1, (8, 8), (2,)): "<>",
+    (5, (1,), 1, (8,) * 4, ()): "<>", (5, (1,), 1, (8,) * 5, (0,)): "<>",
+    (5, (1,), 1, (8,) * 6, (0, 0)): "<>", (5, (1,), 1, (16,) * 4, ()): "<>",
+    (6, (1,), 1, (8,), ()): "<>", (6, (1,), 1, (8,) * 3, ()): "<>",
+    (8, (1,), 1, (8,) * 3, ()): "<>"})
+_PIL_LAYOUTS.update({
+    (2, (1,), 1, (8,) * (4 + len(rest)), (alpha,) + rest): "<>"
+    for rest in ((), (0,), (0, 0)) for alpha in (0, 1, 2)})
+_PIL_LAYOUTS.update({(2, (1,), 1, (8,) * 4, extra): "<>"
+                     for extra in ((), (999,))})
+_PIL_LAYOUTS.update({(2, (1,), 1, (16,) * 4, extra): "<>"
+                     for extra in ((), (0,), (1,), (2,))})
+
 
 def is_tiff(head):
     return head[:4] in (b"II*\x00", b"MM\x00*")
@@ -47,28 +104,42 @@ def is_tiff(head):
 def _ifd0(data):
     """{tag: tuple of values} of the first image directory, and the
     struct byte order."""
-    if data[:4] in (b"II+\x00", b"MM\x00+"):
-        raise ValueError("unsupported TIFF: BigTIFF")
-    if not is_tiff(data):
+    if data[:4] == b"MM\x00+":
+        raise ValueError("unsupported TIFF: big-endian BigTIFF (PIL takes "
+                         "it for a classic TIFF and cannot read it)")
+    big = data[:4] == b"II+\x00"
+    if not (big or is_tiff(data)):
         raise ValueError("not a TIFF file")
     bo = "<" if data[:2] == b"II" else ">"
-    (off,) = struct.unpack(bo + "I", data[4:8])
-    if off + 2 > len(data):
+    if big:
+        # BigTIFF: offset size 8, 8-byte entry counts, 20-byte entries
+        size, _, off = struct.unpack(bo + "HHQ", data[4:16])
+        if size != 8:
+            raise ValueError("corrupt BigTIFF: offset size %d" % size)
+        count_fmt, entry, field = "Q", 20, 8
+    else:
+        (off,) = struct.unpack(bo + "I", data[4:8])
+        count_fmt, entry, field = "H", 12, 4
+    head = struct.calcsize(count_fmt)
+    if off + head > len(data):
         raise ValueError("corrupt TIFF: no image directory")
-    (n,) = struct.unpack(bo + "H", data[off: off + 2])
+    (n,) = struct.unpack(bo + count_fmt, data[off: off + head])
     tags = {}
     for i in range(n):
-        e = off + 2 + 12 * i
-        tag, typ, count = struct.unpack(bo + "HHI", data[e: e + 8])
+        e = off + head + entry * i
+        tag, typ, count = struct.unpack(bo + ("HHQ" if big else "HHI"),
+                                        data[e: e + 4 + field])
+        e += 4 + field        # the value field
         if tag == 347 and typ == 7:
             typ = 1           # JPEGTables: undefined bytes
         if typ not in _TYPE_FMT:
             continue          # ASCII, rationals, floats: not needed here
         size = struct.calcsize(_TYPE_FMT[typ])
-        if size * count <= 4:
-            raw = data[e + 8: e + 8 + size * count]
+        if size * count <= field:
+            raw = data[e: e + size * count]
         else:
-            (vo,) = struct.unpack(bo + "I", data[e + 8: e + 12])
+            (vo,) = struct.unpack(bo + ("Q" if big else "I"),
+                                  data[e: e + field])
             raw = data[vo: vo + size * count]
         if len(raw) < size * count:
             raise ValueError("corrupt TIFF: tag %d past the file's end"
@@ -105,20 +176,28 @@ def _inflate(chunk, size, compression, width, rows, t4options):
         out = np.zeros(size, np.uint8)
         out[: min(size, src.size)] = src[: size]
         return out
+    # libtiff refuses a chunk that decodes short ("Not enough data")
     if compression in (8, 32946):
-        out = np.zeros(size, np.uint8)
-        raw = zlib.decompressobj().decompress(chunk, size)
-        out[: len(raw)] = np.frombuffer(raw, np.uint8)
-        return out
+        try:
+            raw = zlib.decompressobj().decompress(chunk, size)
+        except zlib.error as e:
+            raise ValueError("corrupt TIFF: Deflate data: %s" % e) from None
+        if len(raw) < size:
+            raise ValueError("corrupt TIFF: Deflate data ends early")
+        return np.frombuffer(raw, np.uint8)
     if compression in (5, 32773):
         if compression == 5 and src.size >= 2 and src[0] == 0 \
                 and src[1] & 1:
             raise ValueError("unsupported TIFF: old-style LZW codes")
         out = np.zeros(size, np.uint8)
         fn = _lib().tiff_lzw if compression == 5 else _lib().tiff_packbits
-        if fn(src.ctypes.data_as(_U8P), src.size, out.ctypes.data_as(_U8P),
-              size) < 0:
+        got = fn(src.ctypes.data_as(_U8P), src.size,
+                 out.ctypes.data_as(_U8P), size)
+        if got < 0:
             raise ValueError("corrupt TIFF: bad LZW code")
+        if got < size:
+            raise ValueError("corrupt TIFF: %s data ends early"
+                             % _COMPRESSION[compression])
         return out
     if compression in _FAX:
         out = np.zeros((rows, width), np.uint8)
@@ -156,6 +235,63 @@ def _samples(buf, rows, width, bps, spp, bo, predictor):
     return px.reshape(rows, width, spp)
 
 
+def _typed_samples(buf, rows, width, dtype, bo, predictor):
+    """A chunk of one 16- or 32-bit signed or float sample a pixel ->
+    (rows, width, 1) values of `dtype`: predictor 2 adds the integer
+    words along the row, predictor 3 is libtiff's fpAcc (bytes added
+    along the row, then each value's bytes gathered from byte planes,
+    the most significant plane first)."""
+    size = np.dtype(dtype).itemsize
+    buf = buf[: rows * width * size].reshape(rows, width * size)
+    if predictor == 3:
+        planes = np.cumsum(buf, axis=1, dtype=np.uint8)
+        words = planes.reshape(rows, size, width).transpose(0, 2, 1)
+        return np.ascontiguousarray(words).view(">" + dtype).astype(
+            dtype).reshape(rows, width, 1)
+    px = buf.view(bo + "u%d" % size).astype("u%d" % size)
+    if predictor == 2:
+        px = np.cumsum(px, axis=1, dtype=px.dtype)
+    return px.view(dtype).reshape(rows, width, 1)
+
+
+def _typed(tags, spp, bps):
+    """The numpy dtype of the samples PIL reads as mode I or F (signed 16
+    or 32 bits, float32, unsigned 32 bits as "I;32N"; `_pil_layout` has
+    refused the rest), or None."""
+    if spp != 1 or bps not in (16, 32):
+        return None
+    fmt = tags.get(339, (1,))[0]
+    if bps == 32:
+        return "f4" if fmt == 3 else "i4"
+    return "i2" if fmt == 2 else None
+
+
+def _pil_layout(tags, photometric, bo):
+    """Raises where TiffImagePlugin._setup finds no mode for the file's
+    sample layout; its key as PIL builds it."""
+    fmt = tags.get(339, (1,))
+    if len(fmt) > 1 and min(fmt) == max(fmt) == 1:
+        fmt = (1,)
+    spp = _one(tags, 277, 1)
+    bits = tags.get(258, (1,))
+    if spp < len(bits):
+        bits = bits[:spp]
+    elif len(bits) == 1:
+        bits = bits * spp
+    key = (photometric, fmt, _one(tags, 266, 1), bits, tags.get(338, ()))
+    if len(bits) != spp or bo not in _PIL_LAYOUTS.get(key, ""):
+        raise ValueError(
+            "unsupported TIFF: %s samples of %s bits, %d a pixel, "
+            "photometric interpretation %d, extra samples %s, fill order %d, "
+            "%s-endian (PIL has no mode for them)" % (
+                "/".join({1: "unsigned", 2: "signed", 3: "float"}.get(
+                    f, str(f)) for f in fmt),
+                "/".join(map(str, sorted(set(bits)))), spp, photometric,
+                ", ".join({0: "unspecified", 1: "associated alpha",
+                           2: "alpha"}.get(e, str(e)) for e in key[4])
+                or "none", key[2], "little" if bo == "<" else "big"))
+
+
 def decode(data):
     """TIFF bytes -> uint8 (H, W) gray or (H, W, 3) RGB of frame 0."""
     tags, bo = _ifd0(data)
@@ -165,34 +301,59 @@ def decode(data):
         raise ValueError("unsupported TIFF compression: %s (the port reads "
                          "none, PackBits, LZW, Deflate, CCITT and JPEG)"
                          % compression)
-    photometric = _one(tags, 262, 0 if compression in _FAX else 1)
     if compression == 7:
-        return _jpeg_in_tiff(data, tags, photometric)
+        return _jpeg_in_tiff(data, tags, _one(tags, 262, 1))
     if compression == 6:
-        return _old_jpeg(data, tags, photometric)
+        return _old_jpeg(data, tags, _one(tags, 262, 1))
+    photometric = _one(tags, 262, 0)    # PIL's default too
+    _pil_layout(tags, photometric, bo)
     spp = _one(tags, 277, 1)
     bps = tags.get(258, (1,) * spp)[0]
-    if _one(tags, 339, 1) != 1:
-        raise ValueError("unsupported TIFF: non-integer samples")
-    if spp > 1 and _one(tags, 284, 1) != 1:
-        raise ValueError("unsupported TIFF: planar configuration 2")
-    if photometric not in (0, 1, 2, 3):
+    typed = _typed(tags, spp, bps)
+    extra = tags.get(338, ())
+    if photometric not in (0, 1, 2, 3, 5):
         raise ValueError("unsupported TIFF: photometric interpretation %d"
                          % photometric)
-    if bps not in (1, 2, 4, 8, 16) or (photometric == 2 and bps < 8) or \
-            (photometric == 3 and bps > 8):
+    if typed is None and bps not in (1, 2, 4, 8, 16):
         raise ValueError("unsupported TIFF: %d bits a sample" % bps)
     if compression in _FAX and (bps != 1 or spp != 1):
         raise ValueError("corrupt TIFF: CCITT data of %d x %d bits"
                          % (spp, bps))
-    if 1 in tags.get(338, ()):
-        raise ValueError("unsupported TIFF: associated (premultiplied) "
-                         "alpha")
-    predictor = _one(tags, 317, 1)
-    if predictor not in (1, 2):
+    if compression == 1 and _one(tags, 284, 1) == 2:
+        return _raw_planar(data, tags, photometric, spp, bps, extra, typed,
+                           width, height)
+    reverse = _one(tags, 266, 1) == 2
+    # Pillow has no unpacker for "L;IR", "P;1R", "P;2R" or "P;4R", which
+    # it reads without libtiff
+    if compression == 1 and reverse and (
+            photometric == 0 and bps == 8 or photometric == 3 and bps < 8):
+        raise ValueError("unsupported TIFF: uncompressed FillOrder 2 of %d "
+                         "bits, photometric interpretation %d (PIL cannot "
+                         "read it)" % (bps, photometric))
+    planar = spp > 1 and _one(tags, 284, 1) == 2
+    # PIL's mode: RGBA where an alpha follows RGB (or a fourth sample
+    # without ExtraSamples), PA after a palette
+    alpha = extra[:1] in ((1,), (2,), (999,)) or spp == 4 and not extra
+    bands = {2: 3 + alpha, 5: 4, 3: 1 + (extra[:1] == (2,))}.get(
+        photometric, spp)
+    # planes through libtiff: Pillow's strip decoder takes a plane a band,
+    # its tile decoder the first planes; then, as after "RGBa", it
+    # unpremultiplies RGBA whose first extra sample is associated or, as
+    # libtiff defines a missing one, unspecified. A palette with an extra
+    # plane (one band) it unpacks as "PX" from the first plane's tile,
+    # past the end of each row: the port refuses that file.
+    if planar and (bands == 1 or 322 not in tags and spp != bands):
+        raise ValueError("unsupported TIFF: planar configuration 2 of %d "
+                         "samples in %s, %d bands in PIL" % (
+                             spp, "tiles" if 322 in tags else "strips",
+                             bands))
+    premultiplied = extra[:1] == (1,) or planar and photometric == 2 and \
+        spp == 4 and not extra
+    # libtiff's codecs but LZW and Deflate (and PIL) ignore the predictor
+    predictor = _one(tags, 317, 1) if compression in (5, 8, 32946) else 1
+    if predictor not in (1, 2, 3) or predictor == 3 and typed != "f4":
         raise ValueError("unsupported TIFF: predictor %d" % predictor)
     t4options = _one(tags, 292, 0)
-    reverse = _one(tags, 266, 1) == 2
     if 322 in tags:
         cw, ch = _one(tags, 322), _one(tags, 323)
         offsets, counts = tags.get(324), tags.get(325)
@@ -202,26 +363,117 @@ def decode(data):
     if offsets is None or counts is None:
         raise ValueError("corrupt TIFF: no strip or tile offsets")
     across = -(-width // cw)
-    out = np.zeros((height, width, spp),
-                   np.uint16 if bps == 16 else np.uint8)
-    row_bytes = (cw * bps * spp + 7) // 8
+    per_plane = across * -(-height // ch)
+    chunk_spp = 1 if planar else spp
+    out = np.zeros((height, width, spp), typed or (
+        np.uint16 if bps == 16 else np.uint8))
+    row_bytes = (cw * bps * chunk_spp + 7) // 8
     for i, (off, cnt) in enumerate(zip(offsets, counts)):
-        y0, x0 = (i // across) * ch, (i % across) * cw
-        if y0 >= height:
+        plane, j = divmod(i, per_plane) if planar else (0, i)
+        y0, x0 = (j // across) * ch, (j % across) * cw
+        if y0 >= height or plane >= spp:
             break
         rows = ch if 322 in tags else min(ch, height - y0)
+        h, w = min(rows, height - y0), min(cw, width - x0)
         chunk = data[off: off + cnt]
+        if compression == 1:    # PIL reads on from the offset, any count
+            if off + (h - 1) * row_bytes + (
+                    w * bps * chunk_spp + 7) // 8 > len(data):
+                raise ValueError("corrupt TIFF: chunk %d runs past the "
+                                 "file's end (PIL cannot read it)" % i)
+            chunk = data[off: off + rows * row_bytes]
         if reverse:
             chunk = _REVERSE[np.frombuffer(chunk, np.uint8)].tobytes()
         buf = _inflate(chunk, rows * row_bytes, compression, cw, rows,
                        t4options)
         if compression in _FAX:
             px = buf[:, :, None]      # 1 = black: as 1-bit samples
+        elif typed:
+            px = _typed_samples(buf, rows, cw, typed, bo, predictor)
         else:
-            px = _samples(buf, rows, cw, bps, spp, bo, predictor)
-        h, w = min(rows, height - y0), min(cw, width - x0)
-        out[y0: y0 + h, x0: x0 + w] = px[:h, :w]
-    return _convert(out, photometric, bps, spp, tags)
+            px = _samples(buf, rows, cw, bps, chunk_spp, bo, predictor)
+        out[y0: y0 + h, x0: x0 + w, plane: plane + chunk_spp] = px[:h, :w]
+    if typed:
+        return _clip_gray(out[..., 0], typed, bo == ">" and compression != 1)
+    return _convert(out, photometric, bps, spp, tags, premultiplied)
+
+
+def _raw_planar(data, tags, photometric, spp, bps, extra, typed, width,
+                height):
+    """An uncompressed file of PlanarConfiguration 2 as PIL reads it
+    without libtiff (TiffImagePlugin._setup's tiles): a plane after
+    another, each through the unpacker of the plane's letter in the
+    rawmode ("R", "G", ...; "L" and "P" at 8 bits whatever the file's
+    bits, "1" at 1, "I" and "F" at 32 in native order), its rows read
+    from the file at the chunk's offset on whatever bytes follow it, a
+    chunk past the right edge with a stride of the tile width times the
+    bits of all samples over the colour and extra samples PIL counts."""
+    if spp == 1:
+        letters = ("F" if typed == "f4" else "I" if typed else
+                   "P" if photometric == 3 else "1" if bps == 1 else
+                   "L" if bps <= 8 else "I;16")     # no unpacker
+    else:
+        letters = {2: "RGB", 3: "P", 5: "CMYK"}.get(photometric, "L") + (
+            "A" if photometric == 2 and spp == 4 and not extra else "") + \
+            "".join({0: "X", 1: "a"}.get(e, "A") for e in extra)
+    if letters not in ("1", "L", "P", "I", "F", "RGB", "RGBA", "CMYK"):
+        raise ValueError("unsupported TIFF: uncompressed planar "
+                         "configuration 2, its planes read as %r (PIL has "
+                         "no unpacker for some of those letters)" % letters)
+    nbits = {"1": 1, "I": 32, "F": 32}.get(letters, 8)
+    count = {2: 3, 5: 4}.get(photometric, 1) + len(extra)
+    if 322 in tags:
+        cw, ch, offsets = _one(tags, 322), _one(tags, 323), tags.get(324)
+    else:
+        cw, ch, offsets = width, _one(tags, 278, height), tags.get(273)
+    dtype = {"I": "<i4", "F": "<f4"}.get(letters, np.uint8)
+    out = np.zeros((height, width, len(letters)), dtype)
+    src = np.frombuffer(data, np.uint8)
+    x = y = layer = 0
+    for off in offsets or ():
+        if layer >= len(letters):
+            break
+        cols, rows = min(cw, width - x), min(ch, height - y)
+        size = (cols * nbits + 7) // 8
+        stride = int(cw * bps * spp / 8 / count) if x + cw > width else 0
+        # one chunk of "L" or "P" PIL maps from the file (ImageFile.load's
+        # mmap): its rows `stride` apart even where they overlap
+        mapped = len(offsets) == 1 and letters in ("L", "P") and \
+            off + rows * stride <= len(data)
+        step = stride or size
+        if step < size and not mapped or \
+                off + (rows - 1) * step + size > len(data):
+            raise ValueError("unsupported TIFF: uncompressed plane %d as "
+                             "PIL reads it runs past its rows or the "
+                             "file's end (PIL cannot read it)" % layer)
+        raw = src[off + np.arange(rows)[:, None] * step + np.arange(size)]
+        out[y: y + rows, x: x + cols, layer] = (
+            np.unpackbits(raw, axis=1)[:, :cols] * 255 if nbits == 1 else
+            raw.view(dtype) if nbits == 32 else raw)
+        x += cw
+        if x >= width:
+            x, y = 0, y + ch
+            if y >= height:
+                y, layer = 0, layer + 1
+    if letters in ("I", "F"):
+        return _clip_gray(out[..., 0], typed, False)
+    if letters in ("1", "L"):
+        return out[..., 0]
+    return _convert(out, photometric, bps if photometric == 3 else 8,
+                    len(letters), tags)
+
+
+def _clip_gray(values, dtype, swapped):
+    """PIL's convert("L") of mode I (i2l) or F (f2l): clipped to 0-255,
+    floats truncated, NaN to 0. `swapped`: the values PIL unpacks from
+    libtiff's host-order samples of a big-endian file."""
+    if swapped:
+        values = values.byteswap()
+    if dtype == "f4":
+        with np.errstate(invalid="ignore"):     # signalling NaNs
+            v = np.nan_to_num(values.astype(np.float64), nan=0.0)
+        return np.clip(v, 0, 255).astype(np.uint8)
+    return np.clip(values, 0, 255).astype(np.uint8)
 
 
 # an APP14 "Adobe" segment that sets libjpeg's colour space for a strip:
@@ -296,7 +548,19 @@ def _old_jpeg(data, tags, photometric):
     return px
 
 
-def _convert(px, photometric, bps, spp, tags):
+def _muldiv255(a, b):
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+# Pillow's cmyk2rgb of a channel, nk - MULDIV255(v, nk) with nk = 255 - k,
+# at [k << 8 | v]
+_CMYK = (255 - np.arange(256)[:, None] - _muldiv255(
+    np.arange(256)[None, :], 255 - np.arange(256)[:, None])).astype(
+        np.uint8).ravel()
+
+
+def _convert(px, photometric, bps, spp, tags, premultiplied=False):
     """Samples -> what PIL's convert("L") / convert("RGB") gives."""
     if photometric == 3:
         cmap = np.asarray(tags.get(320, ()), np.uint16)
@@ -304,14 +568,26 @@ def _convert(px, photometric, bps, spp, tags):
         if cmap.size != 3 * n:
             raise ValueError("corrupt TIFF: colour map of %d values"
                              % cmap.size)
-        palette = (cmap.reshape(3, n).T >> 8).astype(np.uint8)
+        palette = np.zeros((256, 3), np.uint8)    # black past the map
+        palette[:n] = cmap.reshape(3, n).T >> 8
         return palette[px[..., 0]]
+    if photometric == 5:      # Pillow's cmyk2rgb
+        cmyk = ((px[..., :4] >> 8) if bps == 16 else px[..., :4]).astype(
+            np.uint16)
+        return _CMYK[(cmyk[..., 3:] << 8) | cmyk[..., :3]]
     if photometric == 2:
         if spp < 3:
             raise ValueError("corrupt TIFF: RGB with %d samples" % spp)
         rgb = px[..., :3]
-        return np.ascontiguousarray(
-            (rgb >> 8).astype(np.uint8) if bps == 16 else rgb)
+        rgb = (rgb >> 8).astype(np.uint8) if bps == 16 else rgb
+        if premultiplied:     # Pillow's unpackRGBa: v * 255 / a
+            a = ((px[..., 3:4] >> 8) if bps == 16 else px[..., 3:4]).astype(
+                np.int32)
+            v = np.minimum(rgb.astype(np.int32) * 255 // np.maximum(a, 1),
+                           255)
+            rgb = np.where(a == 255, rgb, np.where(a == 0, 0, v)).astype(
+                np.uint8)
+        return np.ascontiguousarray(rgb)
     g = px[..., 0]
     if bps == 16:            # PIL reads MinIsWhite too as plain "I;16"
         return np.minimum(g, 255).astype(np.uint8)

@@ -1,13 +1,32 @@
-// Huffman-coded JPEG decoding (baseline, extended sequential and
-// progressive, 8-bit, one, three or four components) that gives the
-// pixels libjpeg-turbo gives PIL: ISLOW inverse DCT (jidctint.c), fancy
-// upsampling (jdsample.c), the YCbCr tables of jdcolor.c and, where a
-// progressive file leaves coefficients unrefined, the block smoothing of
-// jdcoefct.c (libjpeg-turbo 2.1 and later). Four components are CMYK,
-// or YCCK where an Adobe marker's transform is not 0 (jdcolor.c
-// ycck_cmyk_convert), read as PIL reads them ("CMYK;I": every sample
-// inverted) and converted to RGB by Pillow's cmyk2rgb. Arithmetic-coded,
-// lossless, hierarchical and 12-bit files raise.
+// JPEG decoding that gives the pixels libjpeg-turbo gives PIL: baseline,
+// extended sequential and progressive DCT files, Huffman- or
+// arithmetic-coded (jdarith.c: the QM decoder, DAC conditioning,
+// progressive first and refinement scans), and lossless (SOF3: jdlhuff.c
+// differences, jdpred.c predictors 1-7, the point transform), 8-bit, one,
+// three or four components. DCT files go through the ISLOW inverse DCT
+// (jidctint.c), fancy upsampling (jdsample.c), the YCbCr tables of
+// jdcolor.c and, where a progressive file leaves coefficients unrefined,
+// the block smoothing of jdcoefct.c (libjpeg-turbo 2.1 and later);
+// lossless planes are upsampled by replication, as libjpeg-turbo 3 does
+// (jdsample.c: no fancy upsampling where a block is one sample), and its
+// predictors restart where jddiffct.c restarts them. Four
+// components are CMYK, or YCCK where an Adobe marker's transform is not
+// 0 (jdcolor.c ycck_cmyk_convert), read as PIL reads them ("CMYK;I":
+// every sample inverted) and converted to RGB by Pillow's cmyk2rgb.
+//
+// What PIL cannot read raises: 12-bit DCT files; lossless files of
+// another precision than 8 bits, or whose colour needs converting (YCbCr,
+// YCCK: libjpeg-turbo converts none in lossless mode; without a JFIF or
+// Adobe marker a lossless file is RGB); lossless arithmetic coding
+// (SOF11); hierarchical frames; interleaved scans of more than 10 blocks
+// an MCU; and arithmetic-coded files whose scan
+// PIL's decoder cannot finish. libjpeg's arithmetic decoder cannot
+// suspend, and Pillow hands libjpeg the file in 65536-byte blocks
+// (ImageFile.MAXBLOCK): a scan is decoded in the call whose data first
+// holds its whole SOS header, so PIL reads the file only if every byte
+// that the scan's decoding fetches (restart markers and the marker that
+// ends it included) lies before the end of that block, 65536 * ceil(end
+// of the SOS header / 65536), and before the end of the file.
 //
 //   jpeg_decode(data, n, out, gray, err, errlen) -> channels written
 //
@@ -125,6 +144,121 @@ inline int extend(int v, int s) {
   return s == 0 ? 0 : (v < (1 << (s - 1)) ? v + (int)(~0u << s) + 1 : v);
 }
 
+// jaricom.c jpeg_aritab (ITU T.81 Table D.2 and a fixed-probability
+// entry 113): Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+// Next_Index_LPS
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// jdarith.c's QM decoder over the file's bytes from `p`: stuffed 0xFF 0x00
+// read as 0xFF; from a marker on (or the file's end) it reads zeros, as
+// libjpeg does. `fetched` is the end of the bytes read so far.
+struct Arith {
+  const uint8_t* d;
+  size_t n, p;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int marker = 0;
+  bool past_end = false;
+
+  Arith(const uint8_t* data, size_t size, size_t pos)
+      : d(data), n(size), p(pos) {}
+
+  size_t fetched() const { return past_end ? n + 1 : p; }
+  bool raw(int* v) {
+    if (p >= n) {
+      past_end = true;
+      marker = 0xD9;
+      return false;
+    }
+    *v = d[p++];
+    return true;
+  }
+  int get_byte() {
+    int v;
+    if (marker || !raw(&v)) return 0;
+    if (v != 0xFF) return v;
+    do {
+      if (!raw(&v)) return 0;
+    } while (v == 0xFF);
+    if (v == 0) return 0xFF;
+    marker = v;
+    return 0;
+  }
+  // jdmarker.c next_marker: the code of the next marker from `p` on
+  int next_marker() {
+    int v;
+    for (;;) {
+      do {
+        if (!raw(&v)) return 0xD9;
+      } while (v != 0xFF);
+      do {
+        if (!raw(&v)) return 0xD9;
+      } while (v == 0xFF);
+      if (v != 0) return v;
+    }
+  }
+  void reset() {
+    c = a = 0;
+    ct = -16;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | get_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct Comp {
   int id, h, v, tq;
   int dw, dh;            // downsampled size in samples
@@ -135,7 +269,12 @@ struct Comp {
   int quant[64];         // natural order
   int coef_bits[64];     // progressive: point transform of the last scan
   std::vector<int16_t> coef;  // bh_alloc * bw_alloc blocks of 64
+  // lossless: the scan's differences and the samples, one a "block",
+  // bh_alloc rows of bw_alloc
+  std::vector<int32_t> diff;
+  std::vector<uint8_t> samples;
   int dc_pred = 0;
+  int dc_context = 0;    // arithmetic DC conditioning (Table F.4)
   int16_t* block(int by, int bx) {
     return coef.data() + ((size_t)by * bw_alloc + bx) * 64;
   }
@@ -143,7 +282,11 @@ struct Comp {
 
 class Decoder {
  public:
-  Decoder(const uint8_t* d, size_t n) : data_(d), n_(n) {}
+  Decoder(const uint8_t* d, size_t n) : data_(d), n_(n) {
+    memset(dc_l_, 0, sizeof(dc_l_));
+    memset(dc_u_, 1, sizeof(dc_u_));
+    memset(ac_k_, 5, sizeof(ac_k_));
+  }
 
   void decode(uint8_t* out, bool gray);
   int channels(bool gray) const { return (ncomp_ == 1 || gray) ? 1 : 3; }
@@ -154,6 +297,7 @@ class Decoder {
   size_t pos_ = 0;
   int width_ = 0, height_ = 0, ncomp_ = 0;
   bool progressive_ = false, frame_ = false;
+  bool lossless_ = false, arith_ = false;
   bool saw_jfif_ = false, saw_adobe_ = false;
   int adobe_transform_ = 0;
   int qt_[4][64];
@@ -164,6 +308,11 @@ class Decoder {
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   int scans_ = 0;
   int eobrun_ = 0;
+  // arithmetic coding: the DAC conditioning of each table (defaults L 0,
+  // U 1, Kx 5) and the statistics areas
+  uint8_t dc_l_[16], dc_u_[16], ac_k_[16];
+  uint8_t dc_stats_[16][64], ac_stats_[16][256];
+  uint8_t fixed_bin_[4] = {113, 0, 0, 0};
 
   int u8() {
     if (pos_ >= n_) throw Error("JPEG data ends early");
@@ -178,12 +327,20 @@ class Decoder {
   void read_dqt(size_t end);
   void read_dht(size_t end);
   void read_app(int marker, size_t end);
+  void read_dac(size_t end);
   void read_scan();
   size_t segment_end(size_t from, int* marker) const;
   void decode_segment(Bits& br, Comp** sc, int ns, int ss, int se, int ah,
                       int al, long first, long count, long total);
   void decode_block(Bits& br, Comp& c, int16_t* blk, int ss, int se,
                     int ah, int al);
+  void lossless_diffs(Bits& br, Comp** sc, int ns, long first, long count,
+                      long total);
+  void undifference(Comp& c, int psv, int pt, long restart_rows);
+  void arith_scan(Comp** sc, int ns, int ss, int se, int ah, int al,
+                  long total);
+  void arith_block(Arith& ar, Comp& c, int16_t* blk, int ss, int se, int ah,
+                   int al);
   void output(uint8_t* out, bool gray);
   bool smoothing_ok();
   void idct_plane(Comp& c, bool smooth, std::vector<uint8_t>& plane);
@@ -194,9 +351,14 @@ void Decoder::read_frame(int marker) {
   size_t len = u16();
   (void)len;
   int prec = u8();
+  lossless_ = marker == 0xC3;
+  arith_ = marker == 0xC9 || marker == 0xCA;
+  if (prec != 8 && lossless_)
+    throw Error("unsupported JPEG: lossless at " + std::to_string(prec) +
+                "-bit precision (PIL reads 8-bit lossless JPEGs only)");
   if (prec != 8)
     throw Error("unsupported JPEG: " + std::to_string(prec) +
-                "-bit samples (the port reads 8-bit JPEGs)");
+                "-bit samples (PIL reads 8-bit JPEGs only)");
   height_ = u16();
   width_ = u16();
   ncomp_ = u8();
@@ -206,7 +368,7 @@ void Decoder::read_frame(int marker) {
   if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4)
     throw Error("unsupported JPEG: " + std::to_string(ncomp_) +
                 " components");
-  progressive_ = marker == 0xC2;
+  progressive_ = marker == 0xC2 || marker == 0xCA;
   for (int i = 0; i < ncomp_; i++) {
     Comp& c = comp_[i];
     c.id = u8();
@@ -219,17 +381,23 @@ void Decoder::read_frame(int marker) {
     hmax_ = std::max(hmax_, c.h);
     vmax_ = std::max(vmax_, c.v);
   }
-  mcux_ = (width_ + hmax_ * 8 - 1) / (hmax_ * 8);
-  mcuy_ = (height_ + vmax_ * 8 - 1) / (vmax_ * 8);
+  const int unit = lossless_ ? 1 : 8;  // a lossless "block" is a sample
+  mcux_ = (width_ + hmax_ * unit - 1) / (hmax_ * unit);
+  mcuy_ = (height_ + vmax_ * unit - 1) / (vmax_ * unit);
   for (int i = 0; i < ncomp_; i++) {
     Comp& c = comp_[i];
     c.dw = (int)(((long)width_ * c.h + hmax_ - 1) / hmax_);
     c.dh = (int)(((long)height_ * c.v + vmax_ - 1) / vmax_);
-    c.bw = (c.dw + 7) / 8;
-    c.bh = (c.dh + 7) / 8;
+    c.bw = (c.dw + unit - 1) / unit;
+    c.bh = (c.dh + unit - 1) / unit;
     c.bw_alloc = mcux_ * c.h;
     c.bh_alloc = mcuy_ * c.v;
-    c.coef.assign((size_t)c.bw_alloc * c.bh_alloc * 64, 0);
+    if (lossless_) {
+      c.diff.assign((size_t)c.bw_alloc * c.bh_alloc, 0);
+      c.samples.assign((size_t)c.bw_alloc * c.bh_alloc, 0);
+    } else {
+      c.coef.assign((size_t)c.bw_alloc * c.bh_alloc * 64, 0);
+    }
     for (int k = 0; k < 64; k++) c.coef_bits[k] = -1;
   }
   frame_ = true;
@@ -268,6 +436,22 @@ void Decoder::read_app(int marker, size_t end) {
   if (marker == 0xEE && len >= 12 && memcmp(p, "Adobe", 5) == 0) {
     saw_adobe_ = true;
     adobe_transform_ = p[11];
+  }
+}
+
+// jdmarker.c get_dac: conditioning of the arithmetic tables
+void Decoder::read_dac(size_t end) {
+  while (pos_ + 1 < end) {
+    int index = u8(), val = u8();
+    if (index >= 32) throw Error("corrupt JPEG: bad DAC table");
+    if (index >= 16) {
+      ac_k_[index - 16] = (uint8_t)val;
+    } else {
+      dc_l_[index] = (uint8_t)(val & 15);
+      dc_u_[index] = (uint8_t)(val >> 4);
+      if (dc_l_[index] > dc_u_[index])
+        throw Error("corrupt JPEG: bad DAC value");
+    }
   }
 }
 
@@ -394,6 +578,10 @@ void Decoder::decode_block(Bits& br, Comp& c, int16_t* blk, int ss, int se,
 void Decoder::decode_segment(Bits& br, Comp** sc, int ns, int ss, int se,
                              int ah, int al, long first, long count,
                              long total) {
+  if (lossless_) {
+    lossless_diffs(br, sc, ns, first, count, total);
+    return;
+  }
   for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
   eobrun_ = 0;
   long stop = std::min(first + count, total);
@@ -415,6 +603,267 @@ void Decoder::decode_segment(Bits& br, Comp** sc, int ns, int ss, int se,
   }
 }
 
+// jdlhuff.c decode_mcus: each sample's difference, Huffman-coded through
+// the scan's DC tables (SSSS 16: 32768, no extra bits), into the
+// components' difference planes
+void Decoder::lossless_diffs(Bits& br, Comp** sc, int ns, long first,
+                             long count, long total) {
+  auto diff = [&](Comp& c) {
+    int s = br.decode(dc_[c.dc_tbl]);
+    if (s == 16) return 32768;
+    if (s > 16) throw Error("corrupt JPEG: bad lossless difference");
+    return s ? extend(br.get(s), s) : 0;
+  };
+  long stop = std::min(first + count, total);
+  for (long m = first; m < stop; m++) {
+    if (ns == 1) {
+      Comp& c = *sc[0];
+      c.diff[(size_t)(m / c.bw) * c.bw_alloc + m % c.bw] = diff(c);
+      continue;
+    }
+    int my = (int)(m / mcux_), mx = (int)(m % mcux_);
+    for (int i = 0; i < ns; i++) {
+      Comp& c = *sc[i];
+      for (int yy = 0; yy < c.v; yy++) {
+        int32_t* row = c.diff.data() + (size_t)(my * c.v + yy) * c.bw_alloc;
+        for (int xx = 0; xx < c.h; xx++) row[mx * c.h + xx] = diff(c);
+      }
+    }
+  }
+}
+
+// jdpred.c: the predictors of a row that is not the first of its scan or
+// restart interval (Ra left, Rb above, Rc above-left)
+template <int P>
+void undifference_row(const int32_t* d, const int* prev, int* out, int w) {
+  int rb = prev[0], ra = (d[0] + rb) & 0xFFFF;
+  out[0] = ra;
+  for (int x = 1; x < w; x++) {
+    int rc = rb;
+    rb = prev[x];
+    int pred = P == 1   ? ra
+               : P == 2 ? rb
+               : P == 3 ? rc
+               : P == 4 ? ra + rb - rc
+               : P == 5 ? ra + ((rb - rc) >> 1)
+               : P == 6 ? rb + ((ra - rc) >> 1)
+                        : (ra + rb) >> 1;
+    out[x] = ra = (d[x] + pred) & 0xFFFF;
+  }
+}
+
+// jdpred.c and jdlossls.c: a component's differences to samples. The
+// first row of the scan and of each restart interval predicts from the
+// left (its first sample from 2^(7 - Pt)), the first sample of the other
+// rows from above; then the point transform: samples << Pt, kept to 8
+// bits as libjpeg's JSAMPLE keeps them. jddiffct.c undifferences an iMCU
+// row (the component's v rows, fewer in the last) after decoding all of
+// it, so a restart before any of those rows resets the predictor at their
+// first row: in a non-interleaved scan of v > 1 that need not be the
+// restart's own row.
+void Decoder::undifference(Comp& c, int psv, int pt, long restart_rows) {
+  static void (*const rows[8])(const int32_t*, const int*, int*, int) = {
+      nullptr,                undifference_row<1>, undifference_row<2>,
+      undifference_row<3>,    undifference_row<4>, undifference_row<5>,
+      undifference_row<6>,    undifference_row<7>};
+  const int w = c.dw;
+  std::vector<int> prev(w), cur(w);
+  for (int y = 0; y < c.dh; y++) {
+    const int32_t* d = c.diff.data() + (size_t)y * c.bw_alloc;
+    if (y == 0 || (restart_rows && y % c.v == 0 &&
+                   (y + restart_rows - 1) / restart_rows * restart_rows <
+                       std::min(y + c.v, c.dh))) {
+      int ra = (d[0] + (1 << (7 - pt))) & 0xFFFF;
+      cur[0] = ra;
+      for (int x = 1; x < w; x++) cur[x] = ra = (d[x] + ra) & 0xFFFF;
+    } else {
+      rows[psv](d, prev.data(), cur.data(), w);
+    }
+    uint8_t* out = c.samples.data() + (size_t)y * c.bw_alloc;
+    for (int x = 0; x < w; x++) out[x] = (uint8_t)(cur[x] << pt);
+    std::swap(prev, cur);
+  }
+}
+
+// jdarith.c: one block of an arithmetic-coded scan (decode_mcu,
+// decode_mcu_DC_first, _DC_refine, _AC_first, _AC_refine). A bad code
+// sets ct to -1, and libjpeg decodes nothing more until the next restart.
+void Decoder::arith_block(Arith& ar, Comp& c, int16_t* blk, int ss, int se,
+                          int ah, int al) {
+  if (progressive_ && ss == 0 && ah != 0) {  // DC refine
+    if (ar.decode(fixed_bin_)) blk[0] = (int16_t)(blk[0] | (1 << al));
+    return;
+  }
+  if (!progressive_ || ss == 0) {  // DC: Figures F.19-F.24
+    const int t = c.dc_tbl;
+    uint8_t* st = dc_stats_[t] + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+    } else {
+      int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = dc_stats_[t] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return;
+          }
+          st += 1;
+        }
+      }
+      if (m < (int)((1L << dc_l_[t]) >> 1))
+        c.dc_context = 0;
+      else if (m > (int)((1L << dc_u_[t]) >> 1))
+        c.dc_context = 12 + sign * 4;
+      else
+        c.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+    }
+    blk[0] = (int16_t)(int)((unsigned)c.dc_pred << al);
+    if (progressive_) return;
+    ss = 1;
+    se = 63;
+  }
+  uint8_t* stats = ac_stats_[c.ac_tbl];
+  if (ah == 0) {  // AC, sequential or first: Figure F.20
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;
+          return;
+        }
+      }
+      int sign = ar.decode(fixed_bin_);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= ac_k_[c.ac_tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return;
+          }
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+    }
+    return;
+  }
+  // AC refine: bits of coefficients already nonzero, and new ones of +-1
+  const int p1 = 1 << al, m1 = (int)(~0u << al);
+  int kex = se;
+  for (; kex > 0; kex--)
+    if (blk[kNatural[kex]]) break;
+  for (int k = ss; k <= se; k++) {
+    uint8_t* st = stats + 3 * (k - 1);
+    if (k > kex && ar.decode(st)) break;  // EOB
+    for (;;) {
+      int16_t* coef = blk + kNatural[k];
+      if (*coef) {
+        if (ar.decode(st + 2))
+          *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+        break;
+      }
+      if (ar.decode(st + 1)) {
+        *coef = (int16_t)(ar.decode(fixed_bin_) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se) {
+        ar.ct = -1;
+        return;
+      }
+    }
+  }
+}
+
+// An arithmetic-coded scan of `total` MCUs from pos_ (just past its SOS
+// header); restarts reset the statistics and the decoder
+// (jdarith.c process_restart). Raises where PIL's decoder would run out
+// of data (the rule at the top of this file).
+void Decoder::arith_scan(Comp** sc, int ns, int ss, int se, int ah, int al,
+                         long total) {
+  const size_t header_end = pos_;
+  Arith ar(data_, n_, pos_);
+  const bool dc = !progressive_ || (ss == 0 && ah == 0);
+  const bool ac = !progressive_ || ss > 0;
+  auto reset = [&]() {
+    for (int i = 0; i < ns; i++) {
+      Comp& c = *sc[i];
+      if (dc) {
+        memset(dc_stats_[c.dc_tbl], 0, sizeof(dc_stats_[0]));
+        c.dc_pred = 0;
+        c.dc_context = 0;
+      }
+      if (ac) memset(ac_stats_[c.ac_tbl], 0, sizeof(ac_stats_[0]));
+    }
+    ar.reset();
+  };
+  reset();
+  long togo = restart_interval_;
+  int next_rst = 0;
+  const bool dc_refine = progressive_ && ss == 0 && ah != 0;
+  for (long m = 0; m < total; m++) {
+    if (restart_interval_) {
+      if (togo == 0) {  // jdmarker.c read_restart_marker
+        int marker = ar.marker ? ar.marker : ar.next_marker();
+        if (marker != 0xD0 + next_rst)
+          throw Error("corrupt JPEG: restart marker out of place");
+        ar.marker = 0;
+        next_rst = (next_rst + 1) & 7;
+        reset();
+        togo = restart_interval_;
+      }
+      togo--;
+    }
+    if (ar.ct == -1 && !dc_refine) continue;
+    if (ns == 1) {
+      Comp& c = *sc[0];
+      arith_block(ar, c, c.block((int)(m / c.bw), (int)(m % c.bw)), ss, se,
+                  ah, al);
+      continue;
+    }
+    int my = (int)(m / mcux_), mx = (int)(m % mcux_);
+    for (int i = 0; i < ns && (ar.ct != -1 || dc_refine); i++) {
+      Comp& c = *sc[i];
+      for (int yy = 0; yy < c.v; yy++)
+        for (int xx = 0; xx < c.h; xx++)
+          if (ar.ct != -1 || dc_refine)
+            arith_block(ar, c, c.block(my * c.v + yy, mx * c.h + xx), ss,
+                        se, ah, al);
+    }
+  }
+  const size_t limit =
+      std::min((header_end + 65535) / 65536 * 65536, n_);
+  if (ar.fetched() > limit)
+    throw Error("unsupported JPEG: arithmetic-coded scan " +
+                std::to_string(scans_) + " (header ends at byte " +
+                std::to_string(header_end) + ") reads up to byte " +
+                std::to_string(ar.fetched()) + ", past " +
+                std::to_string(limit) +
+                " (the end of PIL's 65536-byte read block or of the file): "
+                "PIL cannot read it");
+}
+
 void Decoder::read_scan() {
   if (!frame_) throw Error("corrupt JPEG: scan before frame");
   u16();
@@ -429,9 +878,17 @@ void Decoder::read_scan() {
     if (c == nullptr) throw Error("corrupt JPEG: scan names no component");
     c->dc_tbl = t >> 4;
     c->ac_tbl = t & 15;
-    if (c->dc_tbl > 3 || c->ac_tbl > 3) throw Error("corrupt JPEG: bad scan");
+    if (!arith_ && (c->dc_tbl > 3 || c->ac_tbl > 3))
+      throw Error("corrupt JPEG: bad scan");
     sc[i] = c;
   }
+  // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+  int blocks = 0;
+  for (int i = 0; i < ns && ns > 1; i++) blocks += sc[i]->h * sc[i]->v;
+  if (blocks > 10)
+    throw Error("corrupt JPEG: sampling factors too large for an "
+                "interleaved scan (" + std::to_string(blocks) +
+                " blocks in an MCU, at most 10)");
   int ss = u8(), se = u8(), a = u8();
   int ah = a >> 4, al = a & 15;
   scans_++;
@@ -439,14 +896,17 @@ void Decoder::read_scan() {
   // first scan
   for (int i = 0; i < ns; i++) {
     Comp& c = *sc[i];
-    if (!c.latched) {
+    if (!c.latched && !lossless_) {
       if (!qt_defined_[c.tq])
         throw Error("corrupt JPEG: undefined quantization table");
       memcpy(c.quant, qt_[c.tq], sizeof(c.quant));
-      c.latched = true;
     }
+    c.latched = true;
   }
-  if (progressive_) {
+  if (lossless_) {  // Ss: the predictor, Al: the point transform
+    if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al > 7)
+      throw Error("corrupt JPEG: bad lossless scan parameters");
+  } else if (progressive_) {
     bool dc = ss == 0;
     if (dc ? se != 0 : (se < ss || se > 63 || ns != 1) || al > 13)
       throw Error("corrupt JPEG: bad progression parameters");
@@ -457,16 +917,30 @@ void Decoder::read_scan() {
     se = 63;
     ah = al = 0;
   }
-  for (int i = 0; i < ns; i++) {
+  for (int i = 0; i < ns && !arith_; i++) {
     Comp& c = *sc[i];
-    bool need_dc = !progressive_ || (ss == 0 && ah == 0);
-    bool need_ac = !progressive_ || ss > 0;
+    bool need_dc = lossless_ || !progressive_ || (ss == 0 && ah == 0);
+    bool need_ac = !lossless_ && (!progressive_ || ss > 0);
     if ((need_dc && !dc_[c.dc_tbl].defined) ||
         (need_ac && !ac_[c.ac_tbl].defined))
       throw Error("corrupt JPEG: undefined Huffman table");
   }
   long total = ns == 1 ? (long)sc[0]->bw * sc[0]->bh : (long)mcux_ * mcuy_;
+  if (arith_) {
+    size_t start = pos_;
+    arith_scan(sc, ns, ss, se, ah, al, total);
+    int marker;
+    pos_ = segment_end(start, &marker);
+    return;
+  }
   long interval = restart_interval_ ? restart_interval_ : total;
+  // lossless: libjpeg-turbo restarts at whole MCU rows only (jdlossls.c)
+  const long per_row = ns == 1 ? sc[0]->bw : mcux_;
+  if (lossless_ && restart_interval_ % per_row)
+    throw Error("corrupt JPEG: lossless restart interval " +
+                std::to_string(restart_interval_) +
+                " is not a whole number of MCU rows of " +
+                std::to_string(per_row));
   // the restart intervals: RSTn markers split the entropy-coded data
   size_t start = pos_;
   int marker;
@@ -495,6 +969,9 @@ void Decoder::read_scan() {
     a0 = b;
   }
   pos_ = end;
+  for (int i = 0; i < ns && lossless_; i++)
+    undifference(*sc[i], ss, al,
+                 restart_interval_ / per_row * (ns == 1 ? 1 : sc[i]->v));
 }
 
 // ---------------------------------------------------------------- output
@@ -795,9 +1272,10 @@ void Decoder::idct_plane(Comp& c, bool smooth, std::vector<uint8_t>& plane) {
 }
 
 // jdsample.c: one component's samples to the full grid, rows clamped to
-// the component's real rows above and below (jdmainct.c's context rows)
+// the component's real rows above and below (jdmainct.c's context rows);
+// without `fancy`, by replication
 void upsample(const uint8_t* in, int in_stride, int dw, int dh, int hexp,
-              int vexp, uint8_t* out, int width, int height) {
+              int vexp, bool fancy, uint8_t* out, int width, int height) {
   auto src = [&](int y) {
     y = std::min(std::max(y, 0), dh - 1);
     return in + (size_t)y * in_stride;
@@ -810,7 +1288,11 @@ void upsample(const uint8_t* in, int in_stride, int dw, int dh, int hexp,
       memcpy(o, src(y), width);
       continue;
     }
-    if (hexp == 2 && vexp == 1 && dw > 2) {  // h2v1_fancy_upsample
+    if (!fancy) {  // h2v1_upsample, h2v2_upsample, int_upsample
+      const uint8_t* p = src(y / vexp);
+      for (int x = 0; x < dw; x++)
+        for (int k = 0; k < hexp; k++) t[x * hexp + k] = p[x];
+    } else if (hexp == 2 && vexp == 1 && dw > 2) {  // h2v1_fancy_upsample
       const uint8_t* p = src(y);
       t[0] = p[0];
       t[1] = (uint8_t)((p[0] * 3 + p[1] + 2) >> 2);
@@ -868,25 +1350,28 @@ void Decoder::output(uint8_t* out, bool gray) {
     if (!c.latched) throw Error("corrupt JPEG: a component has no scan");
     if (hmax_ % c.h || vmax_ % c.v)
       throw Error("unsupported JPEG: fractional sampling factors");
-    std::vector<uint8_t> plane;
-    idct_plane(c, smooth, plane);
+    std::vector<uint8_t> idct;
+    if (!lossless_) idct_plane(c, smooth, idct);
+    const uint8_t* plane = lossless_ ? c.samples.data() : idct.data();
+    const int stride = lossless_ ? c.bw_alloc : c.bw_alloc * 8;
     if (c.h == hmax_ && c.v == vmax_ && ncomp_ == 1) {
       for (int y = 0; y < height_; y++)
-        memcpy(out + (size_t)y * width_,
-               plane.data() + (size_t)y * c.bw_alloc * 8, width_);
+        memcpy(out + (size_t)y * width_, plane + (size_t)y * stride, width_);
       return;
     }
     full[i].resize((size_t)width_ * height_);
-    upsample(plane.data(), c.bw_alloc * 8, c.dw, c.dh, hmax_ / c.h,
-             vmax_ / c.v, full[i].data(), width_, height_);
+    upsample(plane, stride, c.dw, c.dh, hmax_ / c.h, vmax_ / c.v,
+             !lossless_, full[i].data(), width_, height_);
   }
-  // libjpeg's colour space (jdapimin.c default_decompress_parms)
+  // libjpeg's colour space (jdapimin.c default_decompress_parms; a
+  // lossless file without JFIF or Adobe marker is RGB)
   bool rgb = false;
   if (!saw_jfif_) {
     if (saw_adobe_)
       rgb = adobe_transform_ == 0;
     else
-      rgb = comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66;
+      rgb = lossless_ ||
+            (comp_[0].id == 82 && comp_[1].id == 71 && comp_[2].id == 66);
   }
   // jdcolor.c build_ycc_rgb_table, SCALEBITS 16
   int cr_r[256], cb_b[256];
@@ -905,6 +1390,11 @@ void Decoder::output(uint8_t* out, bool gray) {
   // four components: jdapimin.c takes YCCK where an Adobe marker's
   // transform is not 0, else CMYK
   const bool ycck = ncomp_ == 4 && saw_adobe_ && adobe_transform_ != 0;
+  if (lossless_ && ((ncomp_ == 3 && !rgb) || ycck))
+    throw Error(std::string("unsupported JPEG: lossless ") +
+                (ycck ? "YCCK" : "YCbCr") +
+                " (libjpeg-turbo converts no colour in lossless mode): PIL "
+                "cannot read it");
   for (size_t i = 0; i < n; i++) {
     int r, g, b;
     if (ncomp_ == 4) {
@@ -966,11 +1456,15 @@ void Decoder::decode(uint8_t* out, bool gray) {
       case 0xC0:
       case 0xC1:
       case 0xC2:
+      case 0xC3:
+      case 0xC9:
+      case 0xCA:
         pos_ = start;
         read_frame(m);
         break;
-      case 0xC3:
-        throw Error("unsupported JPEG: lossless (SOF3)");
+      case 0xCB:
+        throw Error("unsupported JPEG: lossless arithmetic coding (SOF11), "
+                    "which PIL cannot read");
       case 0xC5:
       case 0xC6:
       case 0xC7:
@@ -978,11 +1472,9 @@ void Decoder::decode(uint8_t* out, bool gray) {
       case 0xCE:
       case 0xCF:
         throw Error("unsupported JPEG: hierarchical (differential) frames");
-      case 0xC9:
-      case 0xCA:
-      case 0xCB:
       case 0xCC:
-        throw Error("unsupported JPEG: arithmetic coding");
+        read_dac(end);
+        break;
       case 0xC4:
         read_dht(end);
         break;

@@ -16,6 +16,20 @@ package on the CPU:
         sub-sampled gray file and five components, which raise), written
         by the libopenjp2 that PIL bundles through ctypes; each file's
         markers are checked before it is kept
+    tests/data/torch_formats/more/jpeg-<kind>.jpg   lossless (SOF3: every
+        predictor, point transforms, restarts, gray, RGB, CMYK) and
+        arithmetic-coded JPEG (SOF9 and SOF10: samplings, restarts, DAC
+        conditioning, progressive with successive approximation,
+        truncated progressive files that libjpeg smooths, the files on
+        both sides of PIL's 65536-byte read block) written by the
+        libjpeg-turbo 3.1 that PIL bundles (a small C writer built with
+        gcc against the system's jpeglib.h), and the kinds both PIL and
+        the port refuse (12-bit, lossless at 6 bits, lossless YCbCr and
+        YCCK, SOF11)
+    tests/data/torch_formats/more/<case>.{tif,bmp,jpg}   the cases of
+        tests/test_torch_image_formats_more.py: BigTIFF, planar, CMYK,
+        float and signed, associated-alpha TIFF, the BMP palettes PIL
+        drops, sub-sampled lossless JPEG, and the kinds both refuse
     tests/data/torch_formats/pages/synth000{0,1}.jpg   the two pages of
         tests/data/torch_ocr/full as baseline gray JPEG (quality PAGE_Q),
         synth0000.progressive.jpg, synth0001.g4.tif (the page > 128),
@@ -23,7 +37,9 @@ package on the CPU:
         256 x 256 precincts, 64 x 64 code-blocks, 3 layers at rates
         80/40/JP2_RATE), synth0001.jp2 (9/7 in 512 x 512 tiles at rate
         JP2_RATE), synth0001.jpeg.tif (JPEG-in-TIFF at quality TIFF_Q,
-        strips of 64 rows)
+        strips of 64 rows), synth000{0,1}.lossless.jpg (lossless JPEG by
+        libjpeg-turbo: predictor 1; predictor 6 with a restart every 32
+        rows), whose pixels are the PNG pages'
     tests/data/torch_formats/manifest.json   {path: {"size": PIL's
         .size, "sha256": of PIL's convert("L") bytes} or {"raises": a
         word of the ValueError}}
@@ -390,6 +406,317 @@ def write_opj_kinds(files, manifest, out):
         manifest[rel] = {"raises": raises} if raises else pil_entry(path)
 
 
+# ---------------------------------------------------------- libjpeg-turbo
+
+# A writer of the JPEG kinds PIL's encoder does not write (lossless,
+# arithmetic, 12-bit, DAC conditioning, restart intervals in rows), built
+# at run time against the system's jpeglib.h (libjpeg-turbo 2.1, the v62
+# ABI) and linked to the libjpeg-turbo 3.1 that PIL bundles, which also
+# exports jpeg_enable_lossless and jpeg12_write_scanlines.
+#   jpegw OUT W H COMPONENTS RAW [option ...]
+JPEGW_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+extern void jpeg_enable_lossless(j_compress_ptr, int, int);
+extern JDIMENSION jpeg12_write_scanlines(j_compress_ptr, void **, JDIMENSION);
+
+int main(int argc, char **argv) {
+  if (argc < 6) return 2;
+  int w = atoi(argv[2]), h = atoi(argv[3]), nc = atoi(argv[4]), prec = 8;
+  for (int i = 6; i < argc; i++)
+    if (!strncmp(argv[i], "prec=", 5)) prec = atoi(argv[i] + 5);
+  size_t bps = prec > 8 ? 2 : 1, n = (size_t)w * h * nc * bps;
+  unsigned char *px = malloc(n);
+  FILE *f = fopen(argv[5], "rb");
+  if (!f || fread(px, 1, n, f) != n) return 3;
+  fclose(f);
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  FILE *o = fopen(argv[1], "wb");
+  jpeg_stdio_dest(&c, o);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = nc;
+  c.in_color_space = nc == 1 ? JCS_GRAYSCALE : nc == 3 ? JCS_RGB : JCS_CMYK;
+  c.data_precision = prec;
+  jpeg_set_defaults(&c);
+  c.data_precision = prec;
+  int app = 0;
+  for (int i = 6; i < argc; i++) {
+    char *a = argv[i];
+    int v[6] = {1, 1, 1, 1, 1, 1};
+    if (!strncmp(a, "q=", 2)) jpeg_set_quality(&c, atoi(a + 2), TRUE);
+    else if (!strcmp(a, "arith")) c.arith_code = TRUE;
+    else if (!strcmp(a, "prog")) jpeg_simple_progression(&c);
+    else if (!strncmp(a, "lossless=", 9)) {
+      sscanf(a + 9, "%d,%d", v, v + 1);
+      jpeg_enable_lossless(&c, v[0], v[1]);
+    } else if (!strncmp(a, "restart=", 8)) c.restart_interval = atoi(a + 8);
+    else if (!strncmp(a, "rows=", 5)) c.restart_in_rows = atoi(a + 5);
+    else if (!strncmp(a, "samp=", 5)) {
+      sscanf(a + 5, "%d,%d,%d,%d,%d,%d", v, v + 1, v + 2, v + 3, v + 4, v + 5);
+      for (int k = 0; k < c.num_components && k < 3; k++) {
+        c.comp_info[k].h_samp_factor = v[2 * k];
+        c.comp_info[k].v_samp_factor = v[2 * k + 1];
+      }
+    } else if (!strncmp(a, "dc=", 3)) {
+      sscanf(a + 3, "%d,%d", v, v + 1);
+      for (int k = 0; k < 16; k++) { c.arith_dc_L[k] = v[0]; c.arith_dc_U[k] = v[1]; }
+    } else if (!strncmp(a, "ack=", 4)) {
+      for (int k = 0; k < 16; k++) c.arith_ac_K[k] = atoi(a + 4);
+    } else if (!strncmp(a, "app=", 4)) app = atoi(a + 4);
+    else if (strncmp(a, "prec=", 5)) { fprintf(stderr, "bad option %s\n", a); return 2; }
+  }
+  jpeg_start_compress(&c, TRUE);
+  for (; app > 0; app -= 65533) {   /* APP9 segments of filler bytes */
+    int k, m = app > 65533 ? 65533 : app;
+    unsigned char *buf = malloc(m);
+    for (k = 0; k < m; k++) buf[k] = (unsigned char)(k * 7);
+    jpeg_write_marker(&c, JPEG_APP0 + 9, buf, m);
+    free(buf);
+  }
+  size_t stride = (size_t)w * nc * bps;
+  while (c.next_scanline < c.image_height) {
+    void *row = px + c.next_scanline * stride;
+    if (prec > 8) jpeg12_write_scanlines(&c, &row, 1);
+    else jpeg_write_scanlines(&c, (JSAMPARRAY)&row, 1);
+  }
+  jpeg_finish_compress(&c);
+  fclose(o);
+  jpeg_destroy_compress(&c);
+  return 0;
+}
+"""
+
+
+class LibJpeg:
+    """`jpegw` built in a temporary directory; `write(path, px, *opts)`."""
+
+    def __init__(self, tmp):
+        import subprocess
+
+        import PIL
+        libs = os.path.join(os.path.dirname(PIL.__file__), "..",
+                            "pillow.libs")
+        found = glob.glob(os.path.join(libs, "libjpeg-*.so*"))
+        if not found:
+            raise RuntimeError("no libjpeg beside PIL in %s" % libs)
+        self.tmp = Path(tmp)
+        src = self.tmp / "jpegw.c"
+        src.write_text(JPEGW_C)
+        self.exe = self.tmp / "jpegw"
+        subprocess.run(["gcc", "-O1", "-o", str(self.exe), str(src),
+                        os.path.realpath(found[0]), "-Wl,-rpath,"
+                        + os.path.realpath(libs)], check=True)
+
+    def write(self, path, px, *opts, prec=8):
+        import subprocess
+        px = np.asarray(px)
+        h, w = px.shape[:2]
+        nc = 1 if px.ndim == 2 else px.shape[2]
+        raw = self.tmp / "px.raw"
+        (px.astype("<u2") if prec > 8 else px.astype(np.uint8)).tofile(raw)
+        subprocess.run([str(self.exe), str(path), str(w), str(h), str(nc),
+                        str(raw)] + list(opts) + ["prec=%d" % prec],
+                       check=True)
+        return Path(path).read_bytes()
+
+
+def without_segment(data, marker):
+    """`data` without its first marker segment `marker` (0xE0-0xFE)."""
+    i = data.index(bytes((0xFF, marker)))
+    (n,) = struct.unpack(">H", data[i + 2: i + 4])
+    return data[:i] + data[i + 2 + n:]
+
+
+def with_adobe_transform(data, transform):
+    i = data.index(b"\xff\xee") + 4
+    assert data[i: i + 5] == b"Adobe"
+    return data[: i + 11] + bytes((transform,)) + data[i + 12:]
+
+
+_JFIF = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+
+
+def libjpeg_kinds():
+    """[(name, pixels, writer options, post-processing of the bytes or
+    None, the word of the ValueError where both PIL and the port refuse
+    the file, the sample precision)]: the genuine files of more/."""
+    import test_torch_image_formats as cases
+    t = cases.texture
+    kinds = []
+
+    def kind(name, px, *opts, post=None, raises=None, prec=8):
+        kinds.append((name, px, opts, post, raises, prec))
+    for p in range(1, 8):
+        kind("lossless-gray-p%d" % p, t(61, 83, 1, 70 + p),
+             "lossless=%d,0" % p)
+        kind("lossless-rgb-p%d" % p, t(47, 61, 3, 80 + p),
+             "lossless=%d,%d" % (p, p % 3))
+    for p, pt in ((1, 2), (4, 5), (7, 7)):
+        kind("lossless-gray-p%d-pt%d" % (p, pt), t(61, 83, 1, 90 + p),
+             "lossless=%d,%d" % (p, pt))
+    kind("lossless-gray-restart", t(61, 83, 1, 100), "lossless=5,0",
+         "restart=166")
+    kind("lossless-rgb-restart-rows", t(47, 61, 3, 101), "lossless=6,1",
+         "rows=3")
+    kind("lossless-cmyk", t(30, 41, 4, 102), "lossless=3,0")
+    kind("lossless-1x1", t(1, 1, 1, 103), "lossless=1,0")
+    kind("lossless-rgb-2x3", t(2, 3, 3, 104), "lossless=7,0")
+    # without JFIF or Adobe marker libjpeg-turbo 3 takes a lossless file
+    # for RGB; with JFIF (YCbCr) or Adobe transform 2 (YCCK) it would
+    # have to convert colour, which it does not do in lossless mode
+    kind("lossless-rgb-no-marker", t(47, 61, 3, 105), "lossless=4,0",
+         post=lambda d: without_segment(d, 0xEE))
+    kind("lossless-jfif", t(47, 61, 3, 106), "lossless=2,0",
+         post=lambda d: d[:2] + _JFIF + without_segment(d, 0xEE)[2:],
+         raises="lossless YCbCr")
+    kind("lossless-ycck", t(30, 41, 4, 107), "lossless=3,0",
+         post=lambda d: with_adobe_transform(d, 2), raises="lossless YCCK")
+    # no writer makes lossless arithmetic coding (SOF11): one byte patched
+    kind("lossless-arithmetic", t(37, 45, 1, 108), "lossless=1,0",
+         post=lambda d: d.replace(b"\xff\xc3", b"\xff\xcb", 1),
+         raises="SOF11")
+    kind("lossless-6-bit", t(37, 45, 1, 109) >> 2, "lossless=1,0", prec=6,
+         raises="6-bit precision")
+    kind("12-bit", t(37, 45, 1, 110).astype(np.uint16) * 16, prec=12,
+         raises="12-bit")
+    # arithmetic coding
+    for q in (50, 90):
+        kind("arith-gray-q%d" % q, t(61, 83, 1, 111 + q), "arith",
+             "q=%d" % q)
+    for name, samp in (("420", "2,2"), ("422", "2,1"), ("440", "1,2"),
+                       ("444", "1,1")):
+        kind("arith-" + name, t(47, 61, 3, 120 + len(kinds)), "arith",
+             "samp=%s,1,1,1,1" % samp)
+        kind("arith-prog-" + name, t(47, 61, 3, 130 + len(kinds)), "arith",
+             "prog", "samp=%s,1,1,1,1" % samp)
+    kind("arith-restart", t(47, 61, 3, 140), "arith", "restart=3")
+    kind("arith-restart-rows", t(47, 61, 1, 141), "arith", "rows=1")
+    kind("arith-prog-restart", t(61, 47, 3, 142), "arith", "prog",
+         "restart=5")
+    for L, U, K in ((2, 5, 20), (0, 0, 1), (5, 15, 63), (1, 3, 0)):
+        kind("arith-dac-%d-%d-%d" % (L, U, K), t(47, 61, 3, 150 + K),
+             "arith", "q=90", "dc=%d,%d" % (L, U), "ack=%d" % K)
+    kind("arith-prog-dac", t(47, 61, 3, 160), "arith", "prog", "q=90",
+         "dc=1,3", "ack=0")
+    kind("arith-cmyk", t(30, 41, 4, 161), "arith")
+    kind("arith-prog-cmyk", t(30, 41, 4, 162), "arith", "prog")
+    kind("arith-1x1", t(1, 1, 3, 163), "arith")
+    kind("arith-prog-17x23", t(17, 23, 3, 164), "arith", "prog")
+    # unrefined coefficients: block smoothing, as for Huffman files
+    for scans in (1, 2, 3, 5):
+        kind("arith-prog-smooth-%d" % scans, t(61, 47, 3, 11), "arith",
+             "prog", "q=70", post=lambda d, s=scans: truncated(d, s))
+    return kinds
+
+
+def truncated(data, scans):
+    """`data` cut after its first `scans` scans, EOI appended."""
+    import test_torch_image_formats as cases
+    sos = [s for s in cases.segments(data) if s[0] == 0xDA]
+    return data[: sos[scans - 1][2]] + b"\xff\xd9"
+
+
+def block_kinds(w):
+    """Arithmetic-coded files on both sides of PIL's 65536-byte read
+    block, sized by an APP9 segment: a file of 65536 bytes (its scan ends
+    in the block) and one of 65537, sequential and progressive; a header
+    that ends past 65536 with its scan inside the next block (PIL reads
+    it), and a scan that starts in the first block and ends in the next
+    (PIL refuses it)."""
+    import test_torch_image_formats as cases
+    t = cases.texture
+    out = []
+    for name, px, opts in (("arith", t(60, 100, 1, 170), ("arith", "q=92")),
+                           ("arith-prog", t(60, 100, 3, 171),
+                            ("arith", "prog", "q=92"))):
+        base = len(w.write(w.tmp / "base.jpg", px, *opts))
+        for what, size in (("fits", 65536), ("past", 65537)):
+            app = size - base - 4
+            out.append(("%s-block-%s" % (name, what), px,
+                        opts + ("app=%d" % app,), size,
+                        "PIL cannot read it" if what == "past" else None))
+    px = t(120, 200, 1, 172)
+    out.append(("arith-sos-past-block", px, ("arith", "q=92", "app=66000"),
+                None, None))
+    out.append(("arith-sos-block-past", px, ("arith", "q=92", "app=60000"),
+                None, "PIL cannot read it"))
+    return out
+
+
+def pil_refuses(path):
+    import PIL.Image
+    try:
+        with PIL.Image.open(path) as im:
+            im.convert("L")
+    except Exception:
+        return True
+    return False
+
+
+def write_more(out, manifest):
+    """more/: the genuine libjpeg-turbo files, and the TIFF and BMP cases
+    of tests/test_torch_image_formats_more.py (those PIL reads and those
+    both refuse); their manifest entries."""
+    import test_torch_image_formats_more as more_cases
+    more = out / "more"
+    if more.exists():
+        shutil.rmtree(more)
+    more.mkdir(parents=True)
+
+    def entry(path, raises):
+        rel = str(path.relative_to(out))
+        if raises:
+            if not pil_refuses(path):
+                raise RuntimeError("%s: PIL reads it" % rel)
+            manifest[rel] = {"raises": raises}
+        else:
+            manifest[rel] = pil_entry(path)
+    with tempfile.TemporaryDirectory() as tmp:
+        w = LibJpeg(tmp)
+        for name, px, opts, post, raises, prec in libjpeg_kinds():
+            path = more / ("jpeg-%s.jpg" % name)
+            data = w.write(path, px, *opts, prec=prec)
+            if post:
+                path.write_bytes(post(data))
+            entry(path, raises)
+        for name, px, opts, size, raises in block_kinds(w):
+            path = more / ("jpeg-%s.jpg" % name)
+            data = w.write(path, px, *opts)
+            if size is not None and len(data) != size:
+                raise RuntimeError("%s: %d bytes, not %d" % (
+                    path.name, len(data), size))
+            entry(path, raises)
+    for name, (suffix, make) in sorted(more_cases.CASES.items()):
+        path = more / ("%s.%s" % (name, suffix))
+        path.write_bytes(make())
+        entry(path, None)
+    for name, (suffix, make, word) in sorted(more_cases.REFUSED.items()):
+        path = more / ("%s.%s" % (name, suffix))
+        path.write_bytes(make())
+        entry(path, word)
+
+
+def lossless_pages(pages):
+    """The two pages as lossless JPEG: synth0000 through predictor 1,
+    synth0001 through predictor 6 with a restart every 32 rows (the
+    interval, 32 x 1312 MCUs, must stay below 65536)."""
+    import PIL.Image
+    with tempfile.TemporaryDirectory() as tmp:
+        w = LibJpeg(tmp)
+        for stem, opts in ((STEMS[0], ("lossless=1,0",)),
+                           (STEMS[1], ("lossless=6,0", "rows=32"))):
+            px = np.asarray(PIL.Image.open(PAGES / (stem + ".png")).convert(
+                "L"))
+            w.write(pages / (stem + ".lossless.jpg"), px, *opts)
+
+
 def write_files(out):
     """The small cases, the unsupported kinds and the pages; the
     manifest. -> manifest."""
@@ -403,6 +730,7 @@ def write_files(out):
             shutil.rmtree(d)
         d.mkdir(parents=True)
     manifest = {}
+    write_more(out, manifest)
     for name, (suffix, make) in sorted({**cases.CASES,
                                         **jp2.CASES}.items()):
         path = files / ("%s.%s" % (name, suffix))
@@ -437,6 +765,7 @@ def write_files(out):
         pages / (STEMS[1] + ".jp2"), "JPEG2000", irreversible=True,
         tile_size=(512, 512), quality_mode="rates",
         quality_layers=[JP2_RATE])
+    lossless_pages(pages)
     for path in sorted(pages.iterdir()):
         manifest[str(path.relative_to(out))] = pil_entry(path)
     (out / "manifest.json").write_text(json.dumps(manifest, indent=1,

@@ -333,18 +333,56 @@ def without_adobe(data):
 
 # ---------------------------------------------------------------- TIFF
 
-def tiff_file(px, photometric, bps, compression=1, bo="<", tile=None,
-              rows_per_strip=None, predictor=1, colormap=None, extra=()):
-    """A TIFF of samples `px` ((H, W) or (H, W, spp); bits below 8
-    packed MSB first): strips or `tile` (w, h) chunks, compression none
-    (1), Deflate (8) or PackBits (32773)."""
+def packbits(raw):
+    out, i = bytearray(), 0
+    while i < len(raw):
+        j = i
+        while j < len(raw) and j - i < 128 and raw[j] == raw[i]:
+            j += 1
+        if j - i >= 3:
+            out += struct.pack("b", 1 - (j - i)) + raw[i:i + 1]
+            i = j
+        else:
+            k = min(len(raw) - i, 5)
+            out += struct.pack("b", k - 1) + raw[i: i + k]
+            i += k
+    return bytes(out)
+
+
+def lzw(raw):
+    """libtiff's LZW of `raw`, through PIL: the one strip of a one-row
+    "L" image."""
+    n = max(len(raw), 1)
+    buf = io.BytesIO()
+    PIL.Image.frombytes("L", (n, 1), raw.ljust(n, b"\x00")).save(
+        buf, "TIFF", compression="tiff_lzw")
+    with PIL.Image.open(buf) as t:
+        off, cnt = t.tag_v2[273][0], t.tag_v2[279][0]
+    return buf.getvalue()[off: off + cnt]
+
+
+def tiff_file(px, photometric, bps=None, compression=1, bo="<", tile=None,
+              rows_per_strip=None, predictor=1, colormap=None, extra=(),
+              big=False, planar=False):
+    """A TIFF of samples `px` ((H, W) or (H, W, spp)): at `bps` bits
+    (below 8 packed MSB first), or with `bps` None the dtype's own
+    samples (8-32 bits, SampleFormat from its kind: signed, float);
+    classic or `big` (BigTIFF: 8-byte offsets, the chunk tables as
+    LONG8), chunky or `planar` (one set of chunks a sample), strips or
+    `tile` (w, h) chunks, compression none (1), LZW (5), Deflate (8) or
+    PackBits (32773), predictor 1, 2 or 3 (libtiff's fpDiff: each
+    value's bytes, most significant first, into byte planes, then byte
+    differences along the row); `extra` more IFD entries."""
     px = np.asarray(px)
     if px.ndim == 2:
         px = px[..., None]
     h, w, spp = px.shape
+    nbits = bps or 8 * px.dtype.itemsize
 
     def pack(a):
         rows = a.shape[0]
+        if bps is None:
+            return a.astype(a.dtype.newbyteorder(bo)).tobytes()
         if bps == 16:
             return a.astype(bo + "u2").tobytes()
         if bps == 8:
@@ -354,47 +392,46 @@ def tiff_file(px, photometric, bps, compression=1, bo="<", tile=None,
         return np.packbits(bits.reshape(rows, -1).astype(np.uint8),
                            axis=1).tobytes()
 
-    def compress(raw):
-        if compression == 8:
-            return zlib.compress(raw)
-        if compression == 32773:
-            out, i = bytearray(), 0
-            while i < len(raw):
-                j = i
-                while j < len(raw) and j - i < 128 and raw[j] == raw[i]:
-                    j += 1
-                if j - i >= 3:
-                    out += struct.pack("b", 1 - (j - i)) + raw[i:i + 1]
-                    i = j
-                else:
-                    k = min(len(raw) - i, 5)
-                    out += struct.pack("b", k - 1) + raw[i: i + k]
-                    i += k
-            return bytes(out)
-        return raw
+    def predicted(a):
+        if predictor == 2:
+            u = np.ascontiguousarray(a).view("u%d" % a.dtype.itemsize) \
+                if bps is None else a
+            d = np.diff(u.astype(np.int64), axis=1, prepend=0) % (1 << nbits)
+            return pack(d.astype(u.dtype) if bps is None else d)
+        if predictor == 3:
+            rows, cols, n = a.shape
+            planes = a.astype(a.dtype.newbyteorder(">")).view(
+                np.uint8).reshape(rows, cols * n, -1).transpose(0, 2, 1)
+            p = planes.reshape(rows, -1).astype(np.int64)
+            p[:, n:] -= planes.reshape(rows, -1)[:, :-n]
+            return (p % 256).astype(np.uint8).tobytes()
+        return pack(a)
 
+    compress = {5: lzw, 8: zlib.compress, 32773: packbits}.get(
+        compression, lambda raw: raw)
     chunks = []
-    if tile:
-        tw, th = tile
-        for y in range(0, h, th):
-            for x in range(0, w, tw):
-                t = np.zeros((th, tw, spp), px.dtype)
-                part = px[y: y + th, x: x + tw]
-                t[: part.shape[0], : part.shape[1]] = part
-                if predictor == 2:
-                    t = np.diff(t.astype(np.int64), axis=1, prepend=0)
-                    t = t % (1 << bps)
-                chunks.append(compress(pack(t)))
-    else:
-        rps = rows_per_strip or h
-        for y in range(0, h, rps):
-            s = px[y: y + rps]
-            if predictor == 2:
-                s = np.diff(s.astype(np.int64), axis=1, prepend=0) % (1 << bps)
-            chunks.append(compress(pack(s)))
-    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp),
+    for plane in ([px[..., s: s + 1] for s in range(spp)] if planar
+                  else [px]):
+        if tile:
+            tw, th = tile
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    t = np.zeros((th, tw, plane.shape[2]), px.dtype)
+                    part = plane[y: y + th, x: x + tw]
+                    t[: part.shape[0], : part.shape[1]] = part
+                    chunks.append(compress(predicted(t)))
+        else:
+            rps = rows_per_strip or h
+            for y in range(0, h, rps):
+                chunks.append(compress(predicted(plane[y: y + rps])))
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [nbits] * spp),
                (259, 3, [compression]), (262, 3, [photometric]),
                (277, 3, [spp])]
+    fmt = {"i": 2, "f": 3}.get(px.dtype.kind) if bps is None else None
+    if fmt:
+        entries.append((339, 3, [fmt] * spp))
+    if planar:
+        entries.append((284, 3, [2]))
     if predictor != 1:
         entries.append((317, 3, [predictor]))
     if colormap is not None:
@@ -405,36 +442,43 @@ def tiff_file(px, photometric, bps, compression=1, bo="<", tile=None,
         entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]])]
     else:
         entries.append((278, 4, [rows_per_strip or h]))
-    data = bytearray(b"II*\x00" if bo == "<" else b"MM\x00*")
-    data += struct.pack(bo + "I", 0)
+    data = bytearray(16 if big else 8)
     offsets = []
     for c in chunks:
         offsets.append(len(data))
         data += c
-    entries += [(off_tag, 4, offsets), (cnt_tag, 4, [len(c) for c in chunks])]
+    long_t, field = (16, 8) if big else (4, 4)
+    entries += [(off_tag, long_t, offsets),
+                (cnt_tag, long_t, [len(c) for c in chunks])]
     entries.sort()
-    fmt = {3: "H", 4: "I"}
+    code = {3: "H", 4: "I", 16: "Q"}
     blobs = {}
     for tag, typ, vals in entries:
-        size = {3: 2, 4: 4}[typ] * len(vals)
-        if size > 4:
+        size = struct.calcsize(code[typ]) * len(vals)
+        if size > field:
             if len(data) % 2:
                 data += b"\x00"
             blobs[tag] = len(data)
-            data += struct.pack(bo + fmt[typ] * len(vals), *vals)
+            data += struct.pack(bo + code[typ] * len(vals), *vals)
     if len(data) % 2:
         data += b"\x00"
     ifd = len(data)
-    data[4:8] = struct.pack(bo + "I", ifd)
-    data += struct.pack(bo + "H", len(entries))
+    if big:
+        data[:16] = (b"II+\x00" if bo == "<" else b"MM\x00+") + \
+            struct.pack(bo + "HHQ", 8, 0, ifd)
+        data += struct.pack(bo + "Q", len(entries))
+    else:
+        data[:8] = (b"II*\x00" if bo == "<" else b"MM\x00*") + \
+            struct.pack(bo + "I", ifd)
+        data += struct.pack(bo + "H", len(entries))
     for tag, typ, vals in entries:
-        data += struct.pack(bo + "HHI", tag, typ, len(vals))
+        data += struct.pack(bo + "HH" + code[long_t], tag, typ, len(vals))
         if tag in blobs:
-            data += struct.pack(bo + "I", blobs[tag])
+            data += struct.pack(bo + code[long_t], blobs[tag])
         else:
-            v = struct.pack(bo + fmt[typ] * len(vals), *vals)
-            data += v + b"\x00" * (4 - len(v))
-    data += struct.pack(bo + "I", 0)
+            v = struct.pack(bo + code[typ] * len(vals), *vals)
+            data += v + b"\x00" * (field - len(v))
+    data += b"\x00" * field
     return bytes(data)
 
 
@@ -927,13 +971,18 @@ def test_segment_stage_on_a_jpeg_page(tmp_path, capsys):
         zip_entries(b / "crop.out/segment.zip")
 
 
+# the arithmetic-coded and lossless kinds PIL refuses, as genuine
+# libjpeg-turbo files of the fixture (tests/test_torch_image_formats_more.py
+# holds the ones it reads): a scan past PIL's 65536-byte read block, and
+# lossless at 6 bits
+MORE = ROOT / "tests/data/torch_formats/more"
 UNSUPPORTED = {
-    "arithmetic JPEG": ("jpg", lambda: jpeg_bytes(
-        texture(16, 16, 1, 60)).replace(b"\xff\xc0", b"\xff\xc9", 1),
-        "arithmetic"),
-    "lossless JPEG": ("jpg", lambda: jpeg_bytes(
-        texture(16, 16, 1, 61)).replace(b"\xff\xc0", b"\xff\xc3", 1),
-        "lossless"),
+    "arithmetic JPEG": ("jpg", lambda: (
+        MORE / "jpeg-arith-block-past.jpg").read_bytes(),
+        "arithmetic-coded scan"),
+    "lossless JPEG": ("jpg", lambda: (
+        MORE / "jpeg-lossless-6-bit.jpg").read_bytes(),
+        "lossless at 6-bit precision"),
     "12-bit JPEG": ("jpg", lambda: twelve_bit(jpeg_bytes(
         texture(16, 16, 1, 62))), "12-bit"),
     "old-style JPEG YCbCr TIFF": ("tif", lambda: old_jpeg_tiff(
