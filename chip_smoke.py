@@ -301,6 +301,23 @@ Phases (any failure exits non-zero before the result line):
      "lossless jpeg chain"); (c) host decode ms a page of each lossless
      page and of the PNG fixture page written here as BigTIFF, planar
      RGB and CMYK, beside the PNG of the same pixels.
+ 25. the last TIFF kinds PIL reads (tests/data/torch_formats,
+     scripts/make_torch_formats_fixture.py): (a) every file of tiff/
+     (old-style JPEG of one and three components, from a
+     JPEGInterchangeFormat stream and from the tables tags; YCbCr under
+     none, LZW, Deflate and PackBits at each sub-sampling libtiff reads,
+     strips, tiles and planes; old-style LZW; 12-bit gray) and the two
+     old-style JPEG pages at PIL's convert("L") digest and size, the
+     kinds both refuse (CIELab among them) and those PIL misreads
+     raising with their names; (b) the two old-style JPEG pages (2 x 2,
+     strips of 64 rows, one of each form) through PipelinedRunner on the
+     main path as phase 21 (b) runs the JPEG pages: every page
+     COMPLETED, launches exactly phase 12's, page.txt within
+     PORT_CHAIN_MAX_CER of the JAX chain on the same files (the kernels
+     line lists these launches as "old-style JPEG chain"); (c) host
+     decode ms a page of each old-style JPEG page and of the PNG fixture
+     page written here as YCbCr 2 x 2 under LZW (its pixels against the
+     PNG page's), beside the PNG of the same pixels.
 
 Each phase prints its seconds.
 
@@ -6313,11 +6330,15 @@ DECODE_REPS = 5
 
 
 def parity_phase(rel):
-    """The phase whose decode parity checks a manifest entry: 24 the
-    lossless and arithmetic JPEG, BigTIFF, planar, CMYK, float, signed
-    and associated-alpha TIFF and BMP files of more/ and the lossless
-    pages, 22 JPEG 2000 files and TIFFs of JPEG strips, 21 the rest."""
+    """The phase whose decode parity checks a manifest entry: 25 the
+    old-style JPEG, YCbCr, old-style LZW and 12-bit TIFF files of tiff/
+    and the old-style JPEG pages, 24 the lossless and arithmetic JPEG,
+    BigTIFF, planar, CMYK, float, signed and associated-alpha TIFF and BMP
+    files of more/ and the lossless pages, 22 JPEG 2000 files and TIFFs of
+    JPEG strips, 21 the rest."""
     name = rel.rsplit("/", 1)[-1]
+    if rel.startswith("tiff/") or name.endswith(OJPEG):
+        return 25
     if rel.startswith("more/") or name.endswith(".lossless.jpg"):
         return 24
     if name.endswith((".jp2", ".j2k", ".jpeg.tif")) or \
@@ -6520,12 +6541,16 @@ def tiff_page_bytes(px, kind):
     to it, by plain byte packing: "tif" (uncompressed), "deflate" (Deflate
     with the horizontal predictor), "bigtiff" (little-endian BigTIFF,
     LONG8 offsets), "planar" (RGB, R = G = B = the page, one plane a
-    sample) or "cmyk" (C = M = Y = 0, K = 255 - the page)."""
+    sample), "cmyk" (C = M = Y = 0, K = 255 - the page) or "ycbcr"
+    (YCbCr sub-sampled 2 x 2, Y = the page, Cb = Cr = 128, in libtiff's
+    blocks of 4 Y samples, Cb and Cr, under LZW: lzw_literals)."""
     import struct
     import zlib
     h, w = px.shape
     big = kind == "bigtiff"
-    if kind == "planar":
+    if kind == "ycbcr":
+        spp, photometric, planes = 3, 6, []
+    elif kind == "planar":
         spp, photometric, planes = 3, 2, [px] * 3
     elif kind == "cmyk":
         cmyk = np.zeros((h, w, 4), np.uint8)
@@ -6540,6 +6565,15 @@ def tiff_page_bytes(px, kind):
         chunks = [zlib.compress(np.diff(px[y: y + rps], axis=1,
                                         prepend=np.uint8(0)).tobytes())
                   for y in range(0, h, rps)]
+    if kind == "ycbcr":
+        chunks = []
+        for y in range(0, h, rps):
+            strip = px[y: y + rps]
+            rows = strip.shape[0]
+            blocks = np.full((rows // 2, w // 2, 6), 128, np.uint8)
+            blocks[..., :4] = strip.reshape(rows // 2, 2, w // 2, 2).transpose(
+                0, 2, 1, 3).reshape(rows // 2, w // 2, 4)
+            chunks.append(lzw_literals(blocks.tobytes()))
     data = bytearray(16 if big else 8)
     offsets = []
     for c in chunks:
@@ -6547,12 +6581,14 @@ def tiff_page_bytes(px, kind):
         data += c
     long_t, field = (16, 8) if big else (4, 4)
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * spp),
-               (259, 3, [8 if kind == "deflate" else 1]),
+               (259, 3, [{"deflate": 8, "ycbcr": 5}.get(kind, 1)]),
                (262, 3, [photometric]), (273, long_t, offsets),
                (277, 3, [spp]), (278, 4, [rps]),
                (279, long_t, [len(c) for c in chunks]),
                (284, 3, [2 if kind == "planar" else 1]),
                (317, 3, [2 if kind == "deflate" else 1])]
+    if kind == "ycbcr":
+        entries.append((530, 3, [2, 2]))
     code = {3: "H", 4: "I", 16: "Q"}
     blobs = {}
     for tag, typ, vals in entries:
@@ -6574,6 +6610,21 @@ def tiff_page_bytes(px, kind):
     return bytes(data + b"\x00" * field)
 
 
+def lzw_literals(raw):
+    """Bytes -> a TIFF LZW stream (9-bit codes, most significant bit
+    first) that holds each byte as its literal code: CLEAR before every
+    250 bytes, so that the table never reaches the first 10-bit code, and
+    EOI at the end. Valid LZW that any decoder reads, at 9/8 of the
+    bytes."""
+    raw = np.frombuffer(raw, np.uint8)
+    n = raw.size
+    codes = np.full(n + -(-n // 250) + 1, 256, np.uint16)
+    codes[np.arange(n) + np.arange(n) // 250 + 1] = raw
+    codes[-1] = 257
+    bits = (codes[:, None] >> np.arange(8, -1, -1, dtype=np.uint16)) & 1
+    return np.packbits(bits.astype(np.uint8).ravel()).tobytes()
+
+
 def decode_timings(workdir, timed=FORMATS_TIMED,
                    write=("bmp", "tif", "deflate.tif")):
     """Phase 21 (c), 22 (c) with `timed` the JP2 and JPEG-in-TIFF pages
@@ -6591,7 +6642,10 @@ def decode_timings(workdir, timed=FORMATS_TIMED,
         path = workdir / ("%s.%s" % (FORMATS_PAGES[0], name))
         path.write_bytes(_bmp.encode_gray(page) if name == "bmp" else
                          tiff_page_bytes(page, name.split(".")[0]))
-        if not np.array_equal(_image.read_gray(path), page):
+        differ = int((_image.read_gray(path) != page).sum())
+        log("  %s: %d pixels differ from the PNG page's  %s" % (
+            path.name, differ, "ok" if not differ else "FAIL"))
+        if differ:
             raise PhaseError("%s does not decode to its pixels" % path.name)
         written.append(path)
     rows = {}
@@ -6703,6 +6757,30 @@ def check_more_formats(workdir, device="cuda"):
     launches = check_lossless_chain(workdir, device)
     decode_timings(workdir, LOSSLESS_TIMED,
                    ("bigtiff.tif", "planar.tif", "cmyk.tif"))
+    return launches, time.time() - t0
+
+
+# ---------------------------------------------------------------- phase 25
+
+OJPEG = ".ojpeg.tif"
+# phase 25c: the old-style JPEG pages, each beside the PNG of its pixels
+OJPEG_TIMED = tuple(stem + OJPEG for stem in FORMATS_PAGES)
+
+
+def check_tiff_kinds(workdir, device="cuda"):
+    """Phase 25: (a) decode parity of tiff/ (old-style JPEG, YCbCr outside
+    JPEG, old-style LZW, 12-bit gray; the kinds both refuse, CIELab among
+    them, and those PIL misreads, raising with their names) and of the
+    old-style JPEG pages; (b) the two old-style JPEG pages through
+    PipelinedRunner (check_jpeg_chain) against the JAX chain on the same
+    files (tests/data/torch_formats/chain_ojpeg); (c) host decode times of
+    those pages and of the PNG page written as YCbCr 2 x 2 under LZW. ->
+    (launches of (b), seconds)."""
+    t0 = time.time()
+    check_decode_parity(25)
+    launches = check_jpeg_chain(workdir, device, OJPEG, "old-style JPEG",
+                                FORMATS_REF / "chain_ojpeg")
+    decode_timings(workdir, OJPEG_TIMED, ("ycbcr.tif",))
     return launches, time.time() - t0
 
 
@@ -7304,7 +7382,19 @@ def main():
         if differ:
             raise PhaseError("lossless JPEG chain launches (got, phase "
                              "12's) %s" % differ)
-        phase_seconds(24, t_phase)
+        t_phase = phase_seconds(24, t_phase)
+
+        log("== phase 25: old-style JPEG, YCbCr, old-style LZW and 12-bit "
+            "TIFF: decode parity against PIL, the chain on the old-style "
+            "JPEG pages, host decode times (%s)" % smi)
+        ojpeg_launches, _ = check_tiff_kinds(work)
+        differ = {k: (v, whole["banded"][k]) for k, v in
+                  ojpeg_launches.items() if v != whole["banded"][k]
+                  and ("banded", k) not in WHOLE_CHAIN_AT_MOST}
+        if differ:
+            raise PhaseError("old-style JPEG chain launches (got, phase "
+                             "12's) %s" % differ)
+        phase_seconds(25, t_phase)
 
     # each kernel's launches in the phase-12 run of its own path
     total = {k: whole["gather" if k in OTHER_PATH_KERNELS else "banded"][k]
@@ -7327,11 +7417,12 @@ def main():
     # and the remote runner's segment stage
     for name, paths in tools_by_path.items():
         by_path.setdefault(name, {}).update(paths)
-    # phases 21, 22 and 24's JPEG, JP2 and lossless JPEG pages on the main
-    # path: phase 12's launches again
+    # phases 21, 22, 24 and 25's JPEG, JP2, lossless JPEG and old-style
+    # JPEG pages on the main path: phase 12's launches again
     for path, counts in (("jpeg chain", jpeg_launches),
                          ("jp2 chain", jp2_launches),
-                         ("lossless jpeg chain", lossless_launches)):
+                         ("lossless jpeg chain", lossless_launches),
+                         ("old-style JPEG chain", ojpeg_launches)):
         for name, n in counts.items():
             if n:
                 by_path.setdefault(name, {})[path] = n

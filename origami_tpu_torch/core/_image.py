@@ -8,7 +8,7 @@ and writes into a JPEG saved from it. The reader is chosen by the
 file's magic bytes, not its suffix, as PIL chooses it: PNG
 (core/_png.py), JPEG (core/_jpeg.py: lossless and arithmetic-coded
 too), TIFF (core/_tiff.py: classic and BigTIFF, planar, CMYK, signed and
-float samples too), BMP (core/_bmp.py) and JPEG 2000, JP2 or a raw
+float samples, YCbCr, old-style JPEG and old-style LZW too), BMP (core/_bmp.py) and JPEG 2000, JP2 or a raw
 codestream (core/_jp2.py). Anything else, and every kind PIL refuses,
 raises ValueError; nothing falls back to another reader.
 """

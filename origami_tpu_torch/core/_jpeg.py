@@ -87,6 +87,32 @@ def decode(data, gray=False):
     return out[..., 0] if ch == 1 else out
 
 
+def planes(data):
+    """JPEG bytes -> [(h, v, uint8 plane)], each component's samples at its
+    own sampling as libjpeg's raw data output gives them (no upsampling,
+    no colour conversion): ceil(H * v / vmax) rows of ceil(W * h / hmax).
+    DCT files only."""
+    from origami_tpu_torch.geometry.native_bindings import _IP, _U8P
+    w, h, ncomp = info(data)
+    buf = np.frombuffer(data, np.uint8)
+    out = np.empty(max(w * h * ncomp, 1), np.uint8)
+    samp = np.zeros(8, np.int32)
+    err = ctypes.create_string_buffer(_ERR)
+    got = _lib().jpeg_planes(buf.ctypes.data_as(_U8P), buf.size,
+                             out.ctypes.data_as(_U8P),
+                             samp.ctypes.data_as(_IP), err, _ERR)
+    if got < 0:
+        raise ValueError(err.value.decode())
+    hmax, vmax = samp[0:2 * got:2].max(), samp[1:2 * got:2].max()
+    result, pos = [], 0
+    for i in range(got):
+        ch, cv = int(samp[2 * i]), int(samp[2 * i + 1])
+        dh, dw = -(-h * cv // vmax), -(-w * ch // hmax)
+        result.append((ch, cv, out[pos: pos + dh * dw].reshape(dh, dw)))
+        pos += dh * dw
+    return result
+
+
 def encode(array, quality=75, comment=None):
     """uint8 (H, W) gray or (H, W, 3) RGB -> PIL's JPEG bytes at
     `quality`; `comment` (bytes): the COM segment PIL writes from an

@@ -29,6 +29,9 @@
 // of the SOS header / 65536), and before the end of the file.
 //
 //   jpeg_decode(data, n, out, gray, err, errlen) -> channels written
+//   jpeg_planes(data, n, out, sampling, err, errlen) -> components: each
+//       component's samples at its own sampling, as libjpeg's raw data
+//       output gives them (what libtiff's old-style JPEG codec reads)
 //
 // `out` holds height * width * channels bytes: channels 1 for a
 // one-component file or `gray` (PIL's convert("L") of the RGB result),
@@ -289,6 +292,7 @@ class Decoder {
   }
 
   void decode(uint8_t* out, bool gray);
+  int planes(uint8_t* out, int* sampling);
   int channels(bool gray) const { return (ncomp_ == 1 || gray) ? 1 : 3; }
 
  private:
@@ -341,6 +345,7 @@ class Decoder {
                   long total);
   void arith_block(Arith& ar, Comp& c, int16_t* blk, int ss, int se, int ah,
                    int al);
+  void parse();
   void output(uint8_t* out, bool gray);
   bool smoothing_ok();
   void idct_plane(Comp& c, bool smooth, std::vector<uint8_t>& plane);
@@ -1436,7 +1441,7 @@ void Decoder::output(uint8_t* out, bool gray) {
   }
 }
 
-void Decoder::decode(uint8_t* out, bool gray) {
+void Decoder::parse() {
   if (n_ < 4 || data_[0] != 0xFF || data_[1] != 0xD8)
     throw Error("not a JPEG file");
   pos_ = 2;
@@ -1496,7 +1501,35 @@ void Decoder::decode(uint8_t* out, bool gray) {
   }
   if (!frame_) throw Error("corrupt JPEG: no frame");
   if (scans_ == 0) throw Error("corrupt JPEG: no scan");
+}
+
+void Decoder::decode(uint8_t* out, bool gray) {
+  parse();
   output(out, gray);
+}
+
+// libjpeg's raw data output (jpeg_read_raw_data): each component's
+// samples at its own sampling, ceil(height * v / vmax) rows of
+// ceil(width * h / hmax) samples, one plane after another; no upsampling,
+// no colour conversion. DCT files only (libjpeg-turbo has no raw output of
+// lossless data). -> components; `sampling` gets h, v of each.
+int Decoder::planes(uint8_t* out, int* sampling) {
+  parse();
+  if (lossless_)
+    throw Error("unsupported JPEG: raw planes of lossless (SOF3) data");
+  bool smooth = smoothing_ok();
+  for (int i = 0; i < ncomp_; i++) {
+    Comp& c = comp_[i];
+    if (!c.latched) throw Error("corrupt JPEG: a component has no scan");
+    std::vector<uint8_t> idct;
+    idct_plane(c, smooth, idct);
+    const int stride = c.bw_alloc * 8;
+    for (int y = 0; y < c.dh; y++, out += c.dw)
+      memcpy(out, idct.data() + (size_t)y * stride, c.dw);
+    sampling[2 * i] = c.h;
+    sampling[2 * i + 1] = c.v;
+  }
+  return ncomp_;
 }
 
 }  // namespace
@@ -1526,6 +1559,22 @@ int jpeg_info(const uint8_t* data, long n, int* info, char* err, int errlen) {
       }
       pos += len;
     }
+  } catch (const std::exception& e) {
+    snprintf(err, errlen, "%s", e.what());
+    return -1;
+  }
+}
+
+// `out` holds width * height * components bytes (each plane is at most
+// the image's size); `sampling` 8 ints.
+int jpeg_planes(const uint8_t* data, long n, uint8_t* out, int* sampling,
+                char* err, int errlen) {
+  try {
+    Decoder d(data, (size_t)n);
+    return d.planes(out, sampling);
+  } catch (const std::bad_alloc&) {
+    snprintf(err, errlen, "JPEG too large to decode");
+    return -1;
   } catch (const std::exception& e) {
     snprintf(err, errlen, "%s", e.what());
     return -1;

@@ -1,10 +1,12 @@
 // The TIFF codecs that libtiff decodes for PIL and that need a loop per
-// bit or byte: LZW (tif_lzw.c, MSB-first codes with early change),
-// PackBits, and CCITT fax (tif_fax3.c: Modified Huffman, T.4 Group 3
+// bit or byte: LZW (tif_lzw.c, MSB-first codes with early change, and
+// LZWDecodeCompat's old-style LSB-first codes without it), PackBits, and
+// CCITT fax (tif_fax3.c: Modified Huffman, T.4 Group 3
 // one- and two-dimensional, T.6 Group 4). core/_tiff.py parses the
 // file and does the rest in numpy.
 //
 //   tiff_lzw(in, n, out, cap) -> bytes written, or -1 on a bad code
+//   tiff_lzw_compat(in, n, out, cap) -> the same for old-style codes
 //   tiff_packbits(in, n, out, cap) -> bytes written
 //   tiff_fax(in, n, mode, t4options, width, rows, out, err, errlen)
 //       -> rows decoded, or -1 with a message in `err`; `out` gets one
@@ -79,6 +81,67 @@ long lzw(const uint8_t* in, long n, uint8_t* out, long cap) {
   return std::min(written, cap);
 }
 
+// tif_lzw.c LZWDecodeCompat: codes LSB first, each CLEAR restarting the
+// table at 258 and 9 bits; a code one bit wider only once the entry
+// (1 << nbits) - 1 is made. Entries go on past 4095 (unreachable with
+// 12-bit codes) up to libtiff's table of 5119, where it gives up; a code
+// no entry holds yet is corrupt. The data's end stands for EOI.
+long lzw_compat(const uint8_t* in, long n, uint8_t* out, long cap) {
+  const int kClear = 256, kEoi = 257, kSize = 4095 + 1024;
+  std::vector<int> prefix(kSize, -1), length(kSize, 0);
+  std::vector<uint8_t> suffix(kSize), first(kSize);
+  for (int i = 0; i < 256; i++) {
+    suffix[i] = first[i] = (uint8_t)i;
+    length[i] = 1;
+  }
+  int next = -1, nbits = 9, prev = -1;
+  long bitpos = 0, written = 0;
+  const long nbitsin = n * 8;
+  auto get = [&](int& code) {
+    if (bitpos + nbits > nbitsin) return false;
+    code = 0;
+    for (int i = 0; i < nbits; i++, bitpos++)
+      code |= ((in[bitpos >> 3] >> (bitpos & 7)) & 1) << i;
+    return true;
+  };
+  int code;
+  while (written < cap && get(code)) {
+    if (code == kEoi) break;
+    if (code == kClear) {
+      do {
+        std::fill(length.begin() + 258, length.end(), 0);
+        next = 258;
+        nbits = 9;
+        if (!get(code)) code = kEoi;
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return -1;
+      out[written++] = (uint8_t)code;
+      prev = code;
+      continue;
+    }
+    // before the first CLEAR libtiff's table has no free entry
+    if (next < 0 || next >= kSize || prev < 0) return -1;
+    prefix[next] = prev;
+    first[next] = first[prev];
+    length[next] = length[prev] + 1;
+    suffix[next] = code < next ? first[code] : first[next];
+    if (++next > (1 << nbits) - 1 && nbits < 12) nbits++;
+    if (code >= 256) {
+      if (length[code] == 0) return -1;
+      long end = written + length[code];
+      long pos = end - 1;
+      for (int c = code; c >= 0; c = c < 256 ? -1 : prefix[c], pos--)
+        if (pos < cap) out[pos] = suffix[c];
+      written = std::min(end, cap);
+    } else {
+      out[written++] = (uint8_t)code;
+    }
+    prev = code;
+  }
+  return written;
+}
+
 // ------------------------------------------------------------- PackBits
 
 long packbits(const uint8_t* in, long n, uint8_t* out, long cap) {
@@ -86,7 +149,10 @@ long packbits(const uint8_t* in, long n, uint8_t* out, long cap) {
   while (i < n && o < cap) {
     int c = (int8_t)in[i++];
     if (c >= 0) {
-      long k = std::min((long)c + 1, std::min(n - i, cap - o));
+      // tif_packbits.c: a literal run that the data cuts short ends the
+      // decode without a byte of it
+      long k = std::min((long)c + 1, cap - o);
+      if (n - i < k) break;
       memcpy(out + o, in + i, k);
       i += c + 1;
       o += k;
@@ -373,6 +439,10 @@ extern "C" {
 
 long tiff_lzw(const uint8_t* in, long n, uint8_t* out, long cap) {
   return lzw(in, n, out, cap);
+}
+
+long tiff_lzw_compat(const uint8_t* in, long n, uint8_t* out, long cap) {
+  return lzw_compat(in, n, out, cap);
 }
 
 long tiff_packbits(const uint8_t* in, long n, uint8_t* out, long cap) {

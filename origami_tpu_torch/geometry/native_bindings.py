@@ -133,6 +133,9 @@ def library():
     lib.jpeg_decode.restype = ctypes.c_int
     lib.jpeg_decode.argtypes = [_U8P, ctypes.c_long, _U8P, ctypes.c_int,
                                 ctypes.c_char_p, ctypes.c_int]
+    lib.jpeg_planes.restype = ctypes.c_int
+    lib.jpeg_planes.argtypes = [_U8P, ctypes.c_long, _U8P, _IP,
+                                ctypes.c_char_p, ctypes.c_int]
     lib.jpeg_encode.restype = ctypes.c_long
     lib.jpeg_encode.argtypes = [_U8P] + [ctypes.c_int] * 4 + [
         _U8P, ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
@@ -142,7 +145,7 @@ def library():
     lib.jp2_decode.restype = ctypes.c_int
     lib.jp2_decode.argtypes = [_U8P, ctypes.c_long, _U8P, ctypes.c_int,
                                ctypes.c_char_p, ctypes.c_int]
-    for name in ("tiff_lzw", "tiff_packbits"):
+    for name in ("tiff_lzw", "tiff_lzw_compat", "tiff_packbits"):
         getattr(lib, name).restype = ctypes.c_long
         getattr(lib, name).argtypes = [_U8P, ctypes.c_long, _U8P,
                                        ctypes.c_long]

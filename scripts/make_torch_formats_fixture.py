@@ -1,5 +1,5 @@
 """Build the page-format fixture that the PyTorch port's image readers are
-held against (chip_smoke.py phases 21 and 22), with PIL and the JAX
+held against (chip_smoke.py phases 21, 22, 24 and 25), with PIL and the JAX
 package on the CPU:
 
     tests/data/torch_formats/files/<case>.<ext>   every case of
@@ -30,6 +30,10 @@ package on the CPU:
         tests/test_torch_image_formats_more.py: BigTIFF, planar, CMYK,
         float and signed, associated-alpha TIFF, the BMP palettes PIL
         drops, sub-sampled lossless JPEG, and the kinds both refuse
+    tests/data/torch_formats/tiff/<case>.tif   the cases of
+        tests/test_torch_image_formats_tiff.py: old-style JPEG (both
+        forms), YCbCr outside JPEG, old-style LZW and 12-bit gray, the
+        kinds both refuse (CIELab among them) and those PIL misreads
     tests/data/torch_formats/pages/synth000{0,1}.jpg   the two pages of
         tests/data/torch_ocr/full as baseline gray JPEG (quality PAGE_Q),
         synth0000.progressive.jpg, synth0001.g4.tif (the page > 128),
@@ -39,7 +43,11 @@ package on the CPU:
         JP2_RATE), synth0001.jpeg.tif (JPEG-in-TIFF at quality TIFF_Q,
         strips of 64 rows), synth000{0,1}.lossless.jpg (lossless JPEG by
         libjpeg-turbo: predictor 1; predictor 6 with a restart every 32
-        rows), whose pixels are the PNG pages'
+        rows), whose pixels are the PNG pages';
+        synth000{0,1}.ojpeg.tif (the pages as RGB, old-style JPEG at
+        quality PAGE_Q, 2 x 2 sub-sampling, strips of 64 rows:
+        synth0000 a whole JFIF stream in JPEGInterchangeFormat, synth0001
+        the tables tags with a restart interval a strip)
     tests/data/torch_formats/manifest.json   {path: {"size": PIL's
         .size, "sha256": of PIL's convert("L") bytes} or {"raises": a
         word of the ValueError}}
@@ -52,10 +60,14 @@ package on the CPU:
         from the JAX layout read
     tests/data/torch_formats/chain_jp2/synth000{0,1}.out/compose.zip
         the same chain on the two JP2 pages
+    tests/data/torch_formats/chain_ojpeg/synth000{0,1}.ojpeg.out/
+        compose.zip   the same chain on the two old-style JPEG pages
 
     JAX_PLATFORMS=cpu python scripts/make_torch_formats_fixture.py [--only files,chain]
 
-`files` takes seconds, `chain` several minutes.
+`files` takes seconds, `chain` several minutes. `--only tiff` writes
+tiff/ and the old-style JPEG pages into the existing manifest alone,
+`--only chain_ojpeg` runs the JAX chain on those pages alone.
 """
 
 from __future__ import annotations
@@ -703,6 +715,40 @@ def write_more(out, manifest):
         entry(path, word)
 
 
+def write_tiff_kinds(out, manifest):
+    """tiff/: the cases of tests/test_torch_image_formats_tiff.py (those
+    PIL reads, those both refuse, those PIL misreads and the port
+    refuses), and the two old-style JPEG pages; their manifest
+    entries."""
+    import PIL.Image
+    import test_torch_image_formats_tiff as tiff_cases
+    folder = out / "tiff"
+    if folder.exists():
+        shutil.rmtree(folder)
+    folder.mkdir(parents=True)
+    for name in [k for k in manifest if k.startswith("tiff/") or
+                 k.endswith(".ojpeg.tif")]:
+        del manifest[name]
+    groups = ((tiff_cases.CASES, False), (tiff_cases.REFUSED, True),
+              (tiff_cases.MISREAD, False))
+    for cases, pil_fails in groups:
+        for name, (suffix, make, *word) in sorted(cases.items()):
+            path = folder / ("%s.%s" % (name.replace(" ", "-"), suffix))
+            path.write_bytes(make())
+            rel = str(path.relative_to(out))
+            if pil_refuses(path) != pil_fails:
+                raise RuntimeError("%s: PIL %s it" % (
+                    rel, "reads" if pil_fails else "refuses"))
+            manifest[rel] = {"raises": word[0]} if word else pil_entry(path)
+    for stem, make in ((STEMS[0], tiff_cases.ojpeg_interchange),
+                       (STEMS[1], tiff_cases.ojpeg_tables)):
+        page = np.asarray(PIL.Image.open(PAGES / (stem + ".png")).convert(
+            "RGB"))
+        path = out / "pages" / (stem + ".ojpeg.tif")
+        path.write_bytes(make(page, 64, quality=PAGE_Q))
+        manifest[str(path.relative_to(out))] = pil_entry(path)
+
+
 def lossless_pages(pages):
     """The two pages as lossless JPEG: synth0000 through predictor 1,
     synth0001 through predictor 6 with a restart every 32 rows (the
@@ -736,6 +782,7 @@ def write_files(out):
         path = files / ("%s.%s" % (name, suffix))
         path.write_bytes(make())
         manifest[str(path.relative_to(out))] = pil_entry(path)
+    write_tiff_kinds(out, manifest)
     for name, (suffix, make, word) in sorted(cases.UNSUPPORTED.items()):
         path = files / ("%s.%s" % (name.replace(" ", "-"), suffix))
         path.write_bytes(make())
@@ -768,9 +815,29 @@ def write_files(out):
     lossless_pages(pages)
     for path in sorted(pages.iterdir()):
         manifest[str(path.relative_to(out))] = pil_entry(path)
+    write_manifest(out, manifest)
+    return manifest
+
+
+def write_manifest(out, manifest):
     (out / "manifest.json").write_text(json.dumps(manifest, indent=1,
                                                   sort_keys=True))
+
+
+def update_tiff_kinds(out):
+    """tiff/ and the old-style JPEG pages into the existing manifest; the
+    file of the old-style JPEG YCbCr case that the port refused before it
+    read that kind goes."""
+    manifest = json.loads((out / "manifest.json").read_text())
+    moved = "files/old-style-JPEG-YCbCr-TIFF.tif"
+    manifest.pop(moved, None)
+    if (out / moved).exists():
+        (out / moved).unlink()
+    write_tiff_kinds(out, manifest)
+    write_manifest(out, manifest)
     return manifest
+
+
 
 
 def run_chain(out, suffix, folder, keep):
@@ -793,14 +860,15 @@ def run_chain(out, suffix, folder, keep):
             ROOT / "models_pretrained" / "recognizer"))).traverse(str(corpus))
         ComposeProcessor(dict(opts)).traverse(str(corpus))
         for stem in STEMS:
-            src = corpus / (stem + ".out")
+            out_dir = Path(stem + suffix).stem + ".out"   # the page's stem
+            src = corpus / out_dir
             rt = json.loads((src / "runtime.json").read_text())
             for stage, entry in sorted(rt.items()):
                 if entry.get("status") != "COMPLETED":
                     raise RuntimeError("%s %s: %s" % (stem, stage, entry))
-            (chain / (stem + ".out")).mkdir(parents=True)
+            (chain / out_dir).mkdir(parents=True)
             for name in keep:
-                shutil.copy(src / name, chain / (stem + ".out"))
+                shutil.copy(src / name, chain / out_dir)
             print(stem + suffix, "stages", sorted(rt))
 
 
@@ -813,9 +881,14 @@ def main():
     if "files" in only:
         manifest = write_files(OUT)
         print("%d files" % len(manifest))
+    elif "tiff" in only:
+        manifest = update_tiff_kinds(OUT)
+        print("%d files" % len(manifest))
     if "chain" in only:
         run_chain(OUT, ".jpg", "chain", CHAIN_KEEP)
         run_chain(OUT, ".jp2", "chain_jp2", ("compose.zip",))
+    if "chain" in only or "chain_ojpeg" in only:
+        run_chain(OUT, ".ojpeg.tif", "chain_ojpeg", ("compose.zip",))
     total = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print("tests/data/torch_formats: %d bytes" % total)
 

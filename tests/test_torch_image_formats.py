@@ -985,8 +985,6 @@ UNSUPPORTED = {
         "lossless at 6-bit precision"),
     "12-bit JPEG": ("jpg", lambda: twelve_bit(jpeg_bytes(
         texture(16, 16, 1, 62))), "12-bit"),
-    "old-style JPEG YCbCr TIFF": ("tif", lambda: old_jpeg_tiff(
-        texture(16, 16, 3, 63), 6), "old-style JPEG of 3 samples"),
 }
 
 
